@@ -1,0 +1,251 @@
+"""Decoder-only Transformer LM — port of :mod:`raydp_tpu.models.transformer`
+(forward only, so far).
+
+Same architecture and numerics as the reference: pre-RMSNorm blocks, rotary
+position embeddings, SwiGLU MLP; ``dtype`` sets the activations while the
+parameters stay float32. Parameters keep the reference's Flax layout and
+names (``block_0.attn.q.kernel`` is ``params["block_0"]["attn"]["q"]
+["kernel"]``), so :func:`raydp_tpu_torch.models.convert.transformer_params_from_flax`
+carries weights across unchanged. Where the reference's dtype rules are
+subtle the port copies them:
+
+- a ``Dense`` casts its input and its f32 kernel to ``dtype`` before the
+  product (Flax ``promote_dtype``);
+- ``RMSNorm`` rounds to the input's type and then multiplies by an f32
+  scale, so under bf16 its output is float32;
+- RoPE angles are float32, the result is cast back to the input's type;
+- the materialized head runs in ``dtype`` and casts the logits to float32,
+  while :func:`lm_loss_fused` multiplies the float32 hidden states by the
+  float32 kernel.
+
+Attention: ``"flash"`` (the Hopper kernel on CUDA, its plain version on the
+CPU), ``"dense"`` (reference path), ``"auto"`` (flash on CUDA, dense on the
+CPU). The sequence-sharded ``"ring"`` path and ``mesh`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from raydp_tpu_torch.device import DeviceLike, resolve_device
+from raydp_tpu_torch.ops.flash_attention import flash_attention
+from raydp_tpu_torch.ops.ring_attention import dense_attention
+
+_ATTENTION_KINDS = ("auto", "flash", "dense")
+# std of a standard normal truncated to [-2, 2] (Flax's truncated_normal)
+_TRUNC_STD = 0.87962566103423978
+
+
+def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
+                     base: float = 10000.0) -> torch.Tensor:
+    """Apply RoPE. x: [B, T, H, D]; positions: [T] global token positions."""
+    d_half = x.shape[-1] // 2
+    freqs = torch.from_numpy(1.0 / (base ** (np.arange(0, d_half) / d_half)))
+    freqs = freqs.to(device=x.device, dtype=torch.float32)
+    angles = positions.to(torch.float32)[:, None] * freqs[None, :]  # [T, D/2]
+    cos = torch.cos(angles)[None, :, None, :]
+    sin = torch.sin(angles)[None, :, None, :]
+    x1, x2 = x[..., :d_half], x[..., d_half:]
+    return torch.cat([x1 * cos - x2 * sin,
+                      x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+class _Dense(nn.Module):
+    """Bias-free Flax ``Dense``/``DenseGeneral``: ``kernel`` has shape
+    ``in_shape + out_shape`` and contracts the input's trailing
+    ``len(in_shape)`` dims; input and kernel are cast to ``dtype`` first."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.dtype = dtype
+        self.n_in = len(in_shape)
+        self.kernel = nn.Parameter(
+            torch.empty(*in_shape, *out_shape, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # Flax's default lecun_normal: truncated normal, variance 1/fan_in
+        fan_in = math.prod(self.kernel.shape[:self.n_in])
+        std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
+        nn.init.trunc_normal_(self.kernel, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tensordot(x.to(self.dtype), self.kernel.to(self.dtype),
+                               dims=self.n_in)
+
+
+class _Embed(nn.Module):
+    """Flax ``Embed``: an f32 table, rows returned in ``dtype``."""
+
+    def __init__(self, num: int, dim: int, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(num, dim, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # Flax's default_embed_init: normal with variance 1/dim
+        nn.init.normal_(self.embedding, 0.0, 1.0 / math.sqrt(
+            self.embedding.shape[1]), generator=generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.embedding).to(self.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, device: DeviceLike = None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim,
+                                             device=resolve_device(device)))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        # bf16 x times an f32 tensor promotes to f32, as in the reference
+        return (x * torch.rsqrt(var + self.eps)).to(x.dtype) * self.scale
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, attention: str = "auto",
+                 mesh: Any = None, dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        if attention == "ring" or mesh is not None:
+            raise NotImplementedError(
+                "ring attention / sequence-sharded mesh: not ported yet "
+                "(ROADMAP queue 1)")
+        if attention not in _ATTENTION_KINDS:
+            raise ValueError(f"attention must be one of {_ATTENTION_KINDS}, "
+                             f"got {attention!r}")
+        self.attention = attention
+        head_dim = dim // num_heads
+        for name in ("q", "k", "v"):
+            self.add_module(name, _Dense((dim,), (num_heads, head_dim),
+                                         dtype, device))
+        self.o = _Dense((num_heads, head_dim), (dim,), dtype, device)
+
+    def _dispatch(self, device: torch.device) -> str:
+        if self.attention != "auto":
+            return self.attention
+        return "flash" if device.type == "cuda" else "dense"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = x.shape[1]
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        positions = torch.arange(t, device=x.device)
+        q = rotary_embedding(q, positions)
+        k = rotary_embedding(k, positions)
+        if self._dispatch(x.device) == "flash":
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            out = dense_attention(q, k, v, causal=True)
+        return self.o(out)
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
+                 attention: str = "auto", mesh: Any = None,
+                 dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        hidden = mlp_ratio * dim
+        self.ln1 = RMSNorm(dim, device=device)
+        self.attn = Attention(dim, num_heads, attention, mesh, dtype, device)
+        self.ln2 = RMSNorm(dim, device=device)
+        self.gate = _Dense((dim,), (hidden,), dtype, device)
+        self.up = _Dense((dim,), (hidden,), dtype, device)
+        self.down = _Dense((hidden,), (dim,), dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        h = self.ln2(x)
+        gate = self.gate(h)
+        # SwiGLU. jax.nn.silu lowers to x * (1 / (1 + exp(-x))) with every op
+        # rounded to dtype; torch.sigmoid rounds once and differs under bf16
+        silu = gate * (1 / (1 + torch.exp(-gate)))
+        return x + self.down(silu * self.up(h))
+
+
+class TransformerLM(nn.Module):
+    """Causal LM: tokens [B, T] (int) → logits [B, T, vocab] float32.
+
+    Parameters are created on ``device`` (default CUDA; raises without it)
+    and drawn from ``generator`` (default: a generator on ``device`` seeded
+    with 0) with the reference's Flax initializers; the values differ from a
+    JAX init, so parity tests load converted Flax weights instead."""
+
+    def __init__(self, vocab_size: int, dim: int = 256, num_heads: int = 4,
+                 num_layers: int = 2, mlp_ratio: int = 4,
+                 attention: str = "auto", mesh: Any = None,
+                 dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.num_layers = num_layers
+        self.embed = _Embed(vocab_size, dim, dtype, device)
+        for i in range(num_layers):
+            self.add_module(f"block_{i}", Block(
+                dim, num_heads, mlp_ratio, attention, mesh, dtype, device))
+        self.ln_f = RMSNorm(dim, device=device)
+        self.lm_head = _Dense((dim,), (vocab_size,), dtype, device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        with torch.no_grad():
+            for module in self.modules():
+                if module is not self and hasattr(module, "reset_parameters"):
+                    module.reset_parameters(generator)
+
+    def forward(self, tokens: torch.Tensor,
+                return_hidden: bool = False) -> torch.Tensor:
+        """``return_hidden=True`` yields the post-norm hidden states [B,T,D]
+        for :func:`lm_loss_fused`; ``self.lm_head(hidden).float()`` is then
+        exactly the logits this call would return."""
+        x = self.embed(tokens)
+        for i in range(self.num_layers):
+            x = getattr(self, f"block_{i}")(x)
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x).float()
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy (shifted); tokens [B, T], logits [B, T, V]."""
+    vocab = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].reshape(-1, vocab),
+                           tokens[:, 1:].reshape(-1).long())
+
+
+def lm_loss_fused(hidden: torch.Tensor, lm_head_kernel: torch.Tensor,
+                  tokens: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """Next-token cross entropy with the lm_head applied per T-chunk, so the
+    [B, T, V] float32 logits never exist at once (peak B×chunk×V).
+
+    The value of the reference's ``lm_loss_fused``; its ``jax.checkpoint``
+    rematerialisation belongs to training and is not ported yet.
+    ``hidden`` [B, T, D] from ``model(tokens, return_hidden=True)``;
+    ``lm_head_kernel`` [D, V] = ``model.lm_head.kernel``."""
+    b, t, _ = hidden.shape
+    x, y = hidden[:, :-1], tokens[:, 1:].long()
+    n = t - 1
+    kernel = lm_head_kernel.to(hidden.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, n, chunk):
+        logits = (x[:, start:start + chunk] @ kernel).float()
+        total = total + F.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]),
+            y[:, start:start + chunk].reshape(-1), reduction="sum")
+    return total / (b * n)

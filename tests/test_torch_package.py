@@ -1,0 +1,121 @@
+"""raydp_tpu_torch as a package: no JAX, no reference imports, no quiet CPU
+fallback, and a kernel wrapper that refuses what its kernel does not take."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from raydp_tpu_torch import resolve_device
+from raydp_tpu_torch.models import TransformerLM
+from raydp_tpu_torch.models.transformer import Attention, Block, RMSNorm
+from raydp_tpu_torch.ops import _build
+from raydp_tpu_torch.ops import flash_attention as tfa
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_imports_neither_jax_nor_the_reference():
+    code = (
+        "import pkgutil, importlib, sys, raydp_tpu_torch\n"
+        "for m in pkgutil.walk_packages(raydp_tpu_torch.__path__, "
+        "'raydp_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith(('jax.', 'flax', 'optax')) or n == 'raydp_tpu' or "
+        "n.startswith('raydp_tpu.'))\n"
+        "assert 'raydp_tpu_torch.models.transformer' in sys.modules\n"
+        "print(bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_default_device_model_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TransformerLM(64, dim=16, num_heads=2, num_layers=1)
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: RMSNorm(16, **kw),
+    lambda **kw: Attention(16, 2, **kw),
+    lambda **kw: Block(16, 2, **kw),
+], ids=["RMSNorm", "Attention", "Block"])
+def test_default_device_modules_raise_without_cuda(no_cuda, make):
+    """Each public module resolves its device as the model does: CUDA by
+    default, an error without it, the CPU only when asked for."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    assert all(p.device.type == "cpu" for p in make(device="cpu").parameters())
+
+
+def _qkv3(bh=2, t=16, d=64, dtype=torch.float32):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(bh, t, d, generator=g).to(dtype) for _ in range(3)]
+
+
+def test_fwd_cuda_refuses_cpu_tensors():
+    """The kernel wrapper never hands CPU tensors to the plain version: a
+    dispatch mistake raises instead of hiding behind the plain path."""
+    before = tfa.FWD_LAUNCHES
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tfa._fwd_cuda(*_qkv3(), 0.125, True)
+    assert tfa.FWD_LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["head_dim", "dtype", "mixed", "shape"])
+def test_fwd_cuda_refuses_what_the_kernel_does_not_take(case):
+    q, k, v = _qkv3()
+    if case == "head_dim":
+        q, k, v = _qkv3(d=48)
+    elif case == "dtype":
+        q, k, v = _qkv3(dtype=torch.float16)
+    elif case == "mixed":
+        v = v.bfloat16()
+    else:
+        k = k[:, :8]
+    with pytest.raises(ValueError):
+        tfa._fwd_cuda(q, k, v, 0.125, True)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A missing compiler is an error, never a quiet fallback."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("flash_attention_fwd")
+
+
+def test_library_path_tracks_source_content(monkeypatch, tmp_path):
+    """An unchanged source maps to the same library; an edited one to a new
+    library, so a stale build is never loaded."""
+    path = _build.library_path("flash_attention_fwd")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("flash_attention_fwd-")
+    assert path == _build.library_path("flash_attention_fwd")
+    source = (_build.CSRC / "flash_attention_fwd.cu").read_text()
+    (tmp_path / "flash_attention_fwd.cu").write_text(source)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.library_path("flash_attention_fwd") == path
+    (tmp_path / "flash_attention_fwd.cu").write_text(source + "\n// edit\n")
+    assert _build.library_path("flash_attention_fwd") != path
