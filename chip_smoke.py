@@ -4,32 +4,43 @@
     python3 chip_smoke.py
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   port's CUDA kernels from ``raydp_tpu_torch/csrc`` for sm_90a;
+   port's CUDA kernels from ``raydp_tpu_torch/csrc`` for sm_90a, one
+   ``nvcc`` per source, all started together;
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (plus a ragged and a small shape), and times
-   the kernel, the plain version and, as a yardstick the port never calls,
-   PyTorch's ``scaled_dot_product_attention``;
-3. drives the main path: full-width TransformerLM inference (dim 1024,
-   8 heads, 8 layers, vocab 32768, bf16 activations, f32 params from a
-   seeded generator) on three batches of B=2, T=8192 tokens through
-   ``attention="flash"``, with the kernel launch counters set to 0 just
-   before and read just after; checks logits, ``lm_loss`` and
-   ``lm_loss_fused``, and the flash model's logits against
-   ``attention="dense"`` on a T=2048 batch;
-4. prints one JSON line of kernel results, then the last line
+   shapes the main path gives it (plus a ragged and two small shapes), and
+   times the kernel, the plain version and, as a yardstick the port never
+   calls, PyTorch's ``scaled_dot_product_attention`` (its backward for the
+   two backward kernels);
+3. full-width TransformerLM inference (dim 1024, 8 heads, 8 layers, vocab
+   32768, bf16 activations, f32 params from a seeded generator) on three
+   batches of B=2, T=8192 tokens through ``attention="flash"``; checks
+   logits, ``lm_loss`` and ``lm_loss_fused``, and the flash model's logits
+   against ``attention="dense"`` on a T=2048 batch;
+4. the main path: full-width training of the same model with Adam(1e-3) on
+   one repeated B=2, T=8192 batch, 4 steps on ``lm_loss`` and 2 on
+   ``lm_loss_fused(remat=True)`` from the same initial weights; checks the
+   losses, the launches of all three kernels and that remat lowers the peak
+   memory;
+5. the full model's parameter gradients through flash vs dense attention at
+   T=2048 (f32 and bf16);
+6. prints one JSON line of kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Any failed check exits non-zero; so does a machine without CUDA.
+Every kernel launch counter is set to 0 just before each driven path (3 and
+both modes of 4) and read just after. Any failed check exits non-zero; so
+does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -53,10 +64,22 @@ KERNEL_SHAPES = [(2, 8192, 8, 128, torch.bfloat16, True),
 # magnitude in f32.
 OUT_TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
 LSE_ATOL = 1e-3
+# dq, dk, dv are held elementwise: |got - plain| <= rtol (|plain| + rms(plain)).
+# A recomputed product rounded to bf16 errs by ~2^-9 per term with random
+# sign, so over n terms by ~2^-9 of the result's rms; with the one final
+# rounding to bf16 (2^-7 of the smaller neighbour) that is one bf16 step.
+# f32: sums in another order. A dropped or doubled 64-row tile of an
+# 8192-row sum moves elements by ~9 % of rms, far past either limit.
+GRAD_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 
 VOCAB, DIM, HEADS, LAYERS = 32768, 1024, 8, 8
 BATCH, SEQ, BATCHES, SEED = 2, 8192, 3, 0
 DENSE_SEQ = 2048
+# training: bench.py's _lm_mode_run (Adam 1e-3, one repeated batch); steps on
+# lm_loss over materialized logits, then on lm_loss_fused(remat=True)
+LR, TRAIN_STEPS = 1e-3, {"lm_loss": 4, "lm_loss_fused": 2}
+# a random-init model's cross entropy lies near ln(VOCAB) = 10.397
+LOSS_RANGE = (9.0, 12.0)
 # lm_loss runs the head in bf16, lm_loss_fused in f32: per logit a relative
 # difference of up to 2^-8 (bf16), i.e. <= 0.02 at |logit| <= 5, which bounds
 # the difference of the mean cross entropy
@@ -67,6 +90,18 @@ FUSED_LOSS_ATOL = 2e-2
 # runs may differ by up to twice (√2 for independent errors, with margin) the
 # bf16 model's own error against f32, which the run measures.
 DENSE_REL_TOL_F32 = 1e-4
+# flash vs dense parameter gradients (relative L2 over all of them): the same
+# reasoning as for the logits
+GRAD_REL_TOL_F32 = 1e-4
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "flash_attention_fwd": ("raydp_tpu_torch/csrc/flash_attention_fwd.cu",
+                            "raydp_tpu/ops/flash_attention.py:45"),
+    "flash_attention_bwd_dkdv": (
+        "raydp_tpu_torch/csrc/flash_attention_bwd.cu",
+        "raydp_tpu/ops/flash_attention.py:190"),
+    "flash_attention_bwd_dq": ("raydp_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "raydp_tpu/ops/flash_attention.py:227"),
+}
 
 
 def require(ok: bool, what: str) -> None:
@@ -91,16 +126,51 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def attention_bound(bh: int, t: int, d: int, dtype: torch.dtype,
-                    causal: bool) -> tuple[float, str]:
-    """Least time (ms) for one forward: q/k/v read and out/lse written once;
-    QKᵀ and PV over the (q, k) pairs this run's mask keeps."""
+def attention_bound(kernel: str, bh: int, t: int, d: int,
+                    dtype: torch.dtype, causal: bool) -> tuple[float, str]:
+    """Least time (ms) for one call of ``kernel``: its [BH, T, D] tensors and
+    [BH, T] f32 rows read or written once; its [T, T] products over the
+    (q, k) pairs this run's mask keeps (2·D operations per pair each)."""
+    products, tensors, rows = {
+        "flash_attention_fwd": (2, 4, 1),       # s, pv; q k v out; lse
+        "flash_attention_bwd_dkdv": (4, 6, 2),  # s dp dv dk; q k v do dk dv
+        "flash_attention_bwd_dq": (3, 5, 2),    # s dp dq; q k v do dq
+    }[kernel]                                   # rows: lse (and delta)
     pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 4.0 * bh * d * pairs
-    nbytes = 4 * bh * t * d * torch.finfo(dtype).bits // 8 + bh * t * 4
+    flops = 2.0 * products * bh * d * pairs
+    nbytes = (tensors * bh * t * d * torch.finfo(dtype).bits // 8
+              + rows * bh * t * 4)
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def build_kernels(fa) -> None:
+    """Phase 1: one nvcc per source, all started together; print each log."""
+    from raydp_tpu_torch.ops import _build
+
+    def timed(name):
+        t0 = time.perf_counter()
+        return _build.build(name), time.perf_counter() - t0
+
+    names = ("flash_attention_fwd", "flash_attention_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(timed, names))
+    for lib, seconds in built:
+        print(f"built {lib.name} in {seconds:.1f} s")
+        print(lib.with_suffix(".log").read_text().strip())
+    fa._fwd_entry()
+    fa._bwd_entries()
+
+
+def zero_launches(fa) -> None:
+    fa.FWD_LAUNCHES = fa.DKDV_LAUNCHES = fa.DQ_LAUNCHES = 0
+
+
+def launches(fa) -> dict:
+    return {"flash_attention_fwd": fa.FWD_LAUNCHES,
+            "flash_attention_bwd_dkdv": fa.DKDV_LAUNCHES,
+            "flash_attention_bwd_dq": fa.DQ_LAUNCHES}
 
 
 def check_kernel(fa, device, gen) -> dict:
@@ -127,7 +197,8 @@ def check_kernel(fa, device, gen) -> dict:
         q4, k4, v4 = (x.view(b, h, t, d) for x in (q3, k3, v3))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal, scale=scale))
-        bound_ms, bound_by = attention_bound(b * h, t, d, dtype, causal)
+        bound_ms, bound_by = attention_bound("flash_attention_fwd", b * h, t,
+                                             d, dtype, causal)
         row = {"shape": [b, t, h, d], "dtype": str(dtype).split(".")[-1],
                "causal": causal, "max_abs_err": err_out,
                "out_tol": [atol, rtol], "out_tol_used": tol_used,
@@ -144,13 +215,86 @@ def check_kernel(fa, device, gen) -> dict:
     return main
 
 
-def profile_forward(model, tokens) -> None:
-    """Device time by kernel for one forward (torch.profiler, CUPTI)."""
+def rel_err(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> dict:
+    """Largest |got - ref| and the largest share of the elementwise limit
+    rtol (|ref| + rms(ref)) that any element uses (<= 1 passes)."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    limit = rtol * (ref.abs() + ref.square().mean().sqrt())
+    return {"max_abs_err": diff.max().item(),
+            "tol_used": (diff / limit).max().item(),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def check_bwd_kernels(fa, device, gen) -> dict:
+    """Phase 2: the dk/dv and dq kernels vs ``_bwd_plain`` at each shape,
+    from identical inputs (``do`` seeded, ``out`` and ``lse`` from the plain
+    forward). Returns the flagship shape's row of each kernel."""
+    import torch.nn.functional as F
+
+    main = {}
+    for b, t, h, d, dtype, causal in KERNEL_SHAPES:
+        bh, scale = b * h, 1.0 / math.sqrt(d)
+        q3, k3, v3, do = [torch.randn(bh, t, d, generator=gen, device=device)
+                          .to(dtype) for _ in range(4)]
+        out, lse = fa._fwd_plain(q3, k3, v3, scale, causal)
+        got = fa._bwd_cuda(q3, k3, v3, out, lse, do, scale, causal)
+        ref = fa._bwd_plain(q3, k3, v3, out, lse, do, scale, causal,
+                            fa.DEFAULT_BLOCK_K)
+        torch.cuda.synchronize()
+        errs = {name: rel_err(g, r, GRAD_RTOL[dtype])
+                for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
+        del got, ref
+
+        # each kernel alone on the inputs _bwd_cuda checked
+        delta = (do.float() * out.float()).sum(-1)
+        dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
+        inputs = (q3, k3, v3, do, lse, delta)
+        ms = {"flash_attention_bwd_dkdv": time_ms(lambda: fa._launch_bwd(
+                  "dkdv", *inputs, (dk, dv), scale, causal)),
+              "flash_attention_bwd_dq": time_ms(lambda: fa._launch_bwd(
+                  "dq", *inputs, (dq,), scale, causal))}
+        plain_ms = time_ms(lambda: fa._bwd_plain(
+            q3, k3, v3, out, lse, do, scale, causal, fa.DEFAULT_BLOCK_K),
+            reps=5)
+        q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_()
+                      for x in (q3, k3, v3))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=scale)
+        do4 = do.view(b, h, t, d)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            out4, (q4, k4, v4), do4, retain_graph=True))
+        shape = {"shape": [b, t, h, d], "dtype": str(dtype).split(".")[-1],
+                 "causal": causal, "grad_rtol": GRAD_RTOL[dtype], **{
+                     f"{n}_{k}": v for n, e in errs.items()
+                     for k, v in e.items() if k != "finite"}}
+        for name, kernel_ms in ms.items():
+            bound_ms, bound_by = attention_bound(name, bh, t, d, dtype, causal)
+            outputs = ("dk", "dv") if name.endswith("dkdv") else ("dq",)
+            row = {**shape, "ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by,
+                   "max_abs_err": max(errs[o]["max_abs_err"]
+                                      for o in outputs)}
+            print(f"kernel {name} " + json.dumps(row))
+            main.setdefault(name, row)
+        for name, e in errs.items():
+            require(e["finite"], f"non-finite {name} at {shape['shape']}")
+            require(e["tol_used"] <= 1.0,
+                    f"{name} differs from plain: {shape}")
+        del q3, k3, v3, do, out, lse, delta, dq, dk, dv, q4, k4, v4, out4
+        torch.cuda.empty_cache()
+    return main
+
+
+def profile_step(label: str, fn) -> None:
+    """Device time by kernel for one call of ``fn`` (torch.profiler,
+    CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.lm_head(model(tokens, return_hidden=True)).float()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -158,22 +302,36 @@ def profile_forward(model, tokens) -> None:
     if total_us <= 0:
         print("profile: no device time recorded (not measured)")
         return
-    print(f"profile: forward device time {total_us / 1e3:.3f} ms by kernel")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    print(f"profile: {label} device time {total_us / 1e3:.3f} ms by kernel")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
               f"{100 * e.self_device_time_total / total_us:5.1f}% "
               f"x{e.count:<4d} {e.key[:90]}")
 
 
+def make_model(device, attention: str = "flash",
+               dtype: torch.dtype = torch.bfloat16):
+    """The full-width model; the seeded generator gives every call the same
+    initial weights."""
+    from raydp_tpu_torch.models import TransformerLM
+
+    return TransformerLM(
+        VOCAB, dim=DIM, num_heads=HEADS, num_layers=LAYERS,
+        attention=attention, dtype=dtype, device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED))
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_lm(fa, device) -> dict:
-    """Phase 3: full-width TransformerLM inference, the main path."""
-    from raydp_tpu_torch.models import TransformerLM, lm_loss, lm_loss_fused
+    """Phase 3: full-width TransformerLM inference."""
+    from raydp_tpu_torch.models import lm_loss, lm_loss_fused
 
     def make(attention: str, dtype: torch.dtype = torch.bfloat16):
-        return TransformerLM(
-            VOCAB, dim=DIM, num_heads=HEADS, num_layers=LAYERS,
-            attention=attention, dtype=dtype, device=device,
-            generator=torch.Generator(device=device).manual_seed(SEED)).eval()
+        return make_model(device, attention, dtype).eval()
 
     model = make("flash")
     n_params = sum(p.numel() for p in model.parameters())
@@ -185,7 +343,7 @@ def run_lm(fa, device) -> dict:
           f"{BATCHES} batches of {BATCH}x{SEQ} tokens")
 
     torch.cuda.synchronize()
-    fa.FWD_LAUNCHES = 0
+    zero_launches(fa)
     seconds, results = [], []
     with torch.inference_mode():
         for tokens in batches:
@@ -201,7 +359,8 @@ def run_lm(fa, device) -> dict:
                             lm_loss_fused(hidden, model.lm_head.kernel,
                                           tokens).item()))
             del logits, hidden
-    launches = fa.FWD_LAUNCHES
+    counts = launches(fa)
+    launched = counts["flash_attention_fwd"]
 
     for i, (finite, shape, loss, fused) in enumerate(results):
         print(f"lm batch {i}: forward {seconds[i] * 1e3:.3f} ms, "
@@ -209,17 +368,18 @@ def run_lm(fa, device) -> dict:
               f"lm_loss_fused {fused:.6f}, |diff| {abs(loss - fused):.3e}")
         require(shape == (BATCH, SEQ, VOCAB), f"logits shape {shape}")
         require(finite, f"batch {i}: non-finite logits")
-        require(9.0 <= loss <= 12.0, f"batch {i}: lm_loss {loss} not near "
-                f"ln({VOCAB}) = {math.log(VOCAB):.3f}")
+        require(LOSS_RANGE[0] <= loss <= LOSS_RANGE[1], f"batch {i}: lm_loss "
+                f"{loss} not near ln({VOCAB}) = {math.log(VOCAB):.3f}")
         require(abs(loss - fused) <= FUSED_LOSS_ATOL,
                 f"batch {i}: lm_loss_fused {fused} vs lm_loss {loss}")
-    require(launches == LAYERS * BATCHES,
-            f"flash forward kernel launched {launches} times on the main "
-            f"path, expected {LAYERS * BATCHES}")
+    expected = {"flash_attention_fwd": LAYERS * BATCHES,
+                "flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0}
+    require(counts == expected,
+            f"inference launched {counts}, expected {expected}")
     steady = statistics.median(seconds[1:])
     print(f"lm forward: {BATCH * SEQ / steady:.1f} tokens/s steady "
           f"(median of batches 1..{BATCHES - 1}, {steady * 1e3:.3f} ms), "
-          f"first batch {seconds[0] * 1e3:.3f} ms; flash launches {launches}")
+          f"first batch {seconds[0] * 1e3:.3f} ms; flash launches {launched}")
 
     # reference check on a shorter batch, same weights: flash vs dense
     # attention in f32 (the wiring), and in bf16 against bf16's own error
@@ -251,8 +411,123 @@ def run_lm(fa, device) -> dict:
             f"bf16 flash vs dense relative error {rel_bf16} > 2 x {floor}")
     del logits
 
-    profile_forward(model, batches[1])
-    return {"launches": launches, "tokens_per_s": BATCH * SEQ / steady}
+    def forward():
+        with torch.inference_mode():
+            model.lm_head(model(batches[1], return_hidden=True)).float()
+
+    profile_step("forward", forward)
+    return {"launches": launched, "tokens_per_s": BATCH * SEQ / steady}
+
+
+def train_step(model, opt, tokens, mode: str) -> torch.Tensor:
+    """One Adam step on ``lm_loss`` (materialized logits) or on
+    ``lm_loss_fused(remat=True)``; returns the loss before the step."""
+    from raydp_tpu_torch.models import lm_loss, lm_loss_fused
+
+    opt.zero_grad(set_to_none=True)
+    if mode == "lm_loss":
+        loss = lm_loss(model(tokens), tokens)
+    else:
+        loss = lm_loss_fused(model(tokens, return_hidden=True),
+                             model.lm_head.kernel, tokens, remat=True)
+    loss.backward()
+    opt.step()
+    return loss
+
+
+def run_train(fa, device) -> dict:
+    """Phase 4, the main path: full-width training, the counterpart of
+    bench.py's ``_lm_mode_run``. Each mode starts from the same seeded
+    initial weights on a freshly emptied card; the launch counters are set
+    to 0 just before each mode's steps and read just after."""
+    tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, VOCAB, size=(BATCH, SEQ))).to(device)
+    result = {"launches": dict.fromkeys(launches(fa), 0)}
+    for mode, steps in TRAIN_STEPS.items():
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        model = make_model(device)
+        opt = torch.optim.Adam(model.parameters(), lr=LR,
+                               betas=(0.9, 0.999), eps=1e-8)
+        torch.cuda.synchronize()
+        zero_launches(fa)
+        losses, seconds = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(train_step(model, opt, tokens, mode).item())
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        counts = launches(fa)
+        peak = torch.cuda.max_memory_allocated()
+        steady = statistics.median(seconds[1:])
+        for i, (loss, sec) in enumerate(zip(losses, seconds)):
+            print(f"train {mode} step {i}: loss {loss:.6f}, "
+                  f"{sec * 1e3:.3f} ms, {BATCH * SEQ / sec:.1f} tokens/s")
+        print(f"train {mode}: {BATCH * SEQ / steady:.1f} tokens/s steady "
+              f"(median of steps 1..{steps - 1}, {steady * 1e3:.3f} ms), "
+              f"first step {seconds[0] * 1e3:.3f} ms; peak memory "
+              f"{peak / 2 ** 30:.3f} GiB; launches {counts}")
+        require(all(map(math.isfinite, losses)), f"{mode}: losses {losses}")
+        require(LOSS_RANGE[0] <= losses[0] <= LOSS_RANGE[1], f"{mode}: step-0 "
+                f"loss {losses[0]} not near ln({VOCAB}) = "
+                f"{math.log(VOCAB):.3f}")
+        require(all(n == LAYERS * steps for n in counts.values()),
+                f"{mode}: launches {counts}, expected {LAYERS * steps} each")
+        for name, n in counts.items():
+            result["launches"][name] += n
+        result[mode] = {"losses": losses, "peak_bytes": peak,
+                        "tokens_per_s": BATCH * SEQ / steady}
+        if mode == "lm_loss":
+            require(losses[-1] < losses[0],
+                    f"lm_loss did not fall on the repeated batch: {losses}")
+            profile_step("train step (lm_loss)",
+                         lambda: train_step(model, opt, tokens, mode))
+        del model, opt
+    a, b = result["lm_loss"], result["lm_loss_fused"]
+    require(abs(a["losses"][0] - b["losses"][0]) <= FUSED_LOSS_ATOL,
+            f"step-0 losses differ: lm_loss {a['losses'][0]}, "
+            f"lm_loss_fused {b['losses'][0]}")
+    require(b["peak_bytes"] < a["peak_bytes"],
+            f"remat peak {b['peak_bytes']} not below materialized "
+            f"{a['peak_bytes']}")
+    return result
+
+
+def check_grads(device) -> None:
+    """Phase 5: all parameter gradients of ``lm_loss`` at T=2048, same
+    initial weights, through flash vs dense attention: in f32 the wiring of
+    the backward kernels; in bf16 against bf16's own distance from f32."""
+    from raydp_tpu_torch.models import lm_loss
+
+    tokens = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, VOCAB, size=(BATCH, DENSE_SEQ))).to(device)
+    grads = {}
+    for attention in ("flash", "dense"):
+        for dtype in (torch.bfloat16, torch.float32):
+            model = make_model(device, attention, dtype)
+            lm_loss(model(tokens), tokens).backward()
+            grads[attention, dtype] = torch.cat(
+                [p.grad.flatten() for p in model.parameters()])
+            del model
+            free_memory()
+
+    def rel(a, b):
+        return ((grads[a] - grads[b]).norm() / grads[b].norm()).item()
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rel_f32 = rel(("flash", f32), ("dense", f32))
+    rel_bf16 = rel(("flash", bf16), ("dense", bf16))
+    floor = rel(("dense", bf16), ("dense", f32))
+    print(f"lm flash vs dense parameter gradients at T={DENSE_SEQ}, relative "
+          f"L2: f32 {rel_f32:.3e}; bf16 {rel_bf16:.3e} (bf16 dense vs f32 "
+          f"dense {floor:.3e})")
+    require(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+            "non-finite parameter gradients")
+    require(rel_f32 <= GRAD_REL_TOL_F32,
+            f"f32 flash vs dense gradient relative error {rel_f32}")
+    require(rel_bf16 <= 2 * floor,
+            f"bf16 flash vs dense gradient relative error {rel_bf16} > "
+            f"2 x {floor}")
 
 
 def main() -> int:
@@ -261,7 +536,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from raydp_tpu_torch import resolve_device
-    from raydp_tpu_torch.ops import _build
     from raydp_tpu_torch.ops import flash_attention as fa
 
     card = subprocess.run(
@@ -273,25 +547,28 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     device = resolve_device()
 
-    t0 = time.perf_counter()
-    lib = _build.build("flash_attention_fwd")
-    fa._fwd_entry()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    print(lib.with_suffix(".log").read_text().strip())
-
-    main_row = check_kernel(fa, device, torch.Generator(device=device)
-                            .manual_seed(SEED))
+    build_kernels(fa)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = {"flash_attention_fwd": check_kernel(fa, device, gen),
+            **check_bwd_kernels(fa, device, gen)}
+    free_memory()
     lm = run_lm(fa, device)
+    free_memory()
+    train = run_train(fa, device)
+    free_memory()
+    check_grads(device)
 
-    kernel = {"name": "flash_attention_fwd", "route": "cuda",
-              "source": "raydp_tpu_torch/csrc/flash_attention_fwd.cu",
-              "replaces": "raydp_tpu/ops/flash_attention.py:45",
-              "launches": lm["launches"],
-              **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train["launches"][name],
+            **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}}
+                                          "library_ms")}})
+    kernels[0]["launches_inference"] = lm["launches"]
     print(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,9 +6,9 @@ Pallas TPU kernel on a ported path becomes a kernel written by hand for
 Hopper under ``raydp_tpu_torch/csrc/``, built at first use by
 :mod:`raydp_tpu_torch.ops._build`.
 
-Ported so far: the long-context ``TransformerLM`` forward
-(:mod:`raydp_tpu_torch.models.transformer`) on the flash-attention forward
-kernel (:mod:`raydp_tpu_torch.ops.flash_attention`).
+Ported so far: the long-context ``TransformerLM``, inference and training
+(:mod:`raydp_tpu_torch.models.transformer`), on the flash-attention forward
+and backward kernels (:mod:`raydp_tpu_torch.ops.flash_attention`).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of quietly using the CPU.

@@ -28,11 +28,13 @@
 // bf16 tiles, A from registers), TMA loads with a multi-stage mbarrier ring,
 // warp specialisation and keeping tiles in bf16 to halve shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_attention_common.cuh"
+
 namespace {
+
+using namespace raydp_fa;
 
 constexpr int BLOCK_M = 64;               // query rows per thread block
 constexpr int BLOCK_N = 64;               // keys per k tile
@@ -40,17 +42,6 @@ constexpr int THREADS = 256;              // 16 x 16 threads
 constexpr int ROWS = BLOCK_M / 16;        // query rows per thread
 constexpr int COLS = BLOCK_N / 16;        // score columns per thread
 constexpr int P_STRIDE = BLOCK_N + 1;     // padded: no bank conflicts in P·V
-constexpr float NEG_INF = -1e30f;         // the reference's _NEG_INF
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Max / sum over the 16 lanes that share a query row (lanes tx = 0..15 of
 // one half warp): xor offsets below 16 never cross into the other half.
@@ -98,10 +89,7 @@ __global__ void __launch_bounds__(THREADS)
   out += head * D;
   lse += head;
 
-  for (int i = tid; i < BLOCK_M * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    qs[i] = q0 + r < t ? to_float(q[(size_t)(q0 + r) * D + c]) : 0.f;
-  }
+  load_rows<BLOCK_M, D, THREADS>(qs, D, q, q0, t);
 
   float m[ROWS], l[ROWS], acc[ROWS][DC];
 #pragma unroll
@@ -119,13 +107,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * BLOCK_N;
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BLOCK_N * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < t;
-      const size_t g = (size_t)(k0 + r) * D + c;
-      ks[r * K_STRIDE + c] = in ? to_float(k[g]) : 0.f;
-      vs[i] = in ? to_float(v[g]) : 0.f;
-    }
+    load_rows<BLOCK_N, D, THREADS>(ks, K_STRIDE, k, vs, D, v, k0, t);
     __syncthreads();
 
     // s = q · kᵀ for rows ty + 16 i, keys tx + 16 j
@@ -156,7 +138,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < COLS; ++j) {
         const int k_pos = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (k_pos >= t || (causal && q_pos < k_pos)) x = NEG_INF;
+        if (masked(q_pos, k_pos, t, causal)) x = NEG_INF;
         s[i][j] = x;
         tile_max = fmaxf(tile_max, x);
       }
@@ -219,19 +201,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
-                       void* lse, int bh, int t, int d, float scale,
-                       int causal, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, lse, bh, t, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, out, lse, bh, t, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, bh, t, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, bh, t, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // q, k, v, out: [bh, t, d] contiguous, bf16 (is_bf16 = 1) or f32; lse: [bh, t]
@@ -244,9 +213,11 @@ extern "C" int raydp_flash_attention_fwd(const void* q, const void* k,
                                          void* stream) {
   if (bh < 1 || bh > 65535 || t < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-                   ? dispatch_d<__nv_bfloat16>(q, k, v, out, lse, bh, t, d,
-                                               scale, causal, s)
-                   : dispatch_d<float>(q, k, v, out, lse, bh, t, d, scale,
-                                       causal, s));
+  return (int)with_dtype(is_bf16, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return with_head_dim(d, [&](auto dim) {
+      return launch<T, decltype(dim)::value>(q, k, v, out, lse, bh, t, scale,
+                                             causal, s);
+    });
+  });
 }

@@ -1,6 +1,7 @@
 """raydp_tpu_torch.models — ported model families.
 
-- :mod:`transformer` — the long-context TransformerLM (forward);
+- :mod:`transformer` — the long-context TransformerLM (forward, losses,
+  backward);
 - :mod:`convert` — Flax param trees → the port's state_dicts.
 """
 

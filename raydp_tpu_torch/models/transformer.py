@@ -1,5 +1,7 @@
-"""Decoder-only Transformer LM — port of :mod:`raydp_tpu.models.transformer`
-(forward only, so far).
+"""Decoder-only Transformer LM — port of :mod:`raydp_tpu.models.transformer`:
+the model, ``lm_loss`` and ``lm_loss_fused``, forward and backward (training
+runs ``torch.optim.Adam`` / ``AdamW`` over ``model.parameters()``, as the
+reference runs optax over its params).
 
 Same architecture and numerics as the reference: pre-RMSNorm blocks, rotary
 position embeddings, SwiGLU MLP; ``dtype`` sets the activations while the
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.ops.flash_attention import flash_attention
@@ -229,13 +232,26 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                            tokens[:, 1:].reshape(-1).long())
 
 
+def _chunk_ce_sum(x: torch.Tensor, kernel: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """Summed cross entropy of one chunk: hidden [B, C, D] @ kernel [D, V]."""
+    logits = (x @ kernel).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1), reduction="sum")
+
+
 def lm_loss_fused(hidden: torch.Tensor, lm_head_kernel: torch.Tensor,
-                  tokens: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+                  tokens: torch.Tensor, chunk: int = 1024,
+                  remat: bool = True) -> torch.Tensor:
     """Next-token cross entropy with the lm_head applied per T-chunk, so the
     [B, T, V] float32 logits never exist at once (peak B×chunk×V).
 
-    The value of the reference's ``lm_loss_fused``; its ``jax.checkpoint``
-    rematerialisation belongs to training and is not ported yet.
+    With ``remat`` (the reference's ``jax.checkpoint``) each chunk runs under
+    ``torch.utils.checkpoint``: the backward recomputes the chunk's logits
+    instead of keeping them, so training holds B×chunk×V at a time for one
+    extra head matmul. ``remat=False`` keeps every chunk's logits for the
+    backward. The last chunk may be shorter; the reference pads it and masks
+    the padding out, which has the same value and gradient.
     ``hidden`` [B, T, D] from ``model(tokens, return_hidden=True)``;
     ``lm_head_kernel`` [D, V] = ``model.lm_head.kernel``."""
     b, t, _ = hidden.shape
@@ -244,8 +260,10 @@ def lm_loss_fused(hidden: torch.Tensor, lm_head_kernel: torch.Tensor,
     kernel = lm_head_kernel.to(hidden.dtype)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for start in range(0, n, chunk):
-        logits = (x[:, start:start + chunk] @ kernel).float()
-        total = total + F.cross_entropy(
-            logits.reshape(-1, logits.shape[-1]),
-            y[:, start:start + chunk].reshape(-1), reduction="sum")
+        args = (x[:, start:start + chunk], kernel, y[:, start:start + chunk])
+        if remat:
+            total = total + checkpoint(
+                _chunk_ce_sum, *args, use_reentrant=False)
+        else:
+            total = total + _chunk_ce_sum(*args)
     return total / (b * n)

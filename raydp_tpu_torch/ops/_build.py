@@ -2,8 +2,9 @@
 
 Each ``raydp_tpu_torch/csrc/<name>.cu`` exposes a plain ``extern "C"``
 interface and is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-``raydp_tpu_torch/_build/<name>-<hash>.so``. The hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. A
+``raydp_tpu_torch/_build/<name>-<hash>.so``. The hash covers the source, every
+shared header ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. A
 missing compiler, a failed build or a failed load raises: there is no
 fallback. ``nvcc``'s own report (``-Xptxas=-v``: registers, shared memory,
 spills per kernel) is kept beside the library as ``<name>-<hash>.log``.
@@ -42,11 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives. Any source may
+    include any shared header, so each header's name and content count."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -7,10 +7,16 @@ walks the k tiles with the online-softmax state in registers, applies the
 causal block skip and masks a ragged sequence end itself, and writes the
 output and the per-row log-sum-exp.
 
+The backward is a pure recompute from (q, k, v, out, lse), as in the
+reference: two CUDA kernels (``csrc/flash_attention_bwd.cu``), the
+counterparts of ``_bwd_dkdv_kernel`` (one block per k tile walks the q tiles
+and accumulates dk, dv) and ``_bwd_dq_kernel`` (one block per q tile walks
+the k tiles and accumulates dq).
+
 Dispatch is by where the tensors lie, never by what fails: CPU tensors take
-the plain PyTorch version (``_fwd_plain``, the math of the reference's
-``_fwd_jnp``), CUDA tensors launch the kernel or raise. The backward kernels
-are not ported yet; differentiating through CUDA tensors raises.
+the plain PyTorch versions (``_fwd_plain``, the math of the reference's
+``_fwd_jnp``; ``_bwd_plain``, the math of its ``_bwd_blockwise``), CUDA
+tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -24,15 +30,44 @@ import torch
 from raydp_tpu_torch.device import require_cuda
 from raydp_tpu_torch.ops import _build
 
-# The reference's block defaults (TPU VMEM-sized). Kept for the signature; the
-# CUDA kernel uses its own compiled 64 x 64 tile.
+# The reference's block defaults (TPU VMEM-sized). ``block_k`` blocks the plain
+# backward's k loop, as in the reference; the CUDA kernels use their own
+# compiled 64 x 64 tiles.
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 _NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)          # the kernel's compiled head_dim instances
+HEAD_DIMS = (16, 32, 64, 128)          # the kernels' compiled head_dim instances
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-FWD_LAUNCHES = 0  # launches of the forward kernel (chip_smoke.py reads it)
+# launches of each kernel (chip_smoke.py sets them to 0 and reads them)
+FWD_LAUNCHES = 0
+DKDV_LAUNCHES = 0
+DQ_LAUNCHES = 0
+
+
+def _check_kernel_inputs(name: str, *tensors) -> torch.device:
+    """Raise unless the kernels take these [BH, T, D] tensors: one shape, all
+    bfloat16 or all float32, a head_dim in :data:`HEAD_DIMS`, 1 <= BH <=
+    65535, T >= 1, contiguous, on one CUDA device; return that device."""
+    shapes = [tuple(x.shape) for x in tensors]
+    if tensors[0].dim() != 3 or len(set(shapes)) != 1:
+        raise ValueError(f"{name} takes tensors of one shape [BH, T, D], "
+                         f"got {shapes}")
+    dtypes = {x.dtype for x in tensors}
+    if len(dtypes) != 1 or tensors[0].dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name} kernel takes tensors all bfloat16 or all "
+                         f"float32, got {[str(x.dtype) for x in tensors]}")
+    bh, t, d = shapes[0]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel is built for head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if not 1 <= bh <= 65535 or t < 1:
+        raise ValueError(f"{name} kernel takes 1 <= BH <= 65535 and T >= 1, "
+                         f"got BH={bh}, T={t}")
+    device = require_cuda(name, *tensors)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} kernel takes contiguous tensors")
+    return device
 
 
 def _fwd_plain(q3, k3, v3, scale: float, causal: bool):
@@ -65,24 +100,8 @@ def _fwd_cuda(q3, k3, v3, scale: float, causal: bool):
     unsupported dtypes, non-contiguous or mismatched [BH, T, D] shapes, a
     head_dim outside :data:`HEAD_DIMS`, or a launch the runtime refuses."""
     global FWD_LAUNCHES
-    if q3.dim() != 3 or not (q3.shape == k3.shape == v3.shape):
-        raise ValueError("flash forward takes q/k/v of one shape [BH, T, D], "
-                         f"got {tuple(q3.shape)}, {tuple(k3.shape)}, "
-                         f"{tuple(v3.shape)}")
-    if not (q3.dtype == k3.dtype == v3.dtype) or q3.dtype not in _KERNEL_DTYPES:
-        raise ValueError("flash forward kernel takes q/k/v all bfloat16 or "
-                         f"all float32, got {q3.dtype}, {k3.dtype}, {v3.dtype}")
+    device = _check_kernel_inputs("flash forward", q3, k3, v3)
     bh, t, d = q3.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash forward kernel is built for head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
-    if not 1 <= bh <= 65535 or t < 1:
-        raise ValueError(f"flash forward kernel takes 1 <= BH <= 65535 and "
-                         f"T >= 1, got BH={bh}, T={t}")
-    device = require_cuda("flash forward", q3, k3, v3)
-    if not (q3.is_contiguous() and k3.is_contiguous() and v3.is_contiguous()):
-        raise ValueError("flash forward kernel takes contiguous q/k/v")
-
     out = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -112,36 +131,125 @@ def _fit_block(t: int, blk: int) -> int:
     return max(blk, 1)
 
 
+def _bwd_plain(q3, k3, v3, out, lse, do, scale: float, causal: bool,
+               blk_k: int = DEFAULT_BLOCK_K):
+    """Plain backward → (dq, dk, dv), the math of the reference's
+    ``_bwd_blockwise``: f32 throughout, one k block of ``_fit_block(t,
+    blk_k)`` keys at a time (memory O(T·blk)), ``p`` recomputed from ``lse``
+    under the ``-1e30`` causal mask, results in the input dtypes."""
+    bh, t, d = q3.shape
+    blk = _fit_block(t, blk_k)
+    qf, dof = q3.float(), do.float()
+    delta = (dof * out.float()).sum(-1)                        # [BH, T]
+    q_pos = torch.arange(t, device=q3.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty_like(qf)
+    dv = torch.empty_like(qf)
+    for start in range(0, t, blk):
+        keys = slice(start, start + blk)
+        kb, vb = k3[:, keys].float(), v3[:, keys].float()
+        s = torch.einsum("bqd,bkd->bqk", qf, kb) * scale
+        if causal:
+            k_pos = torch.arange(start, start + blk, device=q3.device)
+            s = s.masked_fill(q_pos[:, None] < k_pos[None, :], _NEG_INF)
+        p = torch.exp(s - lse[..., None])                      # [BH, T, blk]
+        dv[:, keys] = torch.einsum("bqk,bqd->bkd", p, dof)
+        dp = torch.einsum("bqd,bkd->bqk", dof, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bqk,bkd->bqd", ds, kb)
+        dk[:, keys] = torch.einsum("bqk,bqd->bkd", ds, qf)
+    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+@functools.cache
+def _bwd_entries():
+    """{"dkdv": entry, "dq": entry} of the backward library."""
+    lib = _build.load("flash_attention_bwd")
+    entries = {"dkdv": lib.raydp_flash_attention_bwd_dkdv,
+               "dq": lib.raydp_flash_attention_bwd_dq}
+    tail = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+    for name, n_out in (("dkdv", 2), ("dq", 1)):
+        entries[name].argtypes = [ctypes.c_void_p] * (6 + n_out) + tail
+        entries[name].restype = ctypes.c_int
+    return entries
+
+
+def _launch_bwd(kernel: str, q3, k3, v3, do, lse, delta, outs, scale: float,
+                causal: bool) -> None:
+    """Launch one backward kernel on inputs :func:`_bwd_cuda` has checked:
+    ``"dkdv"`` writes ``outs`` = (dk, dv), ``"dq"`` writes ``outs`` = (dq,).
+    Counts the launch; raises if the runtime refuses it."""
+    global DKDV_LAUNCHES, DQ_LAUNCHES
+    bh, t, d = q3.shape
+    with torch.cuda.device(q3.device):
+        err = _bwd_entries()[kernel](
+            *(x.data_ptr() for x in (q3, k3, v3, do, lse, delta, *outs)),
+            bh, t, d, scale, int(causal), _KERNEL_DTYPES[q3.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash backward {kernel} kernel launch failed: "
+                           f"CUDA error {err} at BH={bh}, T={t}, D={d}, "
+                           f"{q3.dtype}")
+    if kernel == "dkdv":
+        DKDV_LAUNCHES += 1
+    else:
+        DQ_LAUNCHES += 1
+
+
+def _bwd_cuda(q3, k3, v3, out, lse, do, scale: float, causal: bool):
+    """Launch the Hopper dk/dv and dq kernels; same contract as
+    :func:`_bwd_plain` (whose ``blk_k`` blocking the kernels do not need).
+
+    Raises on anything the kernels do not take, as :func:`_fwd_cuda` does,
+    and on an ``lse`` that is not the forward's contiguous [BH, T] f32."""
+    if (lse.shape != q3.shape[:2] or lse.dtype != torch.float32
+            or lse.device != q3.device or not lse.is_contiguous()):
+        raise ValueError(f"flash backward takes the forward's contiguous lse "
+                         f"[BH, T] float32 beside q, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
+    _check_kernel_inputs("flash backward", q3, k3, v3, out, do)
+    delta = (do.float() * out.float()).sum(-1)                 # [BH, T] f32
+    dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
+    inputs = (q3, k3, v3, do, lse, delta)
+    _launch_bwd("dkdv", *inputs, (dk, dv), scale, causal)
+    _launch_bwd("dq", *inputs, (dq,), scale, causal)
+    return dq, dk, dv
+
+
+def _bwd(q3, k3, v3, out, lse, do, scale: float, causal: bool, blk_k: int):
+    if q3.device.type == "cpu":
+        return _bwd_plain(q3, k3, v3, out, lse, do, scale, causal, blk_k)
+    return _bwd_cuda(q3, k3, v3, out, lse, do, scale, causal)
+
+
 class _Flash(torch.autograd.Function):
     """Mirror of the reference's ``custom_vjp`` ``_flash``: the forward saves
-    (q, k, v, out, lse) for a recompute backward. On CUDA the backward kernels
-    are not ported yet and differentiating raises; on the CPU the backward
-    differentiates the plain forward."""
+    (q, k, v, out, lse) and the backward recomputes from them
+    (``_flash_bwd``): the two backward kernels on CUDA, ``_bwd_plain`` on
+    the CPU."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, scale: float, causal: bool):
+    def forward(ctx, q3, k3, v3, scale: float, causal: bool, blk_k: int):
         out, lse = _fwd(q3, k3, v3, scale, causal)
         ctx.save_for_backward(q3, k3, v3, out, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.blk_k = scale, causal, blk_k
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q3, k3, v3, _, _ = ctx.saved_tensors
-        if q3.device.type != "cpu":
-            raise NotImplementedError(
-                "flash backward kernels: ROADMAP queue 2 items 2-3")
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_() for x in (q3, k3, v3)]
-            out, _ = _fwd_plain(*inputs, ctx.scale, ctx.causal)
-            dq, dk, dv = torch.autograd.grad(out, inputs, g)
-        return dq, dk, dv, None, None
+        # the incoming gradient comes through the [B, H, T, D] -> [B, T, H, D]
+        # transpose and may be strided; the kernels read contiguous rows, so
+        # this is a plain copy when it is not
+        dq, dk, dv = _bwd(*ctx.saved_tensors, g.contiguous(), ctx.scale,
+                          ctx.causal, ctx.blk_k)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_fwd(q3, k3, v3, causal: bool = True,
                         scale: Optional[float] = None):
-    """Forward on the [BH, T, D] layout → (out [BH, T, D], lse [BH, T] f32).
-    The backward (next port slice) reads ``lse``; tests check it too."""
+    """Forward on the [BH, T, D] layout → (out [BH, T, D], lse [BH, T] f32),
+    the residuals the backward recomputes from."""
     scale = scale if scale is not None else 1.0 / (q3.shape[-1] ** 0.5)
     return _fwd(q3, k3, v3, scale, causal)
 
@@ -152,14 +260,15 @@ def flash_attention(q, k, v, causal: bool = True,
                     block_k: int = DEFAULT_BLOCK_K):
     """Memory-efficient exact attention. q/k/v: [B, T, H, D] → [B, T, H, D].
 
-    ``block_q``/``block_k`` keep the reference's signature; the CUDA kernel
-    runs its own compiled 64 x 64 tile and the CPU path is unblocked, so
-    neither changes the result."""
+    ``block_k`` blocks the plain backward's k loop as the reference's does;
+    ``block_q`` keeps the reference's signature. The CUDA kernels run their
+    own compiled 64 x 64 tiles and the plain forward is unblocked, so neither
+    changes the result beyond f32 summation order."""
     b, t, h, d = q.shape
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
 
     def to3(x):
         return x.transpose(1, 2).reshape(b * h, t, d)
 
-    out3 = _Flash.apply(to3(q), to3(k), to3(v), scale, causal)
+    out3 = _Flash.apply(to3(q), to3(k), to3(v), scale, causal, block_k)
     return out3.reshape(b, h, t, d).transpose(1, 2)

@@ -1,10 +1,12 @@
 """Port parity: raydp_tpu_torch flash attention (CPU path) vs the JAX reference.
 
-The port's CPU path is the plain PyTorch forward (``_fwd_plain``); the JAX
-side runs its jnp path and its Pallas forward kernel in interpret mode, as
-tests/test_transformer.py does. Inputs are made with numpy from a seed and
-handed to both. Tolerances: f32 outputs atol 2e-5 (f32 sums in another
-order); lse atol 1e-5 (a log of an f32 sum of O(T) terms).
+The port's CPU path is the plain PyTorch forward (``_fwd_plain``) and
+backward (``_bwd_plain``); the JAX side runs its jnp path and its Pallas
+kernels in interpret mode, as tests/test_transformer.py does. Inputs are made
+with numpy from a seed and handed to both. Tolerances: f32 outputs atol 2e-5
+(f32 sums in another order); lse atol 1e-5 (a log of an f32 sum of O(T)
+terms); f32 gradients atol 1e-4, as the reference's own gradient tests; bf16
+gradients one bf16 step (see ``_assert_within_bf16_step``).
 """
 
 import jax
@@ -80,9 +82,9 @@ def test_dense_attention_matches_jax(causal):
 
 
 def test_flash_cpu_grads_match_jax():
-    """On the CPU the autograd Function's backward differentiates the plain
-    forward; gradients agree with the reference's custom_vjp (atol 1e-4, as
-    the reference's own grad test)."""
+    """On the CPU the autograd Function's backward is ``_bwd_plain``, the
+    recompute from the saved (q, k, v, out, lse); gradients agree with the
+    reference's custom_vjp (atol 1e-4, as the reference's own grad test)."""
     q, k, v = _qkv(2, 64, 2, 32, seed=4)
 
     def jloss(q, k, v):
@@ -91,6 +93,106 @@ def test_flash_cpu_grads_match_jax():
     g_ref = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     tq, tk, tv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     (tfa.flash_attention(tq, tk, tv, causal=True) ** 2).sum().backward()
+    for ref, got in zip(g_ref, (tq.grad, tk.grad, tv.grad)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
+
+
+def _bwd_case(bh, t, d, seed, causal, dtype=torch.float32):
+    """Numpy (q, k, v, out, lse, do) [BH, T, D] with out/lse from the plain
+    forward, so both packages' backwards get identical residuals."""
+    rng = np.random.RandomState(seed)
+    q3, k3, v3, do = [torch.from_numpy((rng.randn(bh, t, d) * 0.5)
+                                       .astype(np.float32)).to(dtype)
+                      for _ in range(4)]
+    out, lse = tfa._fwd_plain(q3, k3, v3, 1.0 / d ** 0.5, causal)
+    return q3, k3, v3, out, lse, do
+
+
+def _to_jax(x):
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    return jnp.asarray(x.numpy())
+
+
+@pytest.mark.parametrize("blocks", [(256, 256), (64, 64), (64, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_plain_matches_pallas_interpret_and_blockwise(causal, blocks):
+    """dq, dk, dv of ``_bwd_plain`` against the reference's Pallas dk/dv and
+    dq kernels (interpret mode) and its ``_bwd_blockwise``, on the blocks of
+    tests/test_transformer.py: multi-block grids up to 4 x 4, the causal
+    block skip, and rectangular blk_q != blk_k. f32, atol 1e-4."""
+    bq, bk = blocks
+    case = _bwd_case(4, 256, 64, seed=5, causal=causal)
+    q3, k3, v3, out, lse, do = case
+    scale = 1.0 / 8.0
+    res = tuple(map(_to_jax, (q3, k3, v3, out, lse)))
+    ref_pallas = jfa._bwd_pallas(res, _to_jax(do), scale=scale, causal=causal,
+                                 blk_q=bq, blk_k=bk, interpret=True)
+    ref_blockwise = jfa._bwd_blockwise(res, _to_jax(do), scale=scale,
+                                       causal=causal, blk_k=bk)
+    got = tfa._bwd_plain(*case, scale, causal, bk)
+    for g, rp, rb in zip(got, ref_pallas, ref_blockwise):
+        assert g.dtype == torch.float32 and g.shape == (4, 256, 64)
+        np.testing.assert_allclose(g.numpy(), np.asarray(rp), atol=1e-4)
+        np.testing.assert_allclose(g.numpy(), np.asarray(rb), atol=1e-4)
+
+
+@pytest.mark.parametrize("blk_k", [1024, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_plain_ragged_matches_blockwise(causal, blk_k):
+    """T = 37 (prime): one block of 37, or ``_fit_block`` halving 8 down to
+    blocks of 1, as the reference's blockwise backward does. f32, atol
+    1e-4."""
+    case = _bwd_case(3, 37, 32, seed=6, causal=causal)
+    scale = 1.0 / 32 ** 0.5
+    ref = jfa._bwd_blockwise(tuple(map(_to_jax, case[:5])), _to_jax(case[5]),
+                             scale=scale, causal=causal, blk_k=blk_k)
+    got = tfa._bwd_plain(*case, scale, causal, blk_k)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4)
+
+
+def _assert_within_bf16_step(got, ref):
+    """|got - ref| <= 2^-7 (|ref| + rms(ref)) elementwise: both sides round
+    f32 values that differ in the last f32 bits to bf16, so at most one bf16
+    step (2^-7 of the smaller neighbour) apart; the rms term covers values
+    near zero."""
+    got = got.float().numpy()
+    ref = np.asarray(ref.astype(jnp.float32))
+    rms = np.sqrt(np.mean(ref ** 2))
+    assert np.all(np.abs(got - ref) <= 2.0 ** -7 * (np.abs(ref) + rms))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_plain_bf16_matches_blockwise(causal):
+    """bf16 q/k/v/do/out: f32 math on both sides, one rounding to bf16."""
+    case = _bwd_case(2, 96, 32, seed=7, causal=causal, dtype=torch.bfloat16)
+    scale = 1.0 / 32 ** 0.5
+    ref = jfa._bwd_blockwise(tuple(map(_to_jax, case[:5])), _to_jax(case[5]),
+                             scale=scale, causal=causal, blk_k=32)
+    got = tfa._bwd_plain(*case, scale, causal, 32)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        _assert_within_bf16_step(g, r)
+
+
+@pytest.mark.parametrize("t,block_k", [(64, 16), (37, 1024)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_grads_through_autograd_match_jax(causal, t, block_k):
+    """``flash_attention`` gradients through ``_Flash`` (the [B, T, H, D]
+    layout, a strided incoming gradient, ``block_k`` passed on to the plain
+    backward) against ``jax.grad`` of the reference. f32, atol 1e-4."""
+    q, k, v = _qkv(2, t, 3, 16, seed=8)
+    w = np.random.RandomState(9).randn(2, t, 3, 16).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=causal, block_k=block_k)
+        return jnp.sum(out * jnp.asarray(w))
+
+    g_ref = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, block_k=block_k)
+    (out * torch.from_numpy(w)).sum().backward()
     for ref, got in zip(g_ref, (tq.grad, tk.grad, tv.grad)):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
 

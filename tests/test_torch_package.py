@@ -106,6 +106,14 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build("flash_attention_fwd")
 
 
+def _copy_csrc(monkeypatch, tmp_path):
+    """Point the builder at a copy of csrc/ (sources and shared headers)."""
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+
+
 def test_library_path_tracks_source_content(monkeypatch, tmp_path):
     """An unchanged source maps to the same library; an edited one to a new
     library, so a stale build is never loaded."""
@@ -113,9 +121,66 @@ def test_library_path_tracks_source_content(monkeypatch, tmp_path):
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("flash_attention_fwd-")
     assert path == _build.library_path("flash_attention_fwd")
-    source = (_build.CSRC / "flash_attention_fwd.cu").read_text()
-    (tmp_path / "flash_attention_fwd.cu").write_text(source)
-    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    _copy_csrc(monkeypatch, tmp_path)
     assert _build.library_path("flash_attention_fwd") == path
-    (tmp_path / "flash_attention_fwd.cu").write_text(source + "\n// edit\n")
+    source = tmp_path / "flash_attention_fwd.cu"
+    source.write_text(source.read_text() + "\n// edit\n")
     assert _build.library_path("flash_attention_fwd") != path
+
+
+@pytest.mark.parametrize("name", ["flash_attention_fwd",
+                                  "flash_attention_bwd"])
+@pytest.mark.parametrize("change", ["edit", "add"])
+def test_library_path_tracks_shared_headers(monkeypatch, tmp_path, name,
+                                            change):
+    """Every library is rebuilt when a shared csrc/*.cuh header is edited or
+    added, since any source may include it."""
+    path = _build.library_path(name)
+    _copy_csrc(monkeypatch, tmp_path)
+    assert _build.library_path(name) == path
+    if change == "edit":
+        header = tmp_path / "flash_attention_common.cuh"
+        header.write_text(header.read_text() + "\n// edit\n")
+    else:
+        (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert _build.library_path(name) != path
+
+
+def _bwd_inputs(bh=2, t=16, d=64, dtype=torch.float32):
+    """(q, k, v, out, lse, do) for _bwd_cuda on the CPU."""
+    q, k, v = _qkv3(bh, t, d, dtype)
+    out, lse = tfa._fwd_plain(q, k, v, 0.125, True)
+    return q, k, v, out, lse, torch.ones_like(out)
+
+
+def _launches():
+    return tfa.FWD_LAUNCHES, tfa.DKDV_LAUNCHES, tfa.DQ_LAUNCHES
+
+
+def test_bwd_cuda_refuses_cpu_tensors():
+    """As the forward: CPU tensors never reach the plain backward through
+    the kernel wrapper, and no launch is counted."""
+    before = _launches()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tfa._bwd_cuda(*_bwd_inputs(), 0.125, True)
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("case", ["head_dim", "dtype", "mixed", "shape",
+                                  "lse"])
+def test_bwd_cuda_refuses_what_the_kernels_do_not_take(case):
+    q, k, v, out, lse, do = _bwd_inputs()
+    if case == "head_dim":
+        q, k, v, out, lse, do = _bwd_inputs(d=48)
+    elif case == "dtype":
+        q, k, v, out, lse, do = _bwd_inputs(dtype=torch.float16)
+    elif case == "mixed":
+        do = do.bfloat16()
+    elif case == "shape":
+        k = k[:, :8]
+    else:
+        lse = lse[:, :8]
+    before = _launches()
+    with pytest.raises(ValueError, match="lse" if case == "lse" else None):
+        tfa._bwd_cuda(q, k, v, out, lse, do, 0.125, True)
+    assert _launches() == before

@@ -1,16 +1,19 @@
-"""Port parity: raydp_tpu_torch TransformerLM forward vs the JAX reference.
+"""Port parity: raydp_tpu_torch TransformerLM forward, gradients and
+training vs the JAX reference.
 
 Flax params are initialised by the reference and carried across with
 ``transformer_params_from_flax``; tokens are made with numpy from a seed.
 Tolerances: f32 logits atol 1e-4 (two layers of f32 products summed in
 another order); losses rtol 1e-5. Under bf16 the port mirrors the
-reference's rounding points op for op, so bf16 results agree to f32 noise
+reference's rounding points op for op in the forward, so bf16 results agree
+to f32 noise; in the backward XLA and torch autograd round at other points
 (tolerances stated per test).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -173,3 +176,113 @@ def test_ring_and_mesh_are_not_ported_yet():
     with pytest.raises(NotImplementedError):
         TransformerLM(64, dim=16, num_heads=2, num_layers=1,
                       mesh=object(), device="cpu")
+
+
+def _jax_loss(jm, kind, tokens):
+    """The reference's loss of ``kind`` as a function of the Flax params."""
+    jt = jnp.asarray(tokens)
+
+    def loss(p):
+        if kind == "lm_loss":
+            return jax_lm_loss(jm.apply({"params": p}, jt), jt)
+        return jax_lm_loss_fused(
+            jm.apply({"params": p}, jt, return_hidden=True),
+            p["lm_head"]["kernel"], jt, chunk=16, remat=kind == "fused_remat")
+    return loss
+
+
+def _port_loss(tm, kind, tokens):
+    tt = torch.from_numpy(tokens)
+    if kind == "lm_loss":
+        return lm_loss(tm(tt), tt)
+    return lm_loss_fused(tm(tt, return_hidden=True), tm.lm_head.kernel, tt,
+                         chunk=16, remat=kind == "fused_remat")
+
+
+# Largest |port - reference| of each parameter gradient, as a share of that
+# gradient's largest |element|. f32: only the order of f32 sums differs
+# (measured 1.5e-6). bf16: XLA and torch autograd round the backward at other
+# points (silu's derivative, the casts), one bf16 step (2^-8 .. 2^-7) on the
+# largest elements (measured 1.1e-2).
+GRAD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["lm_loss", "fused_remat", "fused"])
+def test_param_grads_match_jax(kind, dtype):
+    """Every parameter gradient of ``lm_loss`` and of ``lm_loss_fused`` with
+    and without remat (vocab 97, T 37, chunk 16: a ragged last chunk) through
+    flash attention, against ``jax.grad`` of the reference."""
+    tokens = _tokens(3, 37, 97)
+    jm, params, tm = _pair(tokens, 97, dim=32, heads=2, layers=2,
+                           attention="flash", dtype=dtype)
+    ref = transformer_params_from_flax(jax.grad(_jax_loss(jm, kind, tokens))(
+        jax.tree.map(jnp.asarray, params)))
+    _port_loss(tm, kind, tokens).backward()
+    for name, p in tm.named_parameters():
+        scale = ref[name].abs().max().item()
+        err = (p.grad - ref[name]).abs().max().item()
+        assert err <= GRAD_REL_TOL[dtype] * scale, (name, err, scale)
+
+
+# optax.adam / adamw and the torch optimizers that match them: optax's eps is
+# 1e-8 as torch's, and adamw's weight decay 1e-4 (torch's default is 1e-2)
+OPTIMIZERS = {
+    "adam": (lambda: optax.adam(1e-3),
+             lambda ps: torch.optim.Adam(ps, lr=1e-3, betas=(0.9, 0.999),
+                                         eps=1e-8)),
+    "adamw": (lambda: optax.adamw(3e-4),
+              lambda ps: torch.optim.AdamW(ps, lr=3e-4, betas=(0.9, 0.999),
+                                           eps=1e-8, weight_decay=1e-4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_optimizer_mapping_matches_optax(name):
+    """Three updates from identical numpy gradients leave identical params,
+    atol 1e-6: a few f32 ulps at |p| ~ 1, where RMSNorm scales start."""
+    rng = np.random.RandomState(3)
+    params = {"scale": np.ones(8, np.float32),
+              "kernel": rng.randn(8, 5).astype(np.float32)}
+    grads = [{k: rng.randn(*v.shape).astype(np.float32) * 10 ** -i
+              for k, v in params.items()} for i in range(3)]
+    make_tx, make_opt = OPTIMIZERS[name]
+    tx = make_tx()
+    jp = jax.tree.map(jnp.asarray, params)
+    state = tx.init(jp)
+    tp = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+    opt = make_opt(list(tp.values()))
+    for g in grads:
+        updates, state = tx.update(jax.tree.map(jnp.asarray, g), state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+    for k, p in tp.items():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["lm_loss", "fused_remat"])
+def test_adam_training_trajectory_matches_jax(kind):
+    """Five f32 Adam(1e-3) steps on one batch from converted weights: each
+    step's loss agrees with the reference's, rtol 1e-4 (f32 gradients agree
+    to ~1e-6 of their max, and Adam's normalised steps carry that along)."""
+    tokens = _tokens(2, 37, 97, seed=4)
+    jm, params, tm = _pair(tokens, 97, dim=32, heads=2, layers=2,
+                           attention="flash")
+    tx = optax.adam(1e-3)
+    step_loss = jax.jit(jax.value_and_grad(_jax_loss(jm, kind, tokens)))
+    jp = jax.tree.map(jnp.asarray, params)
+    state = tx.init(jp)
+    opt = OPTIMIZERS["adam"][1](tm.parameters())
+    for step in range(5):
+        ref, grads = step_loss(jp)
+        updates, state = tx.update(grads, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        opt.zero_grad()
+        loss = _port_loss(tm, kind, tokens)
+        loss.backward()
+        opt.step()
+        np.testing.assert_allclose(loss.item(), float(ref), rtol=1e-4,
+                                   err_msg=f"step {step}")
