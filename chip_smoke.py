@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / H100 port (raydp_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    port's CUDA kernels from ``raydp_tpu_torch/csrc`` for sm_90a, one
    ``nvcc`` per source, all started together;
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (plus a ragged and two small shapes), and
-   times the kernel, the plain version and, as a yardstick the port never
-   calls, PyTorch's ``scaled_dot_product_attention`` (its backward for the
-   two backward kernels);
+   shapes the main path gives it (plus ragged and small shapes covering
+   every compiled head dim), checks that two backward calls agree bitwise,
+   and times the kernel, the plain version and, as a yardstick the port
+   never calls, PyTorch's ``scaled_dot_product_attention`` (its backward for
+   the two backward kernels); with ``--baseline DIR`` it also builds DIR's
+   backward kernels and times them against this checkout's in turns;
 3. full-width TransformerLM inference (dim 1024, 8 heads, 8 layers, vocab
    32768, bf16 activations, f32 params from a seeded generator) on three
    batches of B=2, T=8192 tokens through ``attention="flash"``; checks
@@ -50,11 +52,15 @@ import torch
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-# kernel checks: (B, T, H, D, dtype, causal); the first is the main path's
+# kernel checks: (B, T, H, D, dtype, causal); the first is the main path's.
+# Every compiled head dim of each dtype's kernels is checked, the bf16 ones
+# at a T that is not a multiple of their 64- and 128-row tiles.
 KERNEL_SHAPES = [(2, 8192, 8, 128, torch.bfloat16, True),
                  (2, 1000, 4, 64, torch.float32, False),
                  (1, 512, 2, 32, torch.float32, True),
-                 (2, 300, 2, 16, torch.bfloat16, True)]
+                 (2, 300, 2, 16, torch.bfloat16, True),
+                 (2, 1000, 4, 64, torch.bfloat16, False),
+                 (1, 777, 2, 32, torch.bfloat16, True)]
 # out is held elementwise: |out - plain| <= atol + rtol * |plain|. Both sides
 # compute the same f32 value in another summation order (a difference of
 # ~1e-6) and bf16 rounds it: two neighbouring bf16 values are at most 2^-7 of
@@ -64,12 +70,22 @@ KERNEL_SHAPES = [(2, 8192, 8, 128, torch.bfloat16, True),
 # magnitude in f32.
 OUT_TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
 LSE_ATOL = 1e-3
-# dq, dk, dv are held elementwise: |got - plain| <= rtol (|plain| + rms(plain)).
-# A recomputed product rounded to bf16 errs by ~2^-9 per term with random
-# sign, so over n terms by ~2^-9 of the result's rms; with the one final
-# rounding to bf16 (2^-7 of the smaller neighbour) that is one bf16 step.
-# f32: sums in another order. A dropped or doubled 64-row tile of an
-# 8192-row sum moves elements by ~9 % of rms, far past either limit.
+# dq, dk, dv are held elementwise: |got - plain| <= rtol (|plain| + rms(plain))
+# (+ the bound below in bf16). A recomputed product rounded to bf16 errs by
+# ~2^-9 per term with random sign, so over n terms by ~2^-9 of the result's
+# rms; with the one final rounding to bf16 (2^-7 of the smaller neighbour)
+# that is one bf16 step. f32: sums in another order. A dropped or doubled
+# 64-row tile of an 8192-row sum moves elements by ~9 % of rms, far past
+# either limit.
+# The bf16 kernels also round p and ds to bf16 before the dv, dk and dq
+# products, as the Pallas kernels do (`p.astype(do.dtype)`); `_bwd_plain`
+# keeps them in f32. Each rounded value errs by at most 2^-8 of itself
+# (bf16's unit roundoff), so each product moves by at most 2^-8 (|p|ᵀ|do|,
+# |ds|ᵀ|q|, |ds||k|) elementwise: `_bwd_rounding_bound`, added to the bf16
+# limit. Without it the reference's own Pallas kernels use up to 2.03 of the
+# one-step limit against `_bwd_plain` on the CPU (causal rows with few keys,
+# where few large p do not average out); with it the CUDA kernels used at
+# most 0.65 of the limit at the flagship shape (PERF.md).
 GRAD_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 
 VOCAB, DIM, HEADS, LAYERS = 32768, 1024, 8, 8
@@ -127,10 +143,11 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def attention_bound(kernel: str, bh: int, t: int, d: int,
-                    dtype: torch.dtype, causal: bool) -> tuple[float, str]:
+                    dtype: torch.dtype, causal: bool) -> dict:
     """Least time (ms) for one call of ``kernel``: its [BH, T, D] tensors and
     [BH, T] f32 rows read or written once; its [T, T] products over the
-    (q, k) pairs this run's mask keeps (2·D operations per pair each)."""
+    (q, k) pairs this run's mask keeps (2·D operations per pair each).
+    Returns ``bound_ms``, ``bound_by`` and the operation count ``flops``."""
     products, tensors, rows = {
         "flash_attention_fwd": (2, 4, 1),       # s, pv; q k v out; lse
         "flash_attention_bwd_dkdv": (4, 6, 2),  # s dp dv dk; q k v do dk dv
@@ -142,7 +159,16 @@ def attention_bound(kernel: str, bh: int, t: int, d: int,
               + rows * bh * t * 4)
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+    bound = (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+    return {"bound_ms": bound[0], "bound_by": bound[1], "flops": flops}
+
+
+def rates(bound: dict, ms: float) -> dict:
+    """The bound's keys for a kernel row, with the achieved ``tflops`` and
+    ``bound_share`` = bound_ms / ms of a call that took ``ms``."""
+    return {"bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "tflops": bound["flops"] / ms * 1e-9,
+            "bound_share": bound["bound_ms"] / ms}
 
 
 def build_kernels(fa) -> None:
@@ -159,8 +185,37 @@ def build_kernels(fa) -> None:
     for lib, seconds in built:
         print(f"built {lib.name} in {seconds:.1f} s")
         print(lib.with_suffix(".log").read_text().strip())
+        print_mma_counts(lib)
     fa._fwd_entry()
     fa._bwd_entries()
+
+
+def print_mma_counts(lib) -> None:
+    """Tensor-core instructions in each kernel of a built library, from
+    ``cuobjdump -sass`` (beside ``nvcc``; skipped where the toolkit lacks
+    it): HGMMA is Hopper's warpgroup product, HMMA the warp-level one."""
+    import re
+    from pathlib import Path
+
+    from raydp_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        print(f"sass {lib.name}: no cuobjdump beside nvcc (not measured)")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    for section in sass.split("Function : ")[1:]:
+        mangled = section.split(None, 1)[0]
+        m = re.search(r"\d+([A-Za-z_]+_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
+                      mangled)
+        label = mangled
+        if m:
+            dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
+            label = f"{m[1]}<{dtype}{m[3]}>"
+        hgmma = len(re.findall(r"\bHGMMA", section))
+        hmma = len(re.findall(r"\bHMMA", section))
+        print(f"sass {label}: {hgmma} HGMMA, {hmma} HMMA")
 
 
 def zero_launches(fa) -> None:
@@ -197,14 +252,13 @@ def check_kernel(fa, device, gen) -> dict:
         q4, k4, v4 = (x.view(b, h, t, d) for x in (q3, k3, v3))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal, scale=scale))
-        bound_ms, bound_by = attention_bound("flash_attention_fwd", b * h, t,
-                                             d, dtype, causal)
+        bound = attention_bound("flash_attention_fwd", b * h, t, d, dtype,
+                                causal)
         row = {"shape": [b, t, h, d], "dtype": str(dtype).split(".")[-1],
                "causal": causal, "max_abs_err": err_out,
                "out_tol": [atol, rtol], "out_tol_used": tol_used,
                "lse_max_abs_err": err_lse, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "library_ms": library_ms, **rates(bound, ms)}
         print("kernel flash_attention_fwd " + json.dumps(row))
         require(bool(torch.isfinite(out.float()).all()), f"non-finite out {row}")
         require(tol_used <= 1.0, f"out differs from plain: {row}")
@@ -215,21 +269,26 @@ def check_kernel(fa, device, gen) -> dict:
     return main
 
 
-def rel_err(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> dict:
+def rel_err(got: torch.Tensor, ref: torch.Tensor, rtol: float,
+            bound=0.0) -> dict:
     """Largest |got - ref| and the largest share of the elementwise limit
-    rtol (|ref| + rms(ref)) that any element uses (<= 1 passes)."""
+    rtol (|ref| + rms(ref)) + bound that any element uses (<= 1 passes)."""
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
-    limit = rtol * (ref.abs() + ref.square().mean().sqrt())
+    limit = rtol * (ref.abs() + ref.square().mean().sqrt()) + bound
     return {"max_abs_err": diff.max().item(),
             "tol_used": (diff / limit).max().item(),
             "finite": bool(torch.isfinite(got).all())}
 
 
-def check_bwd_kernels(fa, device, gen) -> dict:
+def check_bwd_kernels(fa, device, gen, baseline=None) -> dict:
     """Phase 2: the dk/dv and dq kernels vs ``_bwd_plain`` at each shape,
     from identical inputs (``do`` seeded, ``out`` and ``lse`` from the plain
-    forward). Returns the flagship shape's row of each kernel."""
+    forward); a second call must give bitwise the same dq, dk and dv. With
+    ``baseline`` (the backward library built from another checkout), each
+    kernel at the flagship shape is timed against it in turns (baseline,
+    this, this, baseline). Returns the flagship shape's row of each
+    kernel."""
     import torch.nn.functional as F
 
     main = {}
@@ -239,21 +298,28 @@ def check_bwd_kernels(fa, device, gen) -> dict:
                           .to(dtype) for _ in range(4)]
         out, lse = fa._fwd_plain(q3, k3, v3, scale, causal)
         got = fa._bwd_cuda(q3, k3, v3, out, lse, do, scale, causal)
+        again = fa._bwd_cuda(q3, k3, v3, out, lse, do, scale, causal)
         ref = fa._bwd_plain(q3, k3, v3, out, lse, do, scale, causal,
                             fa.DEFAULT_BLOCK_K)
+        bounds = (fa._bwd_rounding_bound(q3, k3, v3, out, lse, do, scale,
+                                         causal)
+                  if dtype == torch.bfloat16 else (0.0, 0.0, 0.0))
         torch.cuda.synchronize()
-        errs = {name: rel_err(g, r, GRAD_RTOL[dtype])
-                for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
-        del got, ref
+        errs = {name: rel_err(g, r, GRAD_RTOL[dtype], bd)
+                for name, g, r, bd in zip(("dq", "dk", "dv"), got, ref,
+                                          bounds)}
+        repeatable = all(torch.equal(x, y) for x, y in zip(got, again))
+        del got, again, ref, bounds
 
         # each kernel alone on the inputs _bwd_cuda checked
         delta = (do.float() * out.float()).sum(-1)
         dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
         inputs = (q3, k3, v3, do, lse, delta)
-        ms = {"flash_attention_bwd_dkdv": time_ms(lambda: fa._launch_bwd(
-                  "dkdv", *inputs, (dk, dv), scale, causal)),
-              "flash_attention_bwd_dq": time_ms(lambda: fa._launch_bwd(
-                  "dq", *inputs, (dq,), scale, causal))}
+        calls = {"flash_attention_bwd_dkdv": ("dkdv", (dk, dv)),
+                 "flash_attention_bwd_dq": ("dq", (dq,))}
+        ms = {name: time_ms(lambda: fa._launch_bwd(
+                  kernel, *inputs, outs, scale, causal))
+              for name, (kernel, outs) in calls.items()}
         plain_ms = time_ms(lambda: fa._bwd_plain(
             q3, k3, v3, out, lse, do, scale, causal, fa.DEFAULT_BLOCK_K),
             reps=5)
@@ -265,26 +331,79 @@ def check_bwd_kernels(fa, device, gen) -> dict:
         library_ms = time_ms(lambda: torch.autograd.grad(
             out4, (q4, k4, v4), do4, retain_graph=True))
         shape = {"shape": [b, t, h, d], "dtype": str(dtype).split(".")[-1],
-                 "causal": causal, "grad_rtol": GRAD_RTOL[dtype], **{
+                 "causal": causal, "grad_rtol": GRAD_RTOL[dtype],
+                 "repeatable": repeatable, **{
                      f"{n}_{k}": v for n, e in errs.items()
                      for k, v in e.items() if k != "finite"}}
+        ab = {}
+        if baseline is not None and not main:
+            ab = compare_baseline(fa, baseline, calls, inputs, scale, causal)
         for name, kernel_ms in ms.items():
-            bound_ms, bound_by = attention_bound(name, bh, t, d, dtype, causal)
+            bound = attention_bound(name, bh, t, d, dtype, causal)
             outputs = ("dk", "dv") if name.endswith("dkdv") else ("dq",)
             row = {**shape, "ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by,
+                   "library_ms": library_ms, **rates(bound, kernel_ms),
                    "max_abs_err": max(errs[o]["max_abs_err"]
-                                      for o in outputs)}
+                                      for o in outputs), **ab.get(name, {})}
             print(f"kernel {name} " + json.dumps(row))
             main.setdefault(name, row)
         for name, e in errs.items():
             require(e["finite"], f"non-finite {name} at {shape['shape']}")
             require(e["tol_used"] <= 1.0,
                     f"{name} differs from plain: {shape}")
+        require(repeatable, f"two backward calls differ: {shape}")
         del q3, k3, v3, do, out, lse, delta, dq, dk, dv, q4, k4, v4, out4
         torch.cuda.empty_cache()
     return main
+
+
+def build_baseline(fa, root: str) -> dict:
+    """The entries of the backward library built from ``root``'s
+    ``raydp_tpu_torch/csrc/flash_attention_bwd.cu`` (whose C signatures are
+    this checkout's) with this checkout's flags, into this checkout's
+    git-ignored build directory."""
+    import ctypes
+    from pathlib import Path
+
+    from raydp_tpu_torch.ops import _build
+
+    src = Path(root) / "raydp_tpu_torch" / "csrc" / "flash_attention_bwd.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = _build.BUILD_DIR / "baseline_flash_attention_bwd.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                    str(lib_path), str(src)], check=True, capture_output=True)
+    print(f"built baseline backward from {src}")
+    return fa._bwd_bind(ctypes.CDLL(str(lib_path)))
+
+
+def compare_baseline(fa, baseline, calls, inputs, scale, causal) -> dict:
+    """Each kernel and the baseline's at the same inputs, timed in turns
+    (baseline, this, this, baseline); the baseline's launches are not
+    counted. Returns {name: {"baseline_ms", "ab_ms", "speedup",
+    "ab_turns_ms"}}."""
+    q3 = inputs[0]
+    bh, t, d = q3.shape
+    result = {}
+    for name, (kernel, outs) in calls.items():
+        def theirs():
+            err = baseline[kernel](
+                *(x.data_ptr() for x in (*inputs, *outs)), bh, t, d, scale,
+                int(causal), fa._KERNEL_DTYPES[q3.dtype],
+                torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"baseline {kernel} launch failed: {err}")
+
+        def ours():
+            fa._launch_bwd(kernel, *inputs, outs, scale, causal)
+
+        turns = [time_ms(fn) for fn in (theirs, ours, ours, theirs)]
+        base = statistics.mean(turns[0::3])
+        this = statistics.mean(turns[1:3])
+        result[name] = {"baseline_ms": base, "ab_ms": this,
+                        "speedup": base / this, "ab_turns_ms": turns}
+        print(f"ab {name}: baseline {turns[0]:.3f}, this {turns[1]:.3f}, "
+              f"this {turns[2]:.3f}, baseline {turns[3]:.3f} ms; speedup "
+              f"{base / this:.2f}x")
+    return result
 
 
 def profile_step(label: str, fn) -> None:
@@ -531,6 +650,15 @@ def check_grads(device) -> None:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--baseline", metavar="DIR",
+        help="another checkout (e.g. the parent commit unpacked with git "
+             "archive) whose backward kernels are built and timed against "
+             "this checkout's at the flagship shape, in turns")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
@@ -548,9 +676,10 @@ def main() -> int:
     device = resolve_device()
 
     build_kernels(fa)
+    baseline = build_baseline(fa, args.baseline) if args.baseline else None
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = {"flash_attention_fwd": check_kernel(fa, device, gen),
-            **check_bwd_kernels(fa, device, gen)}
+            **check_bwd_kernels(fa, device, gen, baseline)}
     free_memory()
     lm = run_lm(fa, device)
     free_memory()
@@ -563,9 +692,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train["launches"][name],
-            **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}})
+            **{k: rows[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "tflops", "bound_share", "baseline_ms",
+                "speedup") if k in rows[name]}})
     kernels[0]["launches_inference"] = lm["launches"]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,10 @@ The backward is a pure recompute from (q, k, v, out, lse), as in the
 reference: two CUDA kernels (``csrc/flash_attention_bwd.cu``), the
 counterparts of ``_bwd_dkdv_kernel`` (one block per k tile walks the q tiles
 and accumulates dk, dv) and ``_bwd_dq_kernel`` (one block per q tile walks
-the k tiles and accumulates dq).
+the k tiles and accumulates dq). For bf16 both run on the tensor cores
+(warpgroup ``wgmma`` on bf16 tiles fed by a ``cp.async`` ring, p and ds
+rounded to bf16 before the second product as the Pallas kernels do); for
+f32 they are FMA on the CUDA cores, so that f32 stays f32 and not TF32.
 
 Dispatch is by where the tensors lie, never by what fails: CPU tensors take
 the plain PyTorch versions (``_fwd_plain``, the math of the reference's
@@ -32,7 +35,8 @@ from raydp_tpu_torch.ops import _build
 
 # The reference's block defaults (TPU VMEM-sized). ``block_k`` blocks the plain
 # backward's k loop, as in the reference; the CUDA kernels use their own
-# compiled 64 x 64 tiles.
+# compiled tiles (forward and f32 backward 64 x 64; bf16 backward 128 owned
+# rows a block against walked tiles of 64).
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 _NEG_INF = -1e30
@@ -161,10 +165,41 @@ def _bwd_plain(q3, k3, v3, out, lse, do, scale: float, causal: bool,
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
-@functools.cache
-def _bwd_entries():
-    """{"dkdv": entry, "dq": entry} of the backward library."""
-    lib = _build.load("flash_attention_bwd")
+def _bwd_rounding_bound(q3, k3, v3, out, lse, do, scale: float, causal: bool,
+                        blk_k: int = DEFAULT_BLOCK_K):
+    """How far rounding p and ds to bf16 before the dv, dk and dq products
+    can move (dq, dk, dv) from :func:`_bwd_plain`, which keeps them in f32:
+    each rounded value errs by at most 2^-8 of itself (bf16's unit
+    roundoff), so the products err by at most 2^-8 (|ds|·|k|, |ds|ᵀ·|q|,
+    |p|ᵀ·|do|). The Pallas kernels and the bf16 CUDA kernels round there;
+    f32 → [BH, T, D] each, blocked over keys as :func:`_bwd_plain` is."""
+    bh, t, d = q3.shape
+    blk = _fit_block(t, blk_k)
+    qf, dof = q3.float(), do.float()
+    delta = (dof * out.float()).sum(-1)
+    q_pos = torch.arange(t, device=q3.device)
+    bq = torch.zeros_like(qf)
+    bk = torch.empty_like(qf)
+    bv = torch.empty_like(qf)
+    for start in range(0, t, blk):
+        keys = slice(start, start + blk)
+        kb, vb = k3[:, keys].float(), v3[:, keys].float()
+        s = torch.einsum("bqd,bkd->bqk", qf, kb) * scale
+        if causal:
+            k_pos = torch.arange(start, start + blk, device=q3.device)
+            s = s.masked_fill(q_pos[:, None] < k_pos[None, :], _NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        dp = torch.einsum("bqd,bkd->bqk", dof, vb)
+        ds = (p * (dp - delta[..., None]) * scale).abs()
+        bv[:, keys] = torch.einsum("bqk,bqd->bkd", p, dof.abs())
+        bq += torch.einsum("bqk,bkd->bqd", ds, kb.abs())
+        bk[:, keys] = torch.einsum("bqk,bqd->bkd", ds, qf.abs())
+    return tuple(2.0 ** -8 * x for x in (bq, bk, bv))
+
+
+def _bwd_bind(lib: ctypes.CDLL) -> dict:
+    """{"dkdv": entry, "dq": entry} of a library built from
+    ``flash_attention_bwd.cu``, with their C signatures declared."""
     entries = {"dkdv": lib.raydp_flash_attention_bwd_dkdv,
                "dq": lib.raydp_flash_attention_bwd_dq}
     tail = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -173,6 +208,12 @@ def _bwd_entries():
         entries[name].argtypes = [ctypes.c_void_p] * (6 + n_out) + tail
         entries[name].restype = ctypes.c_int
     return entries
+
+
+@functools.cache
+def _bwd_entries():
+    """The entries of the backward library (:func:`_bwd_bind`)."""
+    return _bwd_bind(_build.load("flash_attention_bwd"))
 
 
 def _launch_bwd(kernel: str, q3, k3, v3, do, lse, delta, outs, scale: float,
@@ -262,8 +303,10 @@ def flash_attention(q, k, v, causal: bool = True,
 
     ``block_k`` blocks the plain backward's k loop as the reference's does;
     ``block_q`` keeps the reference's signature. The CUDA kernels run their
-    own compiled 64 x 64 tiles and the plain forward is unblocked, so neither
-    changes the result beyond f32 summation order."""
+    own compiled tiles and the plain forward is unblocked, so neither changes
+    the result beyond f32 summation order (and, in the bf16 backward
+    kernels, the rounding of p and ds to bf16 that the Pallas kernels also
+    do; see :func:`_bwd_rounding_bound`)."""
     b, t, h, d = q.shape
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
 
