@@ -4,15 +4,18 @@
     python3 chip_smoke.py [--baseline DIR]
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   port's CUDA kernels from ``raydp_tpu_torch/csrc`` for sm_90a, one
-   ``nvcc`` per source, all started together;
+   port's CUDA kernels from ``raydp_tpu_torch/csrc`` for sm_90a (and, with
+   ``--baseline DIR``, DIR's), one ``nvcc`` per source, all started
+   together; checks that every bf16 (tensor-core) kernel instance has
+   HGMMA instructions and spills nothing;
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (plus ragged and small shapes covering
-   every compiled head dim), checks that two backward calls agree bitwise,
-   and times the kernel, the plain version and, as a yardstick the port
-   never calls, PyTorch's ``scaled_dot_product_attention`` (its backward for
-   the two backward kernels); with ``--baseline DIR`` it also builds DIR's
-   backward kernels and times them against this checkout's in turns;
+   every compiled head dim), checks that two calls of each kernel agree
+   bitwise, and times the kernel, the plain version and, as a yardstick the
+   port never calls, PyTorch's ``scaled_dot_product_attention`` (its
+   backward for the two backward kernels); with ``--baseline DIR`` it also
+   times DIR's three kernels against this checkout's at the flagship shape,
+   in turns;
 3. full-width TransformerLM inference (dim 1024, 8 heads, 8 layers, vocab
    32768, bf16 activations, f32 params from a seeded generator) on three
    batches of B=2, T=8192 tokens through ``attention="flash"``; checks
@@ -61,13 +64,21 @@ KERNEL_SHAPES = [(2, 8192, 8, 128, torch.bfloat16, True),
                  (2, 300, 2, 16, torch.bfloat16, True),
                  (2, 1000, 4, 64, torch.bfloat16, False),
                  (1, 777, 2, 32, torch.bfloat16, True)]
-# out is held elementwise: |out - plain| <= atol + rtol * |plain|. Both sides
-# compute the same f32 value in another summation order (a difference of
-# ~1e-6) and bf16 rounds it: two neighbouring bf16 values are at most 2^-7 of
-# the smaller apart, so bf16 allows one rounding step and 1e-5 for the f32
-# sums. Typical |out| at T = 8192 is ~0.02, so an absolute bf16 limit would be
-# as large as the values. f32 out: f32 sums in another order. lse: O(10)
-# magnitude in f32.
+# out is held elementwise: |out - plain| <= atol + rtol * |plain| (+ the
+# bound below in bf16). Both sides compute the same f32 value in another
+# summation order (a difference of ~1e-6) and bf16 rounds it: two
+# neighbouring bf16 values are at most 2^-7 of the smaller apart, so bf16
+# allows one rounding step and 1e-5 for the f32 sums. Typical |out| at
+# T = 8192 is ~0.02, so an absolute bf16 limit would be as large as the
+# values. The bf16 kernel also rounds p to bf16 before p·v, as the Pallas
+# kernel does (`p.astype(v.dtype)`), while `_fwd_plain` keeps p in f32 and l
+# is summed from the unrounded p on both sides: each rounded p errs by at
+# most 2^-8 of itself, so out moves by at most 2^-8 softmax(s)·|v|
+# elementwise (`_fwd_rounding_bound`), added to the bf16 limit. Without it
+# the reference's own Pallas kernel uses up to 89 times the one-step limit
+# against `_fwd_plain` on the CPU (outputs near zero, which have almost no
+# relative room); with it at most 0.66. f32 out: f32 sums in another order.
+# lse: O(10) magnitude in f32.
 OUT_TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
 LSE_ATOL = 1e-3
 # dq, dk, dv are held elementwise: |got - plain| <= rtol (|plain| + rms(plain))
@@ -171,29 +182,65 @@ def rates(bound: dict, ms: float) -> dict:
             "bound_share": bound["bound_ms"] / ms}
 
 
-def build_kernels(fa) -> None:
-    """Phase 1: one nvcc per source, all started together; print each log."""
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+# the bf16 kernels that must run on the tensor cores, per source
+TC_KERNELS = {"flash_attention_fwd": ("fwd_tc_kernel",),
+              "flash_attention_bwd": ("dkdv_tc_kernel", "dq_tc_kernel")}
+
+
+def build_kernels(fa, baseline_root=None):
+    """Phase 1: one nvcc per source (and per baseline source), all started
+    together; print each log; every tensor-core kernel instance must show
+    HGMMA and no spills. Returns the baseline's entries (``{"fwd", "dkdv",
+    "dq"}``) or None."""
     from raydp_tpu_torch.ops import _build
 
-    def timed(name):
+    def timed(build, name):
         t0 = time.perf_counter()
-        return _build.build(name), time.perf_counter() - t0
+        return build(name), time.perf_counter() - t0
 
-    names = ("flash_attention_fwd", "flash_attention_bwd")
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = list(pool.map(timed, names))
-    for lib, seconds in built:
+    jobs = [(_build.build, name) for name in SOURCES]
+    if baseline_root is not None:
+        jobs += [(lambda name: build_baseline(baseline_root, name), name)
+                 for name in SOURCES]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda job: timed(*job), jobs))
+    for i, ((_, name), (lib, seconds)) in enumerate(zip(jobs, built)):
         print(f"built {lib.name} in {seconds:.1f} s")
-        print(lib.with_suffix(".log").read_text().strip())
-        print_mma_counts(lib)
+        if i < len(SOURCES):             # this checkout's: ptxas, SASS
+            log = lib.with_suffix(".log").read_text().strip()
+            print(log)
+            check_tensor_cores(name, log, mma_counts(lib))
     fa._fwd_entry()
     fa._bwd_entries()
+    if baseline_root is None:
+        return None
+    import ctypes
+    libs = {name: ctypes.CDLL(str(lib))
+            for (_, name), (lib, _) in zip(jobs[len(SOURCES):],
+                                           built[len(SOURCES):])}
+    return {"fwd": fa._fwd_bind(libs["flash_attention_fwd"]),
+            **fa._bwd_bind(libs["flash_attention_bwd"])}
 
 
-def print_mma_counts(lib) -> None:
-    """Tensor-core instructions in each kernel of a built library, from
-    ``cuobjdump -sass`` (beside ``nvcc``; skipped where the toolkit lacks
-    it): HGMMA is Hopper's warpgroup product, HMMA the warp-level one."""
+def kernel_label(mangled: str) -> str:
+    """``fwd_tc_kernel<128>``, ``dq_kernel<float, 64>`` ... of a mangled
+    kernel name (the name itself where it does not parse)."""
+    import re
+
+    m = re.search(r"\d+([A-Za-z_]+_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
+                  mangled)
+    if not m:
+        return mangled
+    dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
+    return f"{m[1]}<{dtype}{m[3]}>"
+
+
+def mma_counts(lib):
+    """{kernel label: (HGMMA, HMMA)} of a built library, from ``cuobjdump
+    -sass`` (beside ``nvcc``; None where the toolkit lacks it): HGMMA is
+    Hopper's warpgroup product, HMMA the warp-level one. Prints one line
+    per kernel."""
     import re
     from pathlib import Path
 
@@ -202,20 +249,41 @@ def print_mma_counts(lib) -> None:
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     if not tool.is_file():
         print(f"sass {lib.name}: no cuobjdump beside nvcc (not measured)")
-        return
+        return None
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
+    counts = {}
     for section in sass.split("Function : ")[1:]:
-        mangled = section.split(None, 1)[0]
-        m = re.search(r"\d+([A-Za-z_]+_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
-                      mangled)
-        label = mangled
+        label = kernel_label(section.split(None, 1)[0])
+        counts[label] = (len(re.findall(r"\bHGMMA", section)),
+                         len(re.findall(r"\bHMMA", section)))
+        print(f"sass {label}: {counts[label][0]} HGMMA, "
+              f"{counts[label][1]} HMMA")
+    return counts
+
+
+def check_tensor_cores(name: str, ptxas_log: str, counts) -> None:
+    """Every tensor-core kernel of source ``name``, at every compiled head
+    dim, spills nothing (ptxas) and, where the SASS was read, has HGMMA."""
+    import re
+
+    spills, kernel = {}, None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
         if m:
-            dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
-            label = f"{m[1]}<{dtype}{m[3]}>"
-        hgmma = len(re.findall(r"\bHGMMA", section))
-        hmma = len(re.findall(r"\bHMMA", section))
-        print(f"sass {label}: {hgmma} HGMMA, {hmma} HMMA")
+            kernel = kernel_label(m[1])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel:
+            spills[kernel] = int(m[1]) + int(m[2])
+    for base in TC_KERNELS[name]:
+        for d in (16, 32, 64, 128):
+            label = f"{base}<{d}>"
+            require(spills.get(label) == 0,
+                    f"{label}: spills {spills.get(label)} bytes (ptxas)")
+            if counts is not None:
+                require(counts.get(label, (0, 0))[0] > 0,
+                        f"{label}: no HGMMA in its SASS")
 
 
 def zero_launches(fa) -> None:
@@ -228,8 +296,12 @@ def launches(fa) -> dict:
             "flash_attention_bwd_dq": fa.DQ_LAUNCHES}
 
 
-def check_kernel(fa, device, gen) -> dict:
-    """Phase 2: flash forward kernel vs its plain version at each shape."""
+def check_kernel(fa, device, gen, baseline=None) -> dict:
+    """Phase 2: the flash forward kernel vs ``_fwd_plain`` at each shape; a
+    second call must give bitwise the same out and lse. With ``baseline``
+    (the entries built from another checkout), the kernel at the flagship
+    shape is timed against the baseline's in turns. Returns the flagship
+    shape's row."""
     import torch.nn.functional as F
 
     main = None
@@ -238,14 +310,22 @@ def check_kernel(fa, device, gen) -> dict:
                       .to(dtype) for _ in range(3)]
         scale = 1.0 / math.sqrt(d)
         out, lse = fa._fwd_cuda(q3, k3, v3, scale, causal)
+        again = fa._fwd_cuda(q3, k3, v3, scale, causal)
         ref_out, ref_lse = fa._fwd_plain(q3, k3, v3, scale, causal)
+        bound = (fa._fwd_rounding_bound(q3, k3, v3, scale, causal)
+                 if dtype == torch.bfloat16 else 0.0)
         torch.cuda.synchronize()
+        repeatable = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         diff = (out.float() - ref_out.float()).abs()
         atol, rtol = OUT_TOL[dtype]
         err_out = diff.max().item()
-        # the largest share of its limit that any element uses (<= 1 passes)
-        tol_used = (diff / (atol + rtol * ref_out.float().abs())).max().item()
+        # the largest share of its limit that any element uses (<= 1 passes),
+        # and of the one-step limit without the p-rounding bound
+        one_step = atol + rtol * ref_out.float().abs()
+        tol_used = (diff / (one_step + bound)).max().item()
+        one_step_used = (diff / one_step).max().item()
         err_lse = (lse - ref_lse).abs().max().item()
+        del again, bound, one_step
         ms = time_ms(lambda: fa._fwd_cuda(q3, k3, v3, scale, causal))
         plain_ms = time_ms(lambda: fa._fwd_plain(q3, k3, v3, scale, causal),
                            reps=5)
@@ -254,15 +334,33 @@ def check_kernel(fa, device, gen) -> dict:
             q4, k4, v4, is_causal=causal, scale=scale))
         bound = attention_bound("flash_attention_fwd", b * h, t, d, dtype,
                                 causal)
+        ab = {}
+        if baseline is not None and main is None:
+            outs = (torch.empty_like(q3),
+                    torch.empty((b * h, t), device=device))
+
+            def entry(fn):
+                return lambda: require(fn(
+                    *(x.data_ptr() for x in (q3, k3, v3, *outs)), b * h, t,
+                    d, scale, int(causal), fa._KERNEL_DTYPES[dtype],
+                    torch.cuda.current_stream().cuda_stream) == 0,
+                    "forward launch failed")
+
+            ab = ab_turns("flash_attention_fwd", entry(baseline["fwd"]),
+                          entry(fa._fwd_entry()))
+            del outs
         row = {"shape": [b, t, h, d], "dtype": str(dtype).split(".")[-1],
                "causal": causal, "max_abs_err": err_out,
                "out_tol": [atol, rtol], "out_tol_used": tol_used,
-               "lse_max_abs_err": err_lse, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, **rates(bound, ms)}
+               "out_one_step_used": one_step_used,
+               "lse_max_abs_err": err_lse, "repeatable": repeatable,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               **rates(bound, ms), **ab}
         print("kernel flash_attention_fwd " + json.dumps(row))
         require(bool(torch.isfinite(out.float()).all()), f"non-finite out {row}")
         require(tol_used <= 1.0, f"out differs from plain: {row}")
         require(err_lse <= LSE_ATOL, f"lse differs from plain: {row}")
+        require(repeatable, f"two forward calls differ: {row}")
         main = main or row
         del q3, k3, v3, q4, k4, v4, out, lse, ref_out, ref_lse, diff
         torch.cuda.empty_cache()
@@ -357,30 +455,40 @@ def check_bwd_kernels(fa, device, gen, baseline=None) -> dict:
     return main
 
 
-def build_baseline(fa, root: str) -> dict:
-    """The entries of the backward library built from ``root``'s
-    ``raydp_tpu_torch/csrc/flash_attention_bwd.cu`` (whose C signatures are
-    this checkout's) with this checkout's flags, into this checkout's
-    git-ignored build directory."""
-    import ctypes
+def build_baseline(root: str, name: str):
+    """The library built from ``root``'s ``raydp_tpu_torch/csrc/<name>.cu``
+    (whose C signature is this checkout's) with this checkout's flags, into
+    this checkout's git-ignored build directory."""
     from pathlib import Path
 
     from raydp_tpu_torch.ops import _build
 
-    src = Path(root) / "raydp_tpu_torch" / "csrc" / "flash_attention_bwd.cu"
+    src = Path(root) / "raydp_tpu_torch" / "csrc" / f"{name}.cu"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = _build.BUILD_DIR / "baseline_flash_attention_bwd.so"
+    lib_path = _build.BUILD_DIR / f"baseline_{name}.so"
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
                     str(lib_path), str(src)], check=True, capture_output=True)
-    print(f"built baseline backward from {src}")
-    return fa._bwd_bind(ctypes.CDLL(str(lib_path)))
+    return lib_path
+
+
+def ab_turns(name: str, theirs, ours) -> dict:
+    """``theirs`` and ``ours`` (one launch each) timed in turns (baseline,
+    this, this, baseline). Returns {"baseline_ms", "ab_ms", "speedup",
+    "ab_turns_ms"}."""
+    turns = [time_ms(fn) for fn in (theirs, ours, ours, theirs)]
+    base = statistics.mean(turns[0::3])
+    this = statistics.mean(turns[1:3])
+    print(f"ab {name}: baseline {turns[0]:.3f}, this {turns[1]:.3f}, "
+          f"this {turns[2]:.3f}, baseline {turns[3]:.3f} ms; speedup "
+          f"{base / this:.2f}x")
+    return {"baseline_ms": base, "ab_ms": this, "speedup": base / this,
+            "ab_turns_ms": turns}
 
 
 def compare_baseline(fa, baseline, calls, inputs, scale, causal) -> dict:
-    """Each kernel and the baseline's at the same inputs, timed in turns
-    (baseline, this, this, baseline); the baseline's launches are not
-    counted. Returns {name: {"baseline_ms", "ab_ms", "speedup",
-    "ab_turns_ms"}}."""
+    """Each backward kernel and the baseline's at the same inputs, timed in
+    turns (:func:`ab_turns`); the baseline's launches are not counted.
+    Returns {name: ab_turns' dict}."""
     q3 = inputs[0]
     bh, t, d = q3.shape
     result = {}
@@ -395,14 +503,7 @@ def compare_baseline(fa, baseline, calls, inputs, scale, causal) -> dict:
         def ours():
             fa._launch_bwd(kernel, *inputs, outs, scale, causal)
 
-        turns = [time_ms(fn) for fn in (theirs, ours, ours, theirs)]
-        base = statistics.mean(turns[0::3])
-        this = statistics.mean(turns[1:3])
-        result[name] = {"baseline_ms": base, "ab_ms": this,
-                        "speedup": base / this, "ab_turns_ms": turns}
-        print(f"ab {name}: baseline {turns[0]:.3f}, this {turns[1]:.3f}, "
-              f"this {turns[2]:.3f}, baseline {turns[3]:.3f} ms; speedup "
-              f"{base / this:.2f}x")
+        result[name] = ab_turns(name, theirs, ours)
     return result
 
 
@@ -656,7 +757,7 @@ def main() -> int:
     parser.add_argument(
         "--baseline", metavar="DIR",
         help="another checkout (e.g. the parent commit unpacked with git "
-             "archive) whose backward kernels are built and timed against "
+             "archive) whose three kernels are built and timed against "
              "this checkout's at the flagship shape, in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -675,10 +776,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     device = resolve_device()
 
-    build_kernels(fa)
-    baseline = build_baseline(fa, args.baseline) if args.baseline else None
+    baseline = build_kernels(fa, args.baseline)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    rows = {"flash_attention_fwd": check_kernel(fa, device, gen),
+    rows = {"flash_attention_fwd": check_kernel(fa, device, gen, baseline),
             **check_bwd_kernels(fa, device, gen, baseline)}
     free_memory()
     lm = run_lm(fa, device)

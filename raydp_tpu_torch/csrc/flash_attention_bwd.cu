@@ -62,7 +62,6 @@
 #include <math.h>
 
 #include <cstdint>
-#include <initializer_list>
 
 #include "flash_attention_common.cuh"
 #include "hopper_mma.cuh"
@@ -409,30 +408,6 @@ __host__ __device__ constexpr size_t smem_bytes() {
          STAGES * 2 * WALK * sizeof(float);
 }
 
-__device__ __forceinline__ uint32_t aligned_smem(uint8_t* raw,
-                                                 uint8_t** generic) {
-  const uint32_t a = raydp_sm90::smem_addr(raw);
-  const uint32_t aligned = (a + 1023) & ~1023u;
-  *generic = raw + (aligned - a);
-  return aligned;
-}
-
-// Store an m64 x D f32 accumulator of a warpgroup as bf16 rows
-// [row0, row0 + 64) of a [t, D] matrix, rows past t dropped.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
-                                           const float (&acc)[D / 2],
-                                           int row0, int t, int tid) {
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int row = row0 + raydp_sm90::acc_row(tid, i);
-    if (row < t)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dst + (size_t)row * D + raydp_sm90::acc_col(tid, i)) =
-          __floats2bfloat162_rn(acc[i], acc[i + 1]);
-  }
-}
-
 // dk and dv of OWNED keys per block: warpgroup w owns keys k0 + 64 w and
 // walks the q tiles. Per q tile of WALK rows it forms the transposed scores
 // sᵀ = k qᵀ and dpᵀ = v doᵀ (keys as M, q and do as K-major B), turns them
@@ -767,14 +742,6 @@ cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
   else
     return launch_dq<T, D>(q, k, v, dout, lse, delta, dq, bh, t, scale,
                            causal, stream);
-}
-
-// cp.async copies 16 bytes at a time: the bf16 kernels need every [bh, t, d]
-// tensor to start on a 16-byte boundary (as PyTorch's allocations do)
-bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
 }
 
 }  // namespace

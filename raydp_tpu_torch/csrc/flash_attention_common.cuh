@@ -1,7 +1,7 @@
 // Pieces shared by the flash-attention kernels (flash_attention_fwd.cu and
 // flash_attention_bwd.cu): the masking rule and its sentinel, the bf16/f32
 // load and store helpers, the tile loader and the host-side dispatch over
-// the compiled dtypes and head dims. Keeping one copy keeps the forward and
+// the compiled dtypes and head dims and the alignment check. Keeping one copy keeps the forward and
 // the backward masking the same scores, as the reference's shared
 // `_mask_causal` does (raydp_tpu/ops/flash_attention.py).
 
@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 namespace raydp_fa {
@@ -83,6 +85,14 @@ cudaError_t with_head_dim(int d, F&& f) {
     case 128: return f(std::integral_constant<int, 128>{});
     default: return cudaErrorInvalidValue;
   }
+}
+
+// cp.async copies 16 bytes at a time: the bf16 kernels need every [bh, t, d]
+// tensor to start on a 16-byte boundary (as PyTorch's allocations do)
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 }  // namespace raydp_fa

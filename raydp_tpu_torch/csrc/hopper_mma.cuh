@@ -1,8 +1,8 @@
 // Building blocks for tensor-core kernels on Hopper (sm_90a): bf16 tiles in
 // swizzled shared memory filled by cp.async, wgmma matrix descriptors over
 // them, the warpgroup products themselves and the fragment layout of their
-// accumulators. Used by the bf16 backward kernels (flash_attention_bwd.cu);
-// written so that the forward's redesign can take them as they are.
+// accumulators. Used by the bf16 forward (flash_attention_fwd.cu) and
+// backward (flash_attention_bwd.cu) kernels.
 //
 // Tile layout. A [rows, D] bf16 tile (D in 16, 32, 64, 128) is stored as
 // D / PW column panels of PW = min(D, 64) columns; panel p holds columns
@@ -184,6 +184,44 @@ __device__ __forceinline__ void load_tile_async(
     cp_async16(dst + TileLayout<D>::offset(ROWS, r, c),
                src + (size_t)(in ? row0 + r : 0) * D + c, in);
   }
+}
+
+// The 1024-byte aligned start of the dynamic shared memory at `raw`: its
+// shared address, and its generic pointer in *generic
+__device__ __forceinline__ uint32_t aligned_smem(uint8_t* raw,
+                                                 uint8_t** generic) {
+  const uint32_t a = smem_addr(raw);
+  const uint32_t aligned = (a + 1023) & ~1023u;
+  *generic = raw + (aligned - a);
+  return aligned;
+}
+
+// Store an m64 x D f32 accumulator of a warpgroup as bf16 rows
+// [row0, row0 + 64) of a [t, D] matrix, rows past t dropped.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst,
+                                           const float (&acc)[D / 2],
+                                           int row0, int t, int tid) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = row0 + acc_row(tid, i);
+    if (row < t)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D +
+                                         acc_col(tid, i)) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+// Max and sum over one accumulator row: its columns lie on the four lanes
+// with the same tid / 4 (acc_row, acc_col), two xor steps apart. Every lane
+// of the warp calls them.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // accumulator elements (x, y) -> one register of two bf16, x in the low half

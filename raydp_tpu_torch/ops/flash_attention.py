@@ -5,7 +5,10 @@ The forward is a CUDA kernel written for Hopper
 Pallas TPU kernel ``_fwd_kernel``: one thread block per (batch·head, q tile)
 walks the k tiles with the online-softmax state in registers, applies the
 causal block skip and masks a ragged sequence end itself, and writes the
-output and the per-row log-sum-exp.
+output and the per-row log-sum-exp. For bf16 it runs on the tensor cores
+(``wgmma`` on bf16 tiles fed by a ``cp.async`` ring, p rounded to bf16
+before p·v as the Pallas kernel does; see :func:`_fwd_rounding_bound`); for
+f32 it is FMA on the CUDA cores.
 
 The backward is a pure recompute from (q, k, v, out, lse), as in the
 reference: two CUDA kernels (``csrc/flash_attention_bwd.cu``), the
@@ -35,8 +38,8 @@ from raydp_tpu_torch.ops import _build
 
 # The reference's block defaults (TPU VMEM-sized). ``block_k`` blocks the plain
 # backward's k loop, as in the reference; the CUDA kernels use their own
-# compiled tiles (forward and f32 backward 64 x 64; bf16 backward 128 owned
-# rows a block against walked tiles of 64).
+# compiled tiles (f32 kernels 64 x 64; bf16 kernels 128 owned rows a block
+# against walked tiles of 64).
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 _NEG_INF = -1e30
@@ -88,17 +91,25 @@ def _fwd_plain(q3, k3, v3, scale: float, causal: bool):
     return out.to(q3.dtype), lse
 
 
-@functools.cache
-def _fwd_entry():
-    fn = _build.load("flash_attention_fwd").raydp_flash_attention_fwd
+def _fwd_bind(lib: ctypes.CDLL):
+    """The entry of a library built from ``flash_attention_fwd.cu``, with
+    its C signature declared."""
+    fn = lib.raydp_flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _fwd_entry():
+    """The entry of the forward library (:func:`_fwd_bind`)."""
+    return _fwd_bind(_build.load("flash_attention_fwd"))
+
+
 def _fwd_cuda(q3, k3, v3, scale: float, causal: bool):
-    """Launch the Hopper forward kernel; same contract as :func:`_fwd_plain`.
+    """Launch the Hopper forward kernel; same contract as :func:`_fwd_plain`
+    (in bf16 up to the rounding of p, :func:`_fwd_rounding_bound`).
 
     Raises on anything the kernel does not take: tensors off CUDA, mixed or
     unsupported dtypes, non-contiguous or mismatched [BH, T, D] shapes, a
@@ -163,6 +174,23 @@ def _bwd_plain(q3, k3, v3, out, lse, do, scale: float, causal: bool,
         dq += torch.einsum("bqk,bkd->bqd", ds, kb)
         dk[:, keys] = torch.einsum("bqk,bqd->bkd", ds, qf)
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def _fwd_rounding_bound(q3, k3, v3, scale: float, causal: bool):
+    """How far rounding p to bf16 before the p·v product can move ``out``
+    from :func:`_fwd_plain`, which keeps p in f32: each rounded p errs by at
+    most 2^-8 of itself (bf16's unit roundoff), whatever running max it was
+    formed against, and the normaliser l is summed from the unrounded p, so
+    acc / l errs by at most 2^-8 Σ p·|v| / l = 2^-8 softmax(s)·|v|
+    elementwise. The Pallas kernel and the bf16 CUDA kernel round there;
+    f32 → [BH, T, D]."""
+    s = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
+    if causal:
+        t = q3.shape[1]
+        mask = torch.ones(t, t, dtype=torch.bool, device=q3.device).tril()
+        s = s.masked_fill(~mask, _NEG_INF)
+    return 2.0 ** -8 * torch.einsum("bqk,bkd->bqd", torch.softmax(s, dim=-1),
+                                    v3.float().abs())
 
 
 def _bwd_rounding_bound(q3, k3, v3, out, lse, do, scale: float, causal: bool,
@@ -304,9 +332,10 @@ def flash_attention(q, k, v, causal: bool = True,
     ``block_k`` blocks the plain backward's k loop as the reference's does;
     ``block_q`` keeps the reference's signature. The CUDA kernels run their
     own compiled tiles and the plain forward is unblocked, so neither changes
-    the result beyond f32 summation order (and, in the bf16 backward
-    kernels, the rounding of p and ds to bf16 that the Pallas kernels also
-    do; see :func:`_bwd_rounding_bound`)."""
+    the result beyond f32 summation order (and, in the bf16 kernels, the
+    rounding of p, and in the backward of ds, to bf16 that the Pallas kernels
+    also do; see :func:`_fwd_rounding_bound` and
+    :func:`_bwd_rounding_bound`)."""
     b, t, h, d = q.shape
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
 

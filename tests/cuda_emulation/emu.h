@@ -2,8 +2,11 @@
 // qualifiers, launch geometry, bf16 conversions, __syncthreads and the
 // <<<grid, block, smem, stream>>> launch (rewritten to emu_launch by
 // tests/test_torch_cuda_emulation.py). A block runs as blockDim.x
-// std::threads; blocks run one after another, each on fresh shared memory
-// filled with a garbage byte pattern.
+// std::threads (any number of whole warps); blocks run one after another,
+// each on fresh shared memory filled with a garbage byte pattern.
+// __shfl_xor_sync exchanges values among the 32 threads of a warp through
+// slots and a per-warp barrier, so every lane of the warp must call it, as
+// the full mask demands on the card.
 #pragma once
 
 #include <math.h>
@@ -73,7 +76,6 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
 }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
-inline float __shfl_xor_sync(unsigned, float x, int) { return x; }
 
 inline uint8_t* emu_smem;  // the running block's shared memory
 inline size_t emu_smem_size;
@@ -85,11 +87,32 @@ inline std::barrier<>* emu_wg_barrier[8];  // one per warpgroup of 128
 inline int emu_copy_mode = 0;
 extern "C" void emu_set_copy_mode(int mode) { emu_copy_mode = mode; }
 
+inline std::barrier<>* emu_warp_barrier[32];  // one per warp of 32
+inline float emu_shfl_slot[32][32];              // [warp][lane]
+
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+inline float __shfl_xor_sync(unsigned mask, float x, int lane_mask) {
+  if (mask != 0xffffffffu) {
+    fprintf(stderr, "__shfl_xor_sync emulated for the full mask only\n");
+    abort();
+  }
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  emu_shfl_slot[w][lane] = x;
+  emu_warp_barrier[w]->arrive_and_wait();    // every lane has written
+  const float y = emu_shfl_slot[w][lane ^ lane_mask];
+  emu_warp_barrier[w]->arrive_and_wait();    // every lane has read
+  return y;
+}
 
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
                 A... args) {
+  if (threads % 32 || threads > 1024) {
+    fprintf(stderr, "emulated block of %d threads: whole warps only\n",
+            threads);
+    abort();
+  }
   gridDim = grid;
   blockDim = dim3(threads);
   std::vector<uint8_t> buf(smem + 2048);
@@ -106,6 +129,10 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
       for (int w = 0; w < (threads + 127) / 128; ++w) {
         groups.emplace_back(new std::barrier<>(std::min(128, threads)));
         emu_wg_barrier[w] = groups.back().get();
+      }
+      for (int w = 0; w < threads / 32; ++w) {
+        groups.emplace_back(new std::barrier<>(32));
+        emu_warp_barrier[w] = groups.back().get();
       }
       std::vector<std::thread> pool;
       for (int t = 0; t < threads; ++t)

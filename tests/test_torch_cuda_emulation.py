@@ -1,17 +1,22 @@
-"""The backward CUDA kernels' logic on the CPU, by host emulation.
+"""The CUDA kernels' logic on the CPU, by host emulation.
 
-The CPU has no nvcc and no card, so ``flash_attention_bwd.cu`` is compiled
-with g++ against ``tests/cuda_emulation/``: CUDA's qualifiers, launches and
-barriers become host code (a block is 256 std::threads), and the two PTX
-sections of ``hopper_mma.cuh`` are replaced by host stand-ins — cp.async as
-a copy that lands at once or only when waited for, wgmma as a product
-that reads each operand through its descriptor by the canonical swizzled
-layouts. Everything else (tile layout, descriptors, fragment maps, the
-ring, masking, the causal walk, the epilogue, the f32 kernels) is the
-source as the card compiles it. The kernels are held against
-``_bwd_plain`` with chip_smoke.py's limits. What this cannot show: that
-nvcc accepts the source, and that the card's wgmma reads the layouts as
-the stand-in does (chip_smoke.py checks both on the card).
+The CPU has no nvcc and no card, so ``flash_attention_fwd.cu`` and
+``flash_attention_bwd.cu`` are compiled with g++ against
+``tests/cuda_emulation/``: CUDA's qualifiers, launches, barriers and warp
+shuffles become host code (a block is 256 std::threads; a shuffle is a real
+exchange among the 32 threads of a warp), and the two PTX sections of
+``hopper_mma.cuh`` are replaced by host stand-ins — cp.async as a copy that
+lands at once or only when waited for, wgmma as a product that reads each
+operand through its descriptor by the canonical swizzled layouts.
+Everything else (tile layout, descriptors, fragment maps, the ring, the
+online softmax and its row reductions, masking, the causal walk, the
+epilogue, the f32 kernels) is the source as the card compiles it. The
+kernels are held against ``_fwd_plain`` and ``_bwd_plain`` with
+chip_smoke.py's limits. What this cannot show: that nvcc accepts the
+source, that the card's wgmma reads the layouts as the stand-in does
+(chip_smoke.py checks both on the card), and races between an
+asynchronous product and the registers it writes (the stand-in's products
+complete at once).
 
 A second check parses every CUDA source with g++ with the PTX kept, which
 catches a malformed inline-asm string or operand list before a chip run.
@@ -40,7 +45,13 @@ SHAPES = [(2, 300, 16, torch.bfloat16, True),
           (1, 256, 128, torch.bfloat16, True),
           (1, 130, 128, torch.bfloat16, False),
           (1, 100, 32, torch.float32, True)]
+# chip_smoke.py's limits: out atol + rtol |plain| (+ the p-rounding bound
+# in bf16), lse absolute; gradients rtol (|plain| + rms) (+ their bound)
+OUT_TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
+LSE_ATOL = 1e-3
 GRAD_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+IDS = [f"{str(dt)[6:]}-T{t}-D{d}-{'causal' if c else 'full'}"
+       for _, t, d, dt, c in SHAPES]
 
 
 def _gpp() -> str:
@@ -72,33 +83,83 @@ def _emulated_header() -> str:
             + src[end:])
 
 
-@pytest.fixture(scope="module")
-def emulated_bwd(tmp_path_factory):
+def _emulated_lib(out: Path, name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built for the host against the emulation."""
     gpp = _gpp()
-    out = tmp_path_factory.mktemp("cuda_emulation")
     (out / "hopper_mma.cuh").write_text(_host_source(_emulated_header()))
-    for name in ("flash_attention_common.cuh", "flash_attention_bwd.cu"):
-        (out / name).write_text(_host_source((_build.CSRC / name).read_text()))
-    lib_path = out / "libbwd.so"
+    for src in ("flash_attention_common.cuh", f"{name}.cu"):
+        (out / src).write_text(_host_source((_build.CSRC / src).read_text()))
+    lib_path = out / f"lib{name}.so"
     proc = subprocess.run(
         [gpp, "-std=c++20", "-O2", "-fPIC", "-shared", "-pthread",
          f"-I{out}", f"-I{EMU}", "-x", "c++", "-o", str(lib_path),
-         str(out / "flash_attention_bwd.cu")], capture_output=True, text=True)
+         str(out / f"{name}.cu")], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(str(lib_path))
-    tail = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p]
-    lib.raydp_flash_attention_bwd_dkdv.argtypes = [ctypes.c_void_p] * 8 + tail
-    lib.raydp_flash_attention_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
     lib.emu_set_copy_mode.argtypes = [ctypes.c_int]
     return lib
 
 
+@pytest.fixture(scope="module")
+def emulated_fwd(tmp_path_factory):
+    lib = _emulated_lib(tmp_path_factory.mktemp("cuda_emulation"),
+                        "flash_attention_fwd")
+    fa._fwd_bind(lib)
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emulated_bwd(tmp_path_factory):
+    lib = _emulated_lib(tmp_path_factory.mktemp("cuda_emulation"),
+                        "flash_attention_bwd")
+    fa._bwd_bind(lib)
+    return lib
+
+
 @pytest.mark.parametrize("copies_land", ["at_once", "at_wait"])
-@pytest.mark.parametrize(
-    "bh,t,d,dtype,causal", SHAPES,
-    ids=[f"{str(dt)[6:]}-T{t}-D{d}-{'causal' if c else 'full'}"
-         for _, t, d, dt, c in SHAPES])
+@pytest.mark.parametrize("bh,t,d,dtype,causal", SHAPES, ids=IDS)
+def test_emulated_fwd_kernels_match_plain(emulated_fwd, bh, t, d, dtype,
+                                          causal, copies_land):
+    """out and lse of the emulated forward kernels against ``_fwd_plain``:
+    |out - plain| <= atol + rtol |plain|, plus ``_fwd_rounding_bound`` in
+    bf16 (the kernel rounds p), and |lse - plain| <= 1e-3, as chip_smoke.py
+    holds the card."""
+    emulated_fwd.emu_set_copy_mode(0 if copies_land == "at_once" else 1)
+    gen = torch.Generator().manual_seed(t + d + 1)
+    q3, k3, v3 = [torch.randn(bh, t, d, generator=gen).to(dtype)
+                  for _ in range(3)]
+    scale = 1.0 / math.sqrt(d)
+    out = torch.full_like(q3, float("nan"))
+    lse = torch.full((bh, t), float("nan"))
+    assert emulated_fwd.raydp_flash_attention_fwd(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), bh, t, d, scale, int(causal),
+        fa._KERNEL_DTYPES[dtype], None) == 0
+    ref_out, ref_lse = fa._fwd_plain(q3, k3, v3, scale, causal)
+    atol, rtol = OUT_TOL[dtype]
+    bound = (fa._fwd_rounding_bound(q3, k3, v3, scale, causal)
+             if dtype == torch.bfloat16 else 0.0)
+    ref_out = ref_out.float()
+    limit = atol + rtol * ref_out.abs() + bound
+    used = ((out.float() - ref_out).abs() / limit).max().item()
+    assert used <= 1.0, f"out uses {used:.3f} of its limit"
+    assert (lse - ref_lse).abs().max().item() <= LSE_ATOL
+
+
+def test_emulated_fwd_refuses_unaligned_bf16(emulated_fwd):
+    """cp.async copies 16 bytes: a bf16 tensor off a 16-byte boundary is
+    refused before any launch (cudaErrorMisalignedAddress)."""
+    x = torch.zeros(1, 64 * 16 + 8, dtype=torch.bfloat16)
+    q3 = x[:, 8:].view(1, 64, 16)                     # 16 bytes + 16 off
+    bad = x[:, 1:1 + 64 * 16].view(1, 64, 16)         # 2 bytes off
+    lse = torch.zeros(1, 64)
+    assert emulated_fwd.raydp_flash_attention_fwd(
+        q3.data_ptr(), bad.data_ptr(), q3.data_ptr(), q3.data_ptr(),
+        lse.data_ptr(), 1, 64, 16, 0.25, 1, 1, None) == 716
+
+
+@pytest.mark.parametrize("copies_land", ["at_once", "at_wait"])
+@pytest.mark.parametrize("bh,t,d,dtype,causal", SHAPES, ids=IDS)
 def test_emulated_bwd_kernels_match_plain(emulated_bwd, bh, t, d, dtype,
                                           causal, copies_land):
     """dq, dk, dv of the emulated kernels against ``_bwd_plain``:

@@ -235,6 +235,69 @@ def test_bwd_rounding_bound_covers_rounded_p_ds(causal, t, blk_k):
     assert used > 0.05
 
 
+# chip_smoke.py's bf16 out limit: atol + rtol |plain| (one bf16 step)
+OUT_ATOL, OUT_RTOL = 1e-5, 2.0 ** -7
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_plain_bf16_matches_pallas_interpret(causal, d):
+    """bf16 through the reference's Pallas forward kernel (interpret mode,
+    a 4 x 4 grid of 64-row blocks, seeded randn inputs as chip_smoke.py
+    makes them), which rounds p to bf16 before p·v as the Hopper bf16
+    kernel does. The f32-p ``_fwd_plain`` stays within chip_smoke.py's bf16
+    out limit plus ``_fwd_rounding_bound`` of it, the limit chip_smoke.py
+    holds the CUDA kernel to; lse agrees to 1e-5. (The one-step limit alone
+    does not hold: at these inputs the Pallas kernel uses 45 to 89 times
+    it, at outputs near zero, which have almost no relative room; with the
+    bound added, at most 0.66 of the limit.)"""
+    rng = np.random.RandomState(12)
+    q3, k3, v3 = [torch.from_numpy(rng.randn(4, 256, d).astype(np.float32))
+                  .bfloat16() for _ in range(3)]
+    scale = 1.0 / d ** 0.5
+    ref_out, ref_lse = jfa._fwd_pallas(
+        *map(_to_jax, (q3, k3, v3)), scale=scale, causal=causal, blk_q=64,
+        blk_k=64, interpret=True)
+    assert ref_out.dtype == jnp.bfloat16
+    out, lse = tfa._fwd_plain(q3, k3, v3, scale, causal)
+    bound = tfa._fwd_rounding_bound(q3, k3, v3, scale, causal)
+    assert bound.dtype == torch.float32 and bound.shape == out.shape
+    ref = np.asarray(ref_out.astype(jnp.float32))
+    got = out.float().numpy()
+    one_step = OUT_ATOL + OUT_RTOL * np.abs(got)
+    assert np.all(np.abs(ref - got) <= one_step + bound.numpy())
+    assert np.max(np.abs(ref - got) / one_step) > 1.0
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [96, 37])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_rounding_bound_covers_rounded_p(causal, t):
+    """``_fwd_rounding_bound`` against the move it bounds, computed here
+    directly: a plain forward that rounds p (formed against the row max)
+    to bf16 before p·v, minus the same forward in f32, both normalised by
+    the l of the unrounded p and summed in f64, so only the rounding of p
+    differs. It holds elementwise (1e-6 slack for the f32 sums of the
+    bound itself), and it is not vacuous: the largest move uses a visible
+    share of it."""
+    rng = np.random.RandomState(13)
+    q3, k3, v3 = [torch.from_numpy(rng.randn(3, t, 32).astype(np.float32))
+                  .bfloat16() for _ in range(3)]
+    scale = 1.0 / 32 ** 0.5
+    s = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.double().sum(-1, keepdim=True)
+    vd = v3.double()
+    exact = torch.einsum("bqk,bkd->bqd", p.double(), vd) / l
+    rounded = torch.einsum("bqk,bkd->bqd", p.bfloat16().double(), vd) / l
+    bound = tfa._fwd_rounding_bound(q3, k3, v3, scale, causal).double()
+    move = (rounded - exact).abs()
+    assert torch.all(move <= bound * (1 + 1e-6) + 1e-9)
+    assert (move / (bound + 1e-30)).max().item() > 0.05
+
+
 @pytest.mark.parametrize("t,block_k", [(64, 16), (37, 1024)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_grads_through_autograd_match_jax(causal, t, block_k):
