@@ -2,13 +2,23 @@
 
 - :mod:`transformer` — the long-context TransformerLM (forward, losses,
   backward);
-- :mod:`convert` — Flax param trees → the port's state_dicts.
+- :mod:`mlp` — ``MLP`` / ``NYCTaxiModel`` (Flax BatchNorm semantics);
+- :mod:`dlrm` — ``DLRM`` and ``criteo_batch_preprocessor``;
+- :mod:`layers` — the Flax layers they share;
+- :mod:`convert` — Flax variable trees → the port's state_dicts.
 """
 
-from raydp_tpu_torch.models.convert import transformer_params_from_flax
+from raydp_tpu_torch.models.convert import (
+    dlrm_params_from_flax, mlp_variables_from_flax,
+    transformer_params_from_flax,
+)
+from raydp_tpu_torch.models.dlrm import DLRM, criteo_batch_preprocessor
+from raydp_tpu_torch.models.mlp import MLP, NYCTaxiModel
 from raydp_tpu_torch.models.transformer import (
     TransformerLM, lm_loss, lm_loss_fused,
 )
 
-__all__ = ["TransformerLM", "lm_loss", "lm_loss_fused",
+__all__ = ["DLRM", "MLP", "NYCTaxiModel", "TransformerLM",
+           "criteo_batch_preprocessor", "dlrm_params_from_flax", "lm_loss",
+           "lm_loss_fused", "mlp_variables_from_flax",
            "transformer_params_from_flax"]

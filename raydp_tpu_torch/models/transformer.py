@@ -27,8 +27,7 @@ CPU). The sequence-sharded ``"ring"`` path and ``mesh`` are not ported yet.
 
 from __future__ import annotations
 
-import math
-from typing import Any, Optional, Sequence
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -37,12 +36,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from raydp_tpu_torch.device import DeviceLike, resolve_device
+from raydp_tpu_torch.models.layers import _Dense, _Embed, init_parameters
 from raydp_tpu_torch.ops.flash_attention import flash_attention
 from raydp_tpu_torch.ops.ring_attention import dense_attention
 
 _ATTENTION_KINDS = ("auto", "flash", "dense")
-# std of a standard normal truncated to [-2, 2] (Flax's truncated_normal)
-_TRUNC_STD = 0.87962566103423978
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
@@ -57,49 +55,6 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :d_half], x[..., d_half:]
     return torch.cat([x1 * cos - x2 * sin,
                       x1 * sin + x2 * cos], dim=-1).to(x.dtype)
-
-
-class _Dense(nn.Module):
-    """Bias-free Flax ``Dense``/``DenseGeneral``: ``kernel`` has shape
-    ``in_shape + out_shape`` and contracts the input's trailing
-    ``len(in_shape)`` dims; input and kernel are cast to ``dtype`` first."""
-
-    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
-                 dtype: torch.dtype, device: torch.device):
-        super().__init__()
-        self.dtype = dtype
-        self.n_in = len(in_shape)
-        self.kernel = nn.Parameter(
-            torch.empty(*in_shape, *out_shape, device=device))
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        # Flax's default lecun_normal: truncated normal, variance 1/fan_in
-        fan_in = math.prod(self.kernel.shape[:self.n_in])
-        std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
-        nn.init.trunc_normal_(self.kernel, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.tensordot(x.to(self.dtype), self.kernel.to(self.dtype),
-                               dims=self.n_in)
-
-
-class _Embed(nn.Module):
-    """Flax ``Embed``: an f32 table, rows returned in ``dtype``."""
-
-    def __init__(self, num: int, dim: int, dtype: torch.dtype,
-                 device: torch.device):
-        super().__init__()
-        self.dtype = dtype
-        self.embedding = nn.Parameter(torch.empty(num, dim, device=device))
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        # Flax's default_embed_init: normal with variance 1/dim
-        nn.init.normal_(self.embedding, 0.0, 1.0 / math.sqrt(
-            self.embedding.shape[1]), generator=generator)
-
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding).to(self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -206,10 +161,7 @@ class TransformerLM(nn.Module):
         self.lm_head = _Dense((dim,), (vocab_size,), dtype, device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        with torch.no_grad():
-            for module in self.modules():
-                if module is not self and hasattr(module, "reset_parameters"):
-                    module.reset_parameters(generator)
+        init_parameters(self, generator)
 
     def forward(self, tokens: torch.Tensor,
                 return_hidden: bool = False) -> torch.Tensor:

@@ -1,0 +1,196 @@
+"""ctypes binding + on-demand build of the native host-feed staging kernel —
+the port's copy of :mod:`raydp_tpu.native.stage`.
+
+``raydp_tpu_torch/csrc/feed/stage.cpp`` (a verbatim copy of the reference's
+``csrc/feed/stage.cpp``) fuses the Arrow-column -> [rows, features] cast and
+interleave into one pass per column (the numpy path pays astype + np.stack =
+two passes and an intermediate per column). It is compiled by ``g++`` at
+first use into the git-ignored ``raydp_tpu_torch/_build/``. The streaming
+feed's ``_as_numpy`` calls :func:`stage_table` and falls back to numpy
+whenever a column is ineligible (nulls, non-primitive, unsupported dtype) or
+the toolchain is absent, exactly as the reference does — the output is
+identical either way.
+
+Float→int dtype pairs are DECLINED (here and in the kernel's own dispatch):
+``static_cast`` from a float to an integer is undefined behavior in C++ for
+NaN/out-of-range values, while numpy's astype has different,
+platform-defined behavior — the byte-parity contract only holds for
+float→float and (unsigned/signed) int→int pairs, so anything else falls
+back to numpy.
+
+Threads: ``RDT_STAGE_THREADS`` fans columns out over a small pool (default
+1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import os
+import subprocess
+import threading
+from typing import List, Optional, Sequence
+
+import numpy as np
+import pyarrow as pa
+
+from raydp_tpu_torch import knobs
+from raydp_tpu_torch.log import get_logger
+
+logger = get_logger("native.stage")
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "feed", "stage.cpp")
+_LIB_DIR = os.path.join(_PKG, "_build")
+_LIB = os.path.join(_LIB_DIR, "librdtstage.so")
+
+_lib_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_lib_failed = False
+
+#: dtype codes shared with stage.cpp (keep in sync)
+_DTYPE_CODES = {
+    np.dtype(np.float32): 0, np.dtype(np.float64): 1,
+    np.dtype(np.int8): 2, np.dtype(np.int16): 3,
+    np.dtype(np.int32): 4, np.dtype(np.int64): 5,
+    np.dtype(np.uint8): 6, np.dtype(np.uint16): 7,
+    np.dtype(np.uint32): 8, np.dtype(np.uint64): 9,
+}
+#: destination dtypes the kernel writes
+_DST_CODES = {np.dtype(np.float32): 0, np.dtype(np.float64): 1,
+              np.dtype(np.int32): 4, np.dtype(np.int64): 5}
+
+#: Arrow primitive types eligible as zero-copy sources
+_ARROW_NUMERIC = {
+    pa.float32(): np.dtype(np.float32), pa.float64(): np.dtype(np.float64),
+    pa.int8(): np.dtype(np.int8), pa.int16(): np.dtype(np.int16),
+    pa.int32(): np.dtype(np.int32), pa.int64(): np.dtype(np.int64),
+    pa.uint8(): np.dtype(np.uint8), pa.uint16(): np.dtype(np.uint16),
+    pa.uint32(): np.dtype(np.uint32), pa.uint64(): np.dtype(np.uint64),
+}
+
+
+def _build() -> None:
+    os.makedirs(_LIB_DIR, exist_ok=True)
+    lock_path = os.path.join(_LIB_DIR, ".stage.build.lock")
+    with open(lock_path, "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(_LIB) and (
+                    not os.path.exists(_SRC)  # prebuilt lib sans csrc/
+                    or os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
+                return
+            tmp = _LIB + ".tmp"
+            subprocess.run(
+                ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                 "-o", tmp, _SRC, "-lpthread"],
+                check=True, capture_output=True, text=True)
+            os.replace(tmp, _LIB)
+            logger.info("built native staging kernel -> %s", _LIB)
+        finally:
+            fcntl.flock(lock_file, fcntl.LOCK_UN)
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _lib_failed
+    with _lib_lock:
+        if _lib is not None or _lib_failed:
+            return _lib
+        try:
+            _build()
+            lib = ctypes.CDLL(_LIB)
+            lib.rdt_stage_cast.restype = ctypes.c_int
+            lib.rdt_stage_cast.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64]
+            lib.rdt_stage_columns.restype = ctypes.c_int
+            lib.rdt_stage_columns.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int]
+            _lib = lib
+        except Exception as e:  # noqa: BLE001 - numpy fallback is complete
+            _lib_failed = True
+            logger.warning("native staging kernel unavailable (%s); "
+                           "using the numpy decode path", e)
+        return _lib
+
+
+def native_stage_available() -> bool:
+    return _load() is not None
+
+
+def _chunk_ptr(chunk: pa.Array) -> Optional[int]:
+    """Raw pointer to the chunk's data buffer, honoring the array offset;
+    None when the chunk is not a clean zero-copy source."""
+    if chunk.null_count:
+        return None
+    dtype = _ARROW_NUMERIC.get(chunk.type)
+    if dtype is None:
+        return None
+    bufs = chunk.buffers()
+    if len(bufs) != 2 or bufs[1] is None:
+        return None
+    return bufs[1].address + chunk.offset * dtype.itemsize
+
+
+def stage_table(table: pa.Table, columns: Sequence[str],
+                dtype: np.dtype) -> Optional[np.ndarray]:
+    """``[rows, len(columns)]`` array of ``dtype`` decoded natively, or None
+    when any column is ineligible (caller falls back to numpy)."""
+    dtype = np.dtype(dtype)
+    dst_code = _DST_CODES.get(dtype)
+    if dst_code is None or len(columns) < 2:
+        return None  # single column: numpy's cast is already one pass
+    lib = _load()
+    if lib is None:
+        return None
+
+    rows = table.num_rows
+    # scan EVERY chunk for eligibility before allocating or casting anything:
+    # discovering an ineligible chunk mid-decode would waste the whole pass
+    # (numpy would then redo it) on every batch of a streaming feed
+    dst_integral = dst_code in (4, 5)   # I32 / I64
+    plans: List[List] = []   # per column: [(ptr, code, n_rows), ...]
+    single_chunk = True
+    for name in columns:
+        col = table.column(name)
+        if col.null_count:
+            return None
+        chunks = []
+        for chunk in col.chunks:
+            ptr = _chunk_ptr(chunk)
+            if ptr is None:
+                return None
+            code = _DTYPE_CODES[_ARROW_NUMERIC[chunk.type]]
+            if dst_integral and code in (0, 1):   # float source → int dst:
+                return None                       # UB, declined (see module doc)
+            chunks.append((ptr, code, len(chunk)))
+        single_chunk = single_chunk and len(chunks) == 1
+        plans.append(chunks)
+
+    out = np.empty((rows, len(columns)), dtype)
+    dst_ptr = out.ctypes.data
+
+    # fast path: every column one clean chunk -> one native call with the
+    # column fan-out (and optional threads) inside C++
+    if single_chunk:
+        n = len(plans)
+        src_arr = (ctypes.c_void_p * n)(*[p[0][0] for p in plans])
+        code_arr = (ctypes.c_int * n)(*[p[0][1] for p in plans])
+        threads = int(knobs.get("RDT_STAGE_THREADS"))
+        if lib.rdt_stage_columns(src_arr, code_arr, n, rows, dst_ptr,
+                                 dst_code, threads):
+            return None
+        return out
+
+    # chunked columns: per-(column, chunk) casts into the right row window
+    for c, chunks in enumerate(plans):
+        row0 = 0
+        for ptr, code, n_rows in chunks:
+            if lib.rdt_stage_cast(ptr, code, n_rows, dst_ptr, dst_code,
+                                  len(columns), c, row0):
+                return None
+            row0 += n_rows
+    return out

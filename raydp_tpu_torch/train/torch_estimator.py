@@ -1,0 +1,679 @@
+"""TorchEstimator — port of :class:`raydp_tpu.train.FlaxEstimator` for one
+CUDA device (or, when asked, the CPU).
+
+``fit`` trains a ``torch.nn.Module`` over any dataset with the read
+interface of the reference's ``DistributedDataset`` (the port's
+:class:`~raydp_tpu_torch.data.TableDataset`, or the reference's own): the
+whole dataset resident on the device when it fits (:class:`DeviceEpochCache`,
+an epoch is a loop over on-device slices or gathers), else the streaming
+:class:`DeviceFeed`. Per epoch it reports the same keys as the reference
+(``train_loss``, ``steps``, ``samples_per_s``, the epoch time split into
+feed/decode/stage/h2d/dispatch/sync, ``train_<metric>``, ``eval_loss``,
+``eval_<metric>``), runs the callbacks, checkpoints every
+``checkpoint_interval`` epochs (and the last) through
+:mod:`raydp_tpu_torch.train.checkpoint`, and on a failure restores the last
+checkpoint this fit wrote, up to ``max_retries`` times. ``predict`` and
+``get_model`` follow.
+
+How the reference's pieces map:
+
+- the model: an ``nn.Module`` (``model``, copied at every fit so each fit
+  starts from the same weights, as each Flax fit starts from
+  ``model.init(PRNGKey(seed))``) or a zero-argument ``model_creator``; its
+  ``train()``/``eval()`` mode is Flax's ``train`` argument, and BatchNorm
+  statistics update in place in training mode;
+- the optimizer: a factory ``params -> torch.optim.Optimizer``
+  (``optimizer`` or ``optimizer_creator``); the default is
+  ``torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)``, which
+  is ``optax.adam(1e-3)``. ``optax.adagrad(lr)`` (accumulator from 0.1,
+  ``g / sqrt(acc + 1e-7)``) is ``torch.optim.Adagrad(params, lr=lr,
+  initial_accumulator_value=0.1, eps=0.0)`` to within 5e-7 of the update
+  (torch adds eps outside the root; with the accumulator ≥ 0.1 dropping
+  optax's 1e-7 inside it moves the root by at most that share);
+- ``compute_dtype`` casts the floating inputs (after
+  ``batch_preprocessor``) to a torch dtype;
+- the loss and metric sums stay on the device; the host reads them once,
+  at the end of the epoch.
+
+Not ported yet (ROADMAP): ``mesh``/``mesh_spec``/``param_rules``,
+``steps_per_dispatch``, ``remat``, ``seq_sharded``, ``PipelineModel``,
+``fit_gang`` and resume, ``fit_on_frame``, ``partial_fit``,
+``export_serving``.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+import tempfile
+import time
+from collections.abc import Mapping
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from raydp_tpu_torch import knobs
+from raydp_tpu_torch.data.feed import (
+    MASK_KEY, DeviceEpochCache, DeviceFeed, HostBatchIterator, epoch_seed,
+)
+from raydp_tpu_torch.device import DeviceLike, resolve_device
+from raydp_tpu_torch.log import get_logger
+from raydp_tpu_torch.train import checkpoint as ckpt
+from raydp_tpu_torch.train.estimator import EstimatorInterface, save_epoch_now
+from raydp_tpu_torch.train.metrics import Metric, build_metrics
+
+logger = get_logger("train.torch_estimator")
+
+
+@dataclass
+class TrainState:
+    """The trained module and its optimizer."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+
+
+@dataclass
+class TrainingResult:
+    state: TrainState
+    history: List[Dict[str, float]] = field(default_factory=list)
+    checkpoint_dir: Optional[str] = None
+
+
+def _default_optimizer(params) -> torch.optim.Optimizer:
+    return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _cast_floating(inputs, dtype: Optional[torch.dtype]):
+    """Cast the floating tensors of a batch (a tensor, or dicts/lists of
+    them) to the compute dtype — THE cast policy, shared by the train loop
+    and predict."""
+    if dtype is None:
+        return inputs
+    if isinstance(inputs, Mapping):
+        return {k: _cast_floating(v, dtype) for k, v in inputs.items()}
+    if isinstance(inputs, (list, tuple)):
+        return type(inputs)(_cast_floating(v, dtype) for v in inputs)
+    return inputs.to(dtype) if inputs.is_floating_point() else inputs
+
+
+def _masked_mean(x: torch.Tensor, mask) -> torch.Tensor:
+    """Mean of ``x`` over REAL rows only: per-row reduce the non-batch dims,
+    then weight by the 0/1 mask. ``mask=None`` is a plain mean."""
+    if mask is None:
+        return torch.mean(x)
+    if x.ndim > 1:
+        x = torch.mean(x, dim=tuple(range(1, x.ndim)))
+    return torch.sum(x * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def _resolve_loss(loss) -> Callable:
+    if callable(loss):
+        return loss
+    name = (loss or "mse").lower()
+
+    # every named loss is elementwise-then-_masked_mean so a pad-and-mask
+    # feed's zero rows contribute nothing
+    def mse(preds, labels, mask=None):
+        return _masked_mean((preds - labels) ** 2, mask)
+
+    def mae(preds, labels, mask=None):
+        return _masked_mean(torch.abs(preds - labels), mask)
+
+    def smooth_l1(preds, labels, beta=1.0, mask=None):
+        d = torch.abs(preds - labels)
+        return _masked_mean(torch.where(d < beta, 0.5 * d * d / beta,
+                                        d - 0.5 * beta), mask)
+
+    def bce_with_logits(logits, labels, mask=None):
+        return _masked_mean(torch.clamp_min(logits, 0) - logits * labels
+                            + torch.log1p(torch.exp(-torch.abs(logits))),
+                            mask)
+
+    def softmax_cross_entropy(logits, labels, mask=None):
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+        return _masked_mean(nll, mask)
+
+    table = {"mse": mse, "l2": mse, "mae": mae, "l1": mae,
+             "smooth_l1": smooth_l1, "huber": smooth_l1,
+             "bce": bce_with_logits, "bce_with_logits": bce_with_logits,
+             "cross_entropy": softmax_cross_entropy}
+    if name not in table:
+        raise ValueError(f"unknown loss {name!r}; have {sorted(table)}")
+    return table[name]
+
+
+def _strip_mask(batch):
+    """Split the feed's validity mask off a batch dict (None when the feed
+    is not padding) — model/preprocessor code never sees the mask key."""
+    mask = batch.get(MASK_KEY)
+    if mask is None:
+        return batch, None
+    return {k: v for k, v in batch.items() if k != MASK_KEY}, mask
+
+
+def _update_metric(m, stats, preds, labels, mask):
+    """Metric update with the mask passed ONLY when one exists: builtin
+    metrics take it; a custom Metric without mask support keeps working on
+    unpadded feeds and fails loudly (not silently wrong) on padded ones."""
+    if mask is None:
+        return m.update(stats, preds, labels)
+    return m.update(stats, preds, labels, mask=mask)
+
+
+def _host_stats(stats) -> Dict[str, np.ndarray]:
+    """A metric's statistics read to the host (once, at epoch end)."""
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v, np.float32)) for k, v in stats.items()}
+
+
+def _make_apply(split_batch, compute_dtype):
+    """Build THE forward of the train and eval steps — one source for the
+    split/cast/mode/squeeze policy.
+
+    Returns ``apply_fn(model, batch, train) -> (preds_f32, labels)``."""
+
+    def apply_fn(model, batch, train: bool):
+        inputs, labels = split_batch(batch)
+        inputs = _cast_floating(inputs, compute_dtype)
+        model.train(train)
+        preds = model(inputs)
+        if preds.ndim == labels.ndim + 1 and preds.shape[-1] == 1:
+            preds = preds.squeeze(-1)
+        return preds.float(), labels
+
+    return apply_fn
+
+
+def _make_train_step(apply_fn, loss_fn, metrics, accum: int):
+    """Build the train step: one optimizer update from one batch.
+
+    ``train_step(state, batch, mstats, loss_sum) -> (loss_sum, mstats)``
+    updates ``state`` in place; the loss and metric sums are device tensors.
+    With ``accum > 1`` the batch splits into ``accum`` microbatches run one
+    after another: per-microbatch grads, loss and metric stats accumulate
+    ROW-WEIGHTED in f32 (a masked microbatch weighs in by its real rows), so
+    the single optimizer step at the end reproduces the unaccumulated
+    update to float-summation-order tolerance while only ONE microbatch's
+    activations are ever live."""
+
+    def _microbatch(state, batch, mask):
+        preds, labels = apply_fn(state.model, batch, train=True)
+        lv = loss_fn(preds, labels, mask=mask) if mask is not None \
+            else loss_fn(preds, labels)
+        return lv, preds.detach(), labels
+
+    def train_step(state, batch, mstats, loss_sum):
+        batch, mask = _strip_mask(batch)
+        if accum <= 1:
+            lv, preds, labels = _microbatch(state, batch, mask)
+            state.optimizer.zero_grad(set_to_none=True)
+            lv.backward()
+            state.optimizer.step()
+            new_mstats = tuple(
+                _update_metric(m, s, preds, labels, mask)
+                for m, s in zip(metrics, mstats))
+            return loss_sum + lv.detach().float(), new_mstats
+
+        rows_total = next(iter(batch.values())).shape[0]
+        if rows_total % accum:
+            raise ValueError(f"accum_steps={accum} does not divide the batch "
+                             f"dimension {rows_total}")
+        mb = rows_total // accum
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        # grads/loss accumulate in f32 regardless of the param dtype
+        g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        l_acc = torch.zeros((), dtype=torch.float32, device=loss_sum.device)
+        r_acc = torch.zeros((), dtype=torch.float32, device=loss_sum.device)
+        for i in range(accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            mb_mask = None if mask is None else mask[sl]
+            lv, preds, labels = _microbatch(
+                state, {n: a[sl] for n, a in batch.items()}, mb_mask)
+            grads = torch.autograd.grad(lv, params, allow_unused=True)
+            rows = torch.sum(mb_mask) if mb_mask is not None \
+                else float(labels.shape[0])
+            for a, g in zip(g_acc, grads):
+                if g is not None:
+                    a.add_(g.float() * rows)
+            l_acc = l_acc + lv.detach().float() * rows
+            r_acc = r_acc + rows
+            mstats = tuple(_update_metric(m, s, preds, labels, mb_mask)
+                           for m, s in zip(metrics, mstats))
+        denom = torch.clamp_min(r_acc, 1.0)
+        for p, a in zip(params, g_acc):
+            p.grad = (a / denom).to(p.dtype)
+        state.optimizer.step()
+        return loss_sum + l_acc / denom, mstats
+
+    return train_step
+
+
+class TorchEstimator(EstimatorInterface):
+    def __init__(
+        self,
+        model: Optional[nn.Module] = None,
+        model_creator: Optional[Callable[[], nn.Module]] = None,
+        optimizer: Optional[Callable] = None,
+        optimizer_creator: Optional[Callable] = None,
+        loss: Union[str, Callable, None] = "mse",
+        feature_columns: Optional[Sequence[str]] = None,
+        label_column: Optional[str] = None,
+        batch_size: int = 64,
+        num_epochs: int = 10,
+        metrics: Optional[Sequence[Union[str, Metric]]] = None,
+        checkpoint_dir: Optional[str] = None,
+        seed: int = 0,
+        feature_dtype=np.float32,
+        label_dtype=np.float32,
+        shuffle: bool = True,
+        batch_preprocessor: Optional[Callable] = None,
+        columns_spec: Optional[Dict] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        drop_last: bool = True,
+        callbacks: Optional[Sequence[Callable[[Dict], None]]] = None,
+        checkpoint_interval: int = 1,
+        prefetch_to_device: Optional[int] = None,
+        accum_steps: Optional[int] = None,
+        device: DeviceLike = None,
+    ):
+        if model is None and model_creator is None:
+            raise ValueError("pass model or model_creator")
+        #: the device every fit runs on: CUDA unless ``device="cpu"`` is
+        #: passed; raises without CUDA
+        self.device = resolve_device(device)
+        self._model = model
+        self._model_creator = model_creator
+        self._optimizer = optimizer
+        self._optimizer_creator = optimizer_creator
+        self._loss = loss
+        self.feature_columns = list(feature_columns or [])
+        self.label_column = label_column
+        self.batch_size = batch_size
+        self.num_epochs = num_epochs
+        self._metrics = build_metrics(metrics or [])
+        self.checkpoint_dir = checkpoint_dir
+        #: the streaming feed's shuffle seed and the resident permutation's
+        #: generator seed (per epoch through ``epoch_seed``)
+        self.seed = seed
+        self.feature_dtype = feature_dtype
+        self.label_dtype = label_dtype
+        self.shuffle = shuffle
+        self.batch_preprocessor = batch_preprocessor
+        self.columns_spec = columns_spec
+        self.compute_dtype = compute_dtype
+        self.drop_last = drop_last
+        self.callbacks = list(callbacks or [])
+        #: checkpoint every N-th epoch (the final epoch always saves); a
+        #: retry then replays at most N-1 epochs from the last save
+        self.checkpoint_interval = max(1, int(checkpoint_interval))
+        #: placed batches the streaming feed keeps ahead of the train step
+        #: (None = RDT_PREFETCH_TO_DEVICE, 2); the resident path ignores it
+        self.prefetch_to_device = prefetch_to_device
+        #: gradient-accumulation microbatches per optimizer step (None = the
+        #: RDT_TRAIN_ACCUM_STEPS knob, default 1). Must divide batch_size.
+        self.accum_steps = accum_steps
+        self._result: Optional[TrainingResult] = None
+
+    def _resolve_accum(self) -> int:
+        """The effective accumulation factor for THIS fit (the constructor
+        argument wins over the knob, read at call time), validated against
+        batch_size."""
+        k = self.accum_steps if self.accum_steps is not None \
+            else int(knobs.get("RDT_TRAIN_ACCUM_STEPS"))
+        k = max(1, int(k))
+        if k > 1 and self.batch_size % k:
+            raise ValueError(
+                f"accum_steps={k} must divide batch_size={self.batch_size}")
+        return k
+
+    # ------------------------------------------------------------------ build
+    def _init_state(self) -> TrainState:
+        """A fresh model (a copy of ``model``, or ``model_creator()``) on the
+        fit's device, and its optimizer from the factory."""
+        model = copy.deepcopy(self._model) if self._model is not None \
+            else self._model_creator()
+        model = model.to(self.device)
+        factory = self._optimizer or self._optimizer_creator \
+            or _default_optimizer
+        return TrainState(model, factory(model.parameters()))
+
+    def _columns(self) -> Dict:
+        if self.columns_spec is not None:
+            return self.columns_spec
+        if not self.feature_columns or self.label_column is None:
+            raise ValueError("pass feature_columns + label_column or columns_spec")
+        return {
+            "features": (self.feature_columns, self.feature_dtype),
+            "label": (self.label_column, self.label_dtype),
+        }
+
+    def _split_batch(self, batch: Dict):
+        if self.batch_preprocessor is not None:
+            return self.batch_preprocessor(batch)
+        return batch["features"], batch["label"]
+
+    # -------------------------------------------------------------------- fit
+    def fit(self, train_ds, evaluate_ds=None, max_retries: int = 0
+            ) -> TrainingResult:
+        columns = self._columns()
+        ckpt_dir = self.checkpoint_dir or tempfile.mkdtemp(prefix="rdt-ckpt-")
+
+        # device-resident fast path: the dataset in device memory, batches
+        # sliced (or gathered by a per-epoch permutation) on the device;
+        # falls back to the streaming feed when too large or ragged-batch
+        cache = feed = None
+        if DeviceEpochCache.eligible(train_ds, columns, self.batch_size,
+                                     self.drop_last):
+            cache = DeviceEpochCache(train_ds, columns, device=self.device)
+        if cache is None:
+            feed = DeviceFeed(train_ds, self.batch_size, columns,
+                              device=self.device, shuffle=self.shuffle,
+                              seed=self.seed, drop_remainder=self.drop_last,
+                              prefetch_to_device=self.prefetch_to_device)
+        eval_feed = eval_cache = None
+        if evaluate_ds is not None:
+            # one device: the ragged final eval batch runs as it is (the
+            # reference pads and masks it only under a >1 data or stage
+            # extent). Eval goes resident alongside the train set when
+            # train + eval residency together stay under the cap
+            if (cache is not None
+                    and DeviceEpochCache.eligible(evaluate_ds, columns,
+                                                  1, True)
+                    and cache.nbytes + DeviceEpochCache.estimate_bytes(
+                        evaluate_ds, columns) <= DeviceEpochCache.cap_bytes()):
+                eval_cache = DeviceEpochCache(evaluate_ds, columns,
+                                              device=self.device)
+            else:
+                eval_feed = DeviceFeed(evaluate_ds, self.batch_size, columns,
+                                       device=self.device, shuffle=False,
+                                       drop_remainder=False,
+                                       prefetch_to_device=self.prefetch_to_device)
+
+        state, history = self._train_loop(
+            feed, eval_feed, ckpt_dir, max_retries=max_retries, cache=cache,
+            eval_cache=eval_cache)
+        self._result = TrainingResult(state=state, history=history,
+                                      checkpoint_dir=ckpt_dir)
+        return self._result
+
+    def _train_loop(self, feed, eval_feed, ckpt_dir: str,
+                    max_retries: int = 0, cache=None, eval_cache=None):
+        if self.checkpoint_dir:
+            ckpt.warn_if_reused_dir(ckpt_dir)
+        loss_fn = _resolve_loss(self._loss)
+        metrics = self._metrics
+        state = self._init_state()
+        apply_fn = _make_apply(self._split_batch, self.compute_dtype)
+        train_step = _make_train_step(apply_fn, loss_fn, metrics,
+                                      self._resolve_accum())
+
+        # eval threads BOTH accumulators (row-weighted loss sum AND the row
+        # count): under pad-and-mask the real row count is mask.sum()
+        @torch.no_grad()
+        def eval_step(state, batch, mstats, loss_sum, cnt_sum):
+            batch, mask = _strip_mask(batch)
+            preds, labels = apply_fn(state.model, batch, train=False)
+            if mask is None:
+                rows = float(labels.shape[0])
+                loss_val = loss_fn(preds, labels).float()
+            else:
+                rows = torch.sum(mask)
+                loss_val = loss_fn(preds, labels, mask=mask).float()
+            new_mstats = tuple(
+                _update_metric(m, s, preds, labels, mask)
+                for m, s in zip(metrics, mstats))
+            return loss_sum + loss_val * rows, cnt_sum + rows, new_mstats
+
+        epoch_fn = None
+        cache_steps = 0
+        if cache is not None:
+            def _step(carry, batch):
+                state, loss_sum, mstats = carry
+                loss_sum, mstats = train_step(state, batch, mstats, loss_sum)
+                return state, loss_sum, mstats
+
+            epoch_fn, cache_steps = cache.make_epoch_fn(
+                _step, self.batch_size, self.shuffle)
+
+        eval_epoch_fn = None
+        eval_tail = None
+        if eval_cache is not None:
+            # the eval pass over the resident rows, then the ragged tail as
+            # one more (smaller) batch
+            def _eval_scan_step(carry, batch):
+                state, estats, esum, ecnt = carry
+                esum, ecnt, estats = eval_step(state, batch, estats, esum,
+                                               ecnt)
+                return state, estats, esum, ecnt
+
+            eval_epoch_fn, esteps = eval_cache.make_epoch_fn(
+                _eval_scan_step, self.batch_size, shuffle=False)
+            tail_off = esteps * self.batch_size
+            if eval_cache.num_rows > tail_off:
+                eval_tail = {n: a[tail_off:]
+                             for n, a in eval_cache.arrays.items()}
+
+        def zero() -> torch.Tensor:
+            return torch.zeros((), dtype=torch.float32, device=self.device)
+
+        history: List[Dict[str, float]] = []
+        epoch = 0
+        retries = 0
+        #: highest checkpoint step THIS run wrote — a retry may only restore
+        #: up to it; a reused dir's stale steps (possibly HIGHER-numbered,
+        #: which latest-step selection would otherwise prefer) are foreign
+        last_written_step: Optional[int] = None
+        while epoch < self.num_epochs:
+            try:
+                t0 = time.perf_counter()
+                mstats = tuple(m.init() for m in metrics)
+                loss_sum = zero()
+                steps, samples = 0, 0
+                t_feed = t_disp = 0.0
+                if cache is not None:
+                    td = time.perf_counter()
+                    _, loss_sum, mstats = epoch_fn(
+                        (state, loss_sum, mstats), cache.arrays,
+                        epoch_seed(self.seed, epoch))
+                    # the loss read INSIDE this window, so dispatch_time_s
+                    # carries the epoch's device time
+                    loss_sum = loss_sum.item()
+                    t_disp = time.perf_counter() - td
+                    steps = cache_steps
+                    samples = cache_steps * self.batch_size
+                else:
+                    feed.set_epoch(epoch)
+                    it = iter(feed)
+                    while True:
+                        tf = time.perf_counter()
+                        item = next(it, None)
+                        t_feed += time.perf_counter() - tf
+                        if item is None:
+                            break
+                        td = time.perf_counter()
+                        loss_sum, mstats = train_step(state, item, mstats,
+                                                      loss_sum)
+                        t_disp += time.perf_counter() - td
+                        steps += 1
+                        samples += self.batch_size
+                # the one host read of the epoch's loss: it waits for the
+                # device, so the epoch wall includes the device work
+                ts = time.perf_counter()
+                train_loss = float(loss_sum) / steps if steps else math.nan
+                t_sync = time.perf_counter() - ts
+                dt = time.perf_counter() - t0
+                # the feed's thread-side phase split (decode/stage/h2d):
+                # these walls OVERLAP dispatch by design
+                pipe = feed.timings.take() if feed is not None else {}
+                report = {
+                    "epoch": epoch,
+                    "train_loss": train_loss,
+                    "steps": steps,
+                    "samples_per_s": samples / dt if dt > 0 else 0.0,
+                    "epoch_time_s": dt,
+                    "feed_time_s": t_feed,
+                    "decode_time_s": pipe.get("decode", 0.0),
+                    "stage_time_s": pipe.get("stage", 0.0),
+                    "h2d_time_s": pipe.get("h2d", 0.0),
+                    "dispatch_time_s": t_disp,
+                    "sync_time_s": t_sync,
+                }
+                for m, s in zip(metrics, mstats):
+                    report[f"train_{m.name}"] = m.compute(_host_stats(s))
+
+                if eval_feed is not None or eval_cache is not None:
+                    estats = tuple(m.init() for m in metrics)
+                    esum, ecnt = zero(), zero()
+                    if eval_cache is not None:
+                        _, estats, esum, ecnt = eval_epoch_fn(
+                            (state, estats, esum, ecnt), eval_cache.arrays,
+                            0)  # unused: shuffle=False
+                        if eval_tail is not None:
+                            esum, ecnt, estats = eval_step(
+                                state, eval_tail, estats, esum, ecnt)
+                    else:
+                        for batch in eval_feed:
+                            esum, ecnt, estats = eval_step(state, batch,
+                                                           estats, esum, ecnt)
+                    rows = float(ecnt)  # real rows only: pad rows mask to 0
+                    report["eval_loss"] = (float(esum) / rows) if rows \
+                        else math.nan
+                    for m, s in zip(metrics, estats):
+                        report[f"eval_{m.name}"] = m.compute(_host_stats(s))
+
+                history.append(report)
+                for cb in self.callbacks:
+                    cb(report)
+                logger.info("epoch %d: %s", epoch,
+                            {k: (round(v, 5) if isinstance(v, float) else v)
+                             for k, v in report.items()})
+                if save_epoch_now(epoch, self.checkpoint_interval,
+                                  self.num_epochs):
+                    ckpt.save(ckpt_dir, state.state_dict(), step=epoch,
+                              extra={"history": history})
+                    last_written_step = epoch
+                epoch += 1
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:  # noqa: BLE001 - retry path (FailureConfig)
+                retries += 1
+                if retries > max_retries:
+                    raise
+                logger.warning("epoch %d failed (%s); restoring from checkpoint "
+                               "(retry %d/%d)", epoch, e, retries, max_retries)
+                # adopt a checkpoint only if THIS run wrote it — and then
+                # only up to the step this run wrote (a reused dir's stale
+                # higher-numbered steps would otherwise win latest-step
+                # selection and silently return an earlier run's model)
+                restored = None
+                if last_written_step is not None:
+                    restored = ckpt.restore(ckpt_dir, state.state_dict(),
+                                            max_step=last_written_step)
+                if restored is not None:
+                    saved, done_epoch = restored
+                    state.load_state_dict(saved)
+                    epoch = done_epoch + 1
+                    extra = ckpt.restore_extra(ckpt_dir,
+                                               max_step=last_written_step)
+                    if extra and "history" in extra:
+                        history = list(extra["history"])
+                else:
+                    # no checkpoint from this run (a failure before the
+                    # first interval save): start over from fresh weights
+                    # like a fresh fit
+                    state = self._init_state()
+                    epoch = 0
+                    history = []
+
+        return state, history
+
+    # ---------------------------------------------------------------- predict
+    def predict(self, ds, batch_size: Optional[int] = None) -> np.ndarray:
+        """Run the trained model over a dataset and return predictions as
+        one host array (row order = dataset block order; the ragged last
+        batch included).
+
+        Works for plain ``feature_columns`` models AND for
+        ``batch_preprocessor`` / ``columns_spec`` models (e.g. DLRM): those
+        decode the same column spec the train feed used and run the
+        preprocessor per batch, exactly like the train step. ANY spec entry
+        whose column(s) the dataset lacks (an inference frame's label) is
+        synthesized as zeros — the preprocessor's label output is discarded
+        anyway.
+        """
+        model = self.get_model()   # raises if fit() has not run
+        compute_dtype = self.compute_dtype
+        custom = (self.batch_preprocessor is not None
+                  or self.columns_spec is not None)
+        split_batch = self._split_batch
+
+        @torch.no_grad()
+        def infer(batch):
+            inputs = split_batch(batch)[0] if custom else batch["features"]
+            inputs = _cast_floating(inputs, compute_dtype)
+            preds = model(inputs)
+            if preds.ndim >= 2 and preds.shape[-1] == 1:
+                preds = preds.squeeze(-1)
+            return preds.float()
+
+        cols = dict(self._columns()) if custom else {
+            "features": (self.feature_columns, self.feature_dtype)}
+        synth: Dict[str, Tuple[Tuple[str, ...], np.dtype]] = {}
+        if custom:
+            have = set(ds.schema.names)
+            for name, (cspec, dt) in list(cols.items()):
+                cnames = (cspec,) if isinstance(cspec, str) else tuple(cspec)
+                missing = [c for c in cnames if c not in have]
+                if missing and len(missing) < len(cnames):
+                    # some of the entry's columns exist and some don't: a
+                    # schema mismatch, not a label-less inference frame
+                    raise ValueError(
+                        f"columns_spec entry {name!r} is partially missing "
+                        f"from the dataset schema: missing {missing}")
+                if missing:
+                    cols.pop(name)
+                    synth[name] = (cnames, np.dtype(dt))
+                    logger.info("predict: columns_spec entry %r absent from "
+                                "the dataset schema; synthesizing zeros",
+                                name)
+            if not cols:
+                raise ValueError(
+                    "no columns_spec entry matches the dataset schema "
+                    f"{sorted(have)}; cannot synthesize every input")
+        it = HostBatchIterator(ds, batch_size or self.batch_size, cols,
+                               shuffle=False, drop_remainder=False)
+        out = []
+        for batch in it:
+            rows = len(next(iter(batch.values())))
+            for name, (cnames, dt) in synth.items():
+                # the decoded shape contract: one column decodes to [rows],
+                # several to [rows, n]
+                shape = (rows,) if len(cnames) == 1 else (rows, len(cnames))
+                batch[name] = np.zeros(shape, dt)
+            placed = {k: torch.tensor(v, device=self.device)
+                      for k, v in batch.items()}
+            out.append(infer(placed).cpu().numpy())
+        if not out:
+            return np.empty((0,), np.float32)
+        return np.concatenate(out, axis=0)
+
+    # -------------------------------------------------------------- get_model
+    def get_model(self) -> nn.Module:
+        """The trained module, in eval mode (Flax's default ``train=False``),
+        with Flax's parameter names."""
+        if self._result is None:
+            raise RuntimeError("call fit() first")
+        return self._result.state.model.eval()

@@ -10,10 +10,13 @@ import pytest
 import torch
 
 from raydp_tpu_torch import resolve_device
-from raydp_tpu_torch.models import TransformerLM
+from raydp_tpu_torch.data import DeviceEpochCache, DeviceFeed
+from raydp_tpu_torch.models import DLRM, MLP, NYCTaxiModel, TransformerLM
+from raydp_tpu_torch.models.dlrm import DotInteraction
 from raydp_tpu_torch.models.transformer import Attention, Block, RMSNorm
 from raydp_tpu_torch.ops import _build
 from raydp_tpu_torch.ops import flash_attention as tfa
+from raydp_tpu_torch.train import TorchEstimator
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -27,7 +30,11 @@ def test_imports_neither_jax_nor_the_reference():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith(('jax.', 'flax', 'optax')) or n == 'raydp_tpu' or "
         "n.startswith('raydp_tpu.'))\n"
-        "assert 'raydp_tpu_torch.models.transformer' in sys.modules\n"
+        "for name in ('models.transformer', 'models.mlp', 'models.dlrm', "
+        "'models.layers', 'models.convert', 'data.dataset', 'data.feed', "
+        "'native.stage', 'train.torch_estimator', 'train.checkpoint', "
+        "'train.metrics', 'train.estimator', 'knobs', 'log'):\n"
+        "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -66,6 +73,49 @@ def test_default_device_modules_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
     assert all(p.device.type == "cpu" for p in make(device="cpu").parameters())
+
+
+def _tiny_dataset():
+    import numpy as np
+    import pyarrow as pa
+
+    from raydp_tpu_torch.data import TableDataset
+
+    x = np.arange(8, dtype=np.float32)
+    return TableDataset([pa.table({"x": x, "y": x})])
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: MLP(3, (4,), **kw),
+    lambda **kw: NYCTaxiModel(3, **kw),
+    lambda **kw: DLRM([5, 5], embedding_dim=4, bottom_mlp=(4,),
+                      top_mlp=(4, 1), **kw),
+    lambda **kw: DotInteraction(3, **kw),
+], ids=["MLP", "NYCTaxiModel", "DLRM", "DotInteraction"])
+def test_default_device_main_path_models_raise_without_cuda(no_cuda, make):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    module = make(device="cpu")
+    assert all(t.device.type == "cpu"
+               for t in [*module.parameters(), *module.buffers()])
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: TorchEstimator(model=NYCTaxiModel(1, device="cpu"),
+                                feature_columns=["x"], label_column="y",
+                                **kw),
+    lambda **kw: DeviceFeed(_tiny_dataset(), 4,
+                            {"features": ("x", "float32")}, **kw),
+    lambda **kw: DeviceEpochCache(_tiny_dataset(),
+                                  {"features": ("x", "float32")}, **kw),
+], ids=["TorchEstimator", "DeviceFeed", "DeviceEpochCache"])
+def test_default_device_estimator_and_feeds_raise_without_cuda(no_cuda, make):
+    """The estimator and both device feeds run on CUDA unless the caller
+    passes device="cpu"; without CUDA they raise instead of training or
+    feeding on the CPU."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
 
 
 def _qkv3(bh=2, t=16, d=64, dtype=torch.float32):
