@@ -44,16 +44,32 @@
    BCE-with-logits, the ``optax.adagrad(1e-2)`` mapping, bf16): 120,000
    seeded Criteo-shaped rows, batch 4096, 4 resident and 2 streaming
    epochs, the same lines and the falling loss;
-7. prints one JSON line of kernel results, then the last line
+7. the main path fed from the object store: the port's runtime (head and
+   two actors, the arena of 1 GiB in /dev/shm required, its g++ build
+   included) is started and timed, with one cold and one warm-forked actor
+   spawn (and, to read them, a bare interpreter, the actor's imports and
+   torch's); the actors write phases 5-6's NYCTaxi and DLRM blocks with
+   ``put_arrow_many`` (MB/s, beside the IPC serialisation alone and one
+   copy into fresh memory), whose ``DistributedDataset.to_arrow()`` must
+   equal the source tables; then NYCTaxi f32 (streaming and resident) and
+   DLRM bf16 (streaming) fit unshuffled for 2 epochs from the store-backed
+   dataset and from a ``TableDataset`` of the same tables, in turns, each
+   epoch's loss within 1e-6 of the first fit's; ``predict`` on a
+   store-backed dataset is a plain forward; ``split_shards(2)`` reads every
+   row once; the driver's put into fresh and into reused arena pages is
+   timed; a warm-forked actor allocates on the card; and no segment of
+   the session is left after ``shutdown_runtime``;
+8. prints one JSON line of kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 3, 4: phases 5 and 6 are bound by
+The phases run in the order 1, 2, 5, 6, 7, 3, 4: phases 5-7 are bound by
 the host's kernel launches, so their timed fits come before any
-``torch.profiler`` session of the process, and their two profiled epochs
-(one per model, in fits of their own) after the timed fits. Every kernel
-launch counter is set to 0 just before each driven path (3, both modes of
-4, 5 and 6) and read just after; 5 and 6 run no attention and must launch
-none. Any failed check exits non-zero; so does a machine without CUDA.
+``torch.profiler`` session of the process, and the two profiled epochs of
+5-6 (one per model, in fits of their own) after the timed fits. Every
+kernel launch counter is set to 0 just before each driven path (3, both
+modes of 4, 5, 6 and 7) and read just after; 5-7 run no attention and must
+launch none. Any failed check exits non-zero; so does a machine without
+CUDA.
 """
 
 from __future__ import annotations
@@ -809,6 +825,7 @@ SAME_PATH_RTOL = 1e-6
 # f32 GEMMs whose M differs may sum in another order; |diff| <= 1e-5 of
 # (|plain| + rms(plain))
 PREDICT_RTOL = 1e-5
+PREDICT_ROWS = NYC_BATCH + 1809
 
 
 def nyctaxi_tables(rows: int, blocks: int, seed: int):
@@ -1024,6 +1041,28 @@ def check_card_against_cpu(model, dataset) -> dict:
     return {"steps": CPU_STEPS, "max_rel_diff": rel}
 
 
+def check_predict(label: str, est, rows) -> float:
+    """``est.predict(rows)`` on a ragged row count vs one plain forward of
+    ``get_model()`` over all of them; returns the share of the limit
+    used."""
+    got = est.predict(rows)
+    table = rows.to_arrow()
+    x = torch.tensor(np.stack([table[c].to_numpy() for c in NYC_COLUMNS], 1),
+                     device=est.device)
+    with torch.no_grad():
+        plain = est.get_model()(x)[:, 0].cpu().numpy()
+    limit = PREDICT_RTOL * (np.abs(plain) + np.sqrt(np.mean(plain ** 2)))
+    used = float(np.max(np.abs(got - plain) / limit))
+    print(f"{label} predict: {got.shape[0]} rows in batches of {NYC_BATCH}, "
+          f"max |predict - forward| {np.max(np.abs(got - plain)):.3e}, "
+          f"{used:.3f} of the limit")
+    require(got.shape == plain.shape == (PREDICT_ROWS,),
+            f"{label} predict shape {got.shape}")
+    require(bool(np.isfinite(got).all()) and used <= 1.0,
+            f"{label} predict differs from a plain forward")
+    return used
+
+
 def check_checkpoints(label: str, ckpt_dir: str) -> list:
     """The dir holds complete step dirs in the reference's layout, at most
     _KEEP of them."""
@@ -1132,24 +1171,8 @@ def run_nyctaxi(fa, tmp: str):
             f"resident {first[True]} vs streaming {first[False]}")
 
     out["card_vs_cpu"] = check_card_against_cpu(model, dataset)
-
-    # predict on a ragged row count vs one plain forward of get_model()
-    rows = TableDataset(nyctaxi_tables(NYC_BATCH + 1809, 3, SEED + 2))
-    got = est.predict(rows)
-    table = rows.to_arrow()
-    x = torch.tensor(np.stack([table[c].to_numpy() for c in NYC_COLUMNS], 1),
-                     device=est.device)
-    with torch.no_grad():
-        plain = est.get_model()(x)[:, 0].cpu().numpy()
-    limit = PREDICT_RTOL * (np.abs(plain) + np.sqrt(np.mean(plain ** 2)))
-    used = float(np.max(np.abs(got - plain) / limit))
-    print(f"nyctaxi predict: {got.shape[0]} rows in batches of {NYC_BATCH}, "
-          f"max |predict - forward| {np.max(np.abs(got - plain)):.3e}, "
-          f"{used:.3f} of the limit")
-    require(got.shape == plain.shape == (NYC_BATCH + 1809,),
-            f"predict shape {got.shape}")
-    require(bool(np.isfinite(got).all()) and used <= 1.0,
-            "predict differs from a plain forward")
+    check_predict("nyctaxi", est, TableDataset(
+        nyctaxi_tables(PREDICT_ROWS, 3, SEED + 2)))
 
     def profile():
         return fit_and_report(
@@ -1161,19 +1184,41 @@ def run_nyctaxi(fa, tmp: str):
     return out, profile
 
 
+def dlrm_model():
+    """bench.py's DLRM widths, bf16, seeded weights built on the CPU."""
+    from raydp_tpu_torch.models import DLRM
+
+    return DLRM([DLRM_VOCAB] * len(DLRM_CATS), num_dense=len(DLRM_DENSE),
+                embedding_dim=32, bottom_mlp=(512, 128, 32),
+                top_mlp=(1024, 1024, 512, 256, 1), dtype=torch.bfloat16,
+                device="cpu", generator=torch.Generator().manual_seed(SEED))
+
+
+def dlrm_estimator(model, epochs, callbacks, shuffle=True):
+    """bench.py's DLRM estimator: BCE with logits, the optax.adagrad(1e-2)
+    mapping, bf16 compute, batch 4096."""
+    from raydp_tpu_torch.models import criteo_batch_preprocessor
+    from raydp_tpu_torch.train import TorchEstimator
+
+    return TorchEstimator(
+        model=model, optimizer=lambda p: torch.optim.Adagrad(
+            p, lr=1e-2, initial_accumulator_value=0.1, eps=0.0),
+        loss="bce_with_logits", feature_columns=DLRM_DENSE + DLRM_CATS,
+        label_column="_c0", feature_dtype=np.float64,
+        batch_size=DLRM_BATCH, num_epochs=epochs, shuffle=shuffle,
+        batch_preprocessor=criteo_batch_preprocessor(len(DLRM_DENSE)),
+        compute_dtype=torch.bfloat16, metrics=["accuracy"],
+        callbacks=list(callbacks), checkpoint_interval=epochs)
+
+
 def run_dlrm(fa):
     """Phase 6: DLRM at bench.py's widths through TorchEstimator, bf16
     compute, the optax.adagrad(1e-2) mapping. Returns the numbers and a
     function that profiles one steady resident epoch."""
     from raydp_tpu_torch.data import TableDataset
-    from raydp_tpu_torch.models import DLRM, criteo_batch_preprocessor
-    from raydp_tpu_torch.train import TorchEstimator
 
     dataset = TableDataset(criteo_tables(DLRM_ROWS, DLRM_BLOCKS, SEED))
-    model = DLRM([DLRM_VOCAB] * len(DLRM_CATS), num_dense=len(DLRM_DENSE),
-                 embedding_dim=32, bottom_mlp=(512, 128, 32),
-                 top_mlp=(1024, 1024, 512, 256, 1), dtype=torch.bfloat16,
-                 device="cpu", generator=torch.Generator().manual_seed(SEED))
+    model = dlrm_model()
     n_params = sum(p.numel() for p in model.parameters())
     n_tables = DLRM_VOCAB * 32 * len(DLRM_CATS)
     print(f"dlrm: {n_params} params ({n_params - n_tables} dense, {n_tables} "
@@ -1181,15 +1226,7 @@ def run_dlrm(fa):
           f"blocks, batch {DLRM_BATCH}")
 
     def make(epochs):
-        return lambda cb: TorchEstimator(
-            model=model, optimizer=lambda p: torch.optim.Adagrad(
-                p, lr=1e-2, initial_accumulator_value=0.1, eps=0.0),
-            loss="bce_with_logits", feature_columns=DLRM_DENSE + DLRM_CATS,
-            label_column="_c0", feature_dtype=np.float64,
-            batch_size=DLRM_BATCH, num_epochs=epochs,
-            batch_preprocessor=criteo_batch_preprocessor(len(DLRM_DENSE)),
-            compute_dtype=torch.bfloat16, metrics=["accuracy"],
-            callbacks=cb, checkpoint_interval=epochs)
+        return lambda cb: dlrm_estimator(model, epochs, cb)
 
     out = {"params": n_params}
     zero_launches(fa)
@@ -1209,6 +1246,318 @@ def run_dlrm(fa):
                 "profile"]
 
     return out, profile
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the main path fed from the object store. The port's runtime (head
+# and two actors) writes the phases' blocks into the shared-memory arena with
+# put_arrow_many, and TorchEstimator reads store-backed DistributedDatasets
+# (get_block(zero_copy=True)), in turns with TableDatasets of the same tables
+
+# the phase's blocks (~42 MB NYCTaxi, ~38 MB DLRM, ~1 MB to predict) fit
+# with room to spare; the arena is required, never the per-object fallback
+STORE_ARENA_BYTES = 1 << 30
+STORE_ACTORS, STORE_EPOCHS = 2, 2
+# the same store, the same tables: fits from either dataset see the same
+# batches, so their losses agree as resident and streaming do
+STORE_LOSS_RTOL = SAME_PATH_RTOL
+FEED_KEYS = ("decode_time_s", "stage_time_s", "h2d_time_s", "feed_time_s")
+
+
+class StoreWriter:
+    """An actor of the phase: makes the seeded blocks and writes some of
+    them into the store, timing the write alone; or allocates on the card.
+    Its methods import torch themselves: cloudpickle ships the class by
+    value, and a module global of a method would be imported at spawn."""
+
+    def write(self, kind: str, rows: int, blocks: int, seed: int,
+              indices: list) -> dict:
+        import pyarrow as pa
+
+        from raydp_tpu_torch.runtime.object_store import get_client
+
+        make = nyctaxi_tables if kind == "nyctaxi" else criteo_tables
+        tables = make(rows, blocks, seed)
+        tables = [tables[i] for i in indices]
+        client = get_client()
+        client.free([client.put_arrow(tables[0].slice(0, 1000))])  # warm-up
+        t0 = time.perf_counter()
+        refs = client.put_arrow_many(tables)
+        put_s = time.perf_counter() - t0
+        # the driver owns the blocks: they outlive this actor
+        client.transfer_ownership(refs, "__driver__")
+        # what the write is made of: the IPC serialisation alone, and one
+        # copy of the serialised bytes into fresh (never touched) memory
+        t0 = time.perf_counter()
+        bufs = []
+        for table in tables:
+            sink = pa.BufferOutputStream()
+            with pa.ipc.new_stream(sink, table.schema) as writer:
+                writer.write_table(table)
+            bufs.append(sink.getvalue())
+        serialize_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for buf in bufs:
+            np.copyto(np.empty(buf.size, np.uint8),
+                      np.frombuffer(buf, np.uint8))
+        fresh_copy_s = time.perf_counter() - t0
+        return {"refs": refs, "rows": [t.num_rows for t in tables],
+                "bytes": sum(t.nbytes for t in tables),
+                "ipc_bytes": sum(b.size for b in bufs), "put_s": put_s,
+                "serialize_s": serialize_s, "fresh_copy_s": fresh_copy_s}
+
+    def cuda_sum(self, n: int) -> dict:
+        import os
+
+        import torch
+
+        before = torch.cuda.is_initialized()
+        total = float(torch.arange(n, device="cuda",
+                                   dtype=torch.float64).sum())
+        return {"cuda_initialized_before": before, "sum": total,
+                "warm_forked": os.environ.get("RDT_WARM_FORKED"),
+                "device": torch.cuda.get_device_name(0)}
+
+
+def write_through_actors(rt, actors, kind, rows, blocks, seed):
+    """The actors write ``blocks`` seeded blocks between them, concurrently;
+    returns the store-backed dataset (blocks in order) and the numbers."""
+    from raydp_tpu_torch.data import BlockMeta, DistributedDataset
+
+    shares = [list(range(blocks))[a::len(actors)] for a in range(len(actors))]
+    t0 = time.perf_counter()
+    futs = [h.submit("write", kind, rows, blocks, seed, idx)
+            for h, idx in zip(actors, shares)]
+    results = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    metas = {}
+    for idx, res in zip(shares, results):
+        for i, ref, n in zip(idx, res["refs"], res["rows"]):
+            metas[i] = BlockMeta(num_rows=n, ref=ref)
+    schema = rt.store_client.get(metas[0].ref, zero_copy=True).schema
+    ds = DistributedDataset([metas[i] for i in range(blocks)], schema)
+    mb = sum(r["bytes"] for r in results) / 1e6
+    put_s = max(r["put_s"] for r in results)
+    info = rt.store_server.arena_info()
+    for i in range(blocks):
+        seg, _, _, offset, _, _ = rt.store_server.lookup(
+            ds.get_block_ref(i).id)
+        require(seg == info["segment"] and offset >= 0,
+                f"{kind} block {i} is not in the arena ({seg}, {offset})")
+    numbers = {"mb": mb, "put_s": put_s, "put_mb_per_s": mb / put_s,
+               "per_actor_mb_per_s": [r["bytes"] / 1e6 / r["put_s"]
+                                      for r in results],
+               "ipc_mb": sum(r["ipc_bytes"] for r in results) / 1e6,
+               "per_actor": [{k: r[k] for k in ("put_s", "serialize_s",
+                                                "fresh_copy_s")}
+                             for r in results],
+               "call_wall_s": wall}
+    print(f"store {kind}: {blocks} blocks, {sum(ds.block_sizes())} rows, "
+          f"{mb:.3f} MB written by {len(actors)} actors in {put_s:.4f} s "
+          f"({numbers['put_mb_per_s']:.1f} MB/s; per actor "
+          f"{[round(x, 1) for x in numbers['per_actor_mb_per_s']]}; "
+          f"put / IPC serialisation alone / a copy into fresh memory "
+          f"{[[round(v, 4) for v in a.values()] for a in numbers['per_actor']]}"
+          f" s), call wall {wall:.3f} s with the blocks' generation")
+    return ds, numbers
+
+
+def fits_in_turns(label: str, make_estimator, datasets: dict,
+                  cache: bool = False):
+    """Fits (streaming, or resident with ``cache``) from the store-backed
+    and the in-process dataset in turns (store, table, table, store, store,
+    table); every fit's per-epoch losses must agree with the first's within
+    STORE_LOSS_RTOL. Returns each side's numbers and the last estimator."""
+    runs = []
+    for side in ("store", "table", "table", "store", "store", "table"):
+        est, result, numbers = fit_and_report(
+            f"{label} from {side}", make_estimator, datasets[side],
+            STORE_EPOCHS, cache=cache)
+        runs.append((side, result.history, numbers))
+    first = [r["train_loss"] for r in runs[0][1]]
+    out = {}
+    for side, history, numbers in runs:
+        losses = [r["train_loss"] for r in history]
+        for a, b in zip(losses, first):
+            require(abs(a - b) <= STORE_LOSS_RTOL * abs(b),
+                    f"{label}: {side} losses {losses} vs store {first}")
+        entry = out.setdefault(side, {"samples_per_s_steady": [],
+                                      "epoch0_s": [],
+                                      **{k: [] for k in FEED_KEYS}})
+        entry["samples_per_s_steady"].append(numbers["samples_per_s_steady"])
+        entry["epoch0_s"].append(history[0]["epoch_time_s"])
+        for k in FEED_KEYS:
+            entry[k].append([r[k] for r in history])
+    for side in ("store", "table"):
+        e = out[side]
+        split = ", ".join(
+            f"{k[:-7]} {statistics.mean(v for run in e[k] for v in run):.6f}"
+            for k in FEED_KEYS)
+        print(f"{label}: {side} "
+              f"{[round(v, 1) for v in e['samples_per_s_steady']]} samples/s"
+              f" steady, epoch 0 {[round(v, 6) for v in e['epoch0_s']]} s; "
+              f"mean per epoch {split} s")
+    print(f"{label}: store and table losses agree within "
+          f"{STORE_LOSS_RTOL} ({first})")
+    return out, est
+
+
+def attribute_put(rt, tables) -> dict:
+    """The driver's own ``put_arrow_many`` of ``tables``, first into arena
+    space never touched, then, freed and reclaimed at once, into the same
+    space again: the difference is the first touch of the shared pages."""
+    client = rt.store_client
+    mb = sum(t.nbytes for t in tables) / 1e6
+    out = {}
+    for name in ("fresh", "reused"):
+        t0 = time.perf_counter()
+        refs = client.put_arrow_many(tables)
+        out[f"{name}_mb_per_s"] = mb / (time.perf_counter() - t0)
+        client.free(refs)
+        rt.store_server.host._reap_deferred(everything=True)
+    print(f"store: the driver's put of {mb:.3f} MB into fresh arena pages "
+          f"{out['fresh_mb_per_s']:.1f} MB/s, into the same pages again "
+          f"{out['reused_mb_per_s']:.1f} MB/s")
+    return out
+
+
+def check_split_shards(ds) -> list:
+    """``split_shards(2)`` of the NYCTaxi dataset: equal rank sizes, and
+    every row of every block in exactly one rank."""
+    plans = ds.split_shards(2)
+    seen = [np.zeros(n, np.int64) for n in ds.block_sizes()]
+    for plan in plans:
+        for block, off, n in plan:
+            seen[block][off:off + n] += 1
+    sizes = [sum(n for _, _, n in plan) for plan in plans]
+    print(f"store split_shards(2): rank rows {sizes}, every row once: "
+          f"{all((s == 1).all() for s in seen)}")
+    require(all((s == 1).all() for s in seen) and len(set(sizes)) == 1,
+            f"split_shards(2) plans {plans}")
+    return sizes
+
+
+def run_store(fa, card: str) -> dict:
+    """Phase 7: the port's runtime and object store under the main path."""
+    import os
+
+    from raydp_tpu_torch import config as cfg
+    from raydp_tpu_torch.data import TableDataset
+    from raydp_tpu_torch.models import NYCTaxiModel
+    from raydp_tpu_torch.runtime import init_runtime, shutdown_runtime
+
+    st = os.statvfs("/dev/shm")
+    out = {"card": card, "shm_bytes": st.f_blocks * st.f_frsize,
+           "shm_free_bytes": st.f_bavail * st.f_frsize,
+           "arena_bytes": STORE_ARENA_BYTES}
+    print(f"store: {card}; /dev/shm {out['shm_bytes']} bytes "
+          f"({out['shm_free_bytes']} free), arena {STORE_ARENA_BYTES} bytes")
+    require(out["shm_free_bytes"] >= STORE_ARENA_BYTES,
+            "/dev/shm has no room for the store's arena")
+    # what a cold actor spawn is made of: an interpreter, the imports of
+    # the actor's bootstrap; torch for comparison (the warm prototype's)
+    out["interpreter_s"] = {}
+    for name, code in (("bare", "pass"),
+                       ("actor_imports",
+                        "import raydp_tpu_torch.runtime.actor_main"),
+                       ("torch", "import torch")):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
+        out["interpreter_s"][name] = time.perf_counter() - t0
+    print(f"store: a fresh interpreter that imports nothing / the actor's "
+          f"bootstrap / torch: {out['interpreter_s']} s")
+    zero_launches(fa)
+    t0 = time.perf_counter()
+    rt = init_runtime(cfg.Config({
+        cfg.OBJECT_STORE_MEMORY_KEY: str(STORE_ARENA_BYTES),
+        cfg.NATIVE_OBJECT_STORE_KEY: "on"}))
+    out["init_runtime_s"] = time.perf_counter() - t0
+    prefix = f"rdt{rt.session_id[:8]}"
+    try:
+        info = rt.store_server.arena_info()
+        print(f"store: init_runtime {out['init_runtime_s']:.4f} s, arena "
+              f"{info}")
+        require(info is not None and info["size"] == STORE_ARENA_BYTES,
+                f"the store's arena is not in use: {info}")
+        actors, out["cold_spawn_s"] = [], []
+        for i in range(STORE_ACTORS):
+            t0 = time.perf_counter()
+            actors.append(rt.create_actor(StoreWriter, name=f"writer-{i}"))
+            out["cold_spawn_s"].append(time.perf_counter() - t0)
+        print(f"store: cold actor spawns {out['cold_spawn_s']} s")
+
+        nyc_store, out["nyctaxi_put"] = write_through_actors(
+            rt, actors, "nyctaxi", NYC_ROWS, NYC_BLOCKS, SEED)
+        nyc_table = TableDataset(nyctaxi_tables(NYC_ROWS, NYC_BLOCKS, SEED))
+        require(nyc_store.to_arrow().equals(nyc_table.to_arrow()),
+                "the store's NYCTaxi rows differ from the source tables")
+        dlrm_store, out["dlrm_put"] = write_through_actors(
+            rt, actors, "dlrm", DLRM_ROWS, DLRM_BLOCKS, SEED)
+        dlrm_table = TableDataset(criteo_tables(DLRM_ROWS, DLRM_BLOCKS, SEED))
+        require(dlrm_store.to_arrow().equals(dlrm_table.to_arrow()),
+                "the store's DLRM rows differ from the source tables")
+        stats = rt.store_server.stats()
+        out["spilled_objects"] = stats["spilled_objects"]
+        print(f"store: {stats['num_objects']} objects, "
+              f"{stats['spilled_objects']} spilled, arena "
+              f"{rt.store_server.arena_stats()}")
+        require(stats["spilled_objects"] == 0, f"the store spilled: {stats}")
+
+        model = NYCTaxiModel(NYCTAXI_FEATURES, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
+        nyc = {"store": nyc_store, "table": nyc_table}
+
+        def nyc_estimator(cb):
+            return nyctaxi_estimator(
+                model, None, STORE_EPOCHS, shuffle=False, callbacks=cb,
+                checkpoint_interval=STORE_EPOCHS)
+
+        out["nyctaxi_f32_streaming"], _ = fits_in_turns(
+            "store nyctaxi f32 streaming", nyc_estimator, nyc)
+        out["nyctaxi_f32_resident"], est = fits_in_turns(
+            "store nyctaxi f32 resident", nyc_estimator, nyc, cache=True)
+        dmodel = dlrm_model()
+        out["dlrm_bf16_streaming"], _ = fits_in_turns(
+            "store dlrm bf16 streaming", lambda cb: dlrm_estimator(
+                dmodel, STORE_EPOCHS, cb, shuffle=False),
+            {"store": dlrm_store, "table": dlrm_table})
+        counts = launches(fa)
+        require(not any(counts.values()), f"store phase launched {counts}")
+
+        rows, _ = write_through_actors(rt, actors[:1], "nyctaxi",
+                                       PREDICT_ROWS, 3, SEED + 2)
+        out["predict_limit_used"] = check_predict("store nyctaxi", est, rows)
+        out["split_shards_rows"] = check_split_shards(nyc_store)
+        out["driver_put"] = attribute_put(rt, nyc_table.blocks()[::2])
+
+        # a warm-forked actor on the card: the first warm spawn starts the
+        # prototype (a cold interpreter importing torch), the second forks
+        os.environ["RDT_WARM_FORK"] = "1"
+        try:
+            t0 = time.perf_counter()
+            rt.create_actor(StoreWriter, name="warm-0")
+            out["prototype_spawn_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            warm = rt.create_actor(StoreWriter, name="warm-1")
+            out["warm_spawn_s"] = time.perf_counter() - t0
+        finally:
+            del os.environ["RDT_WARM_FORK"]
+        n = 1 << 20
+        got = warm.cuda_sum(n)
+        print(f"store: warm-forked spawn {out['warm_spawn_s']:.4f} s (the "
+              f"first, starting the prototype, {out['prototype_spawn_s']:.4f}"
+              f" s); on the card: {got}")
+        require(got["warm_forked"] == "1", f"not warm-forked: {got}")
+        require(got["cuda_initialized_before"] is False
+                and got["sum"] == n * (n - 1) / 2, f"warm fork on CUDA: {got}")
+    finally:
+        shutdown_runtime()
+    left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+    print(f"store: after shutdown_runtime, segments of the session left: "
+          f"{left}")
+    require(not left, f"segments left after shutdown: {left}")
+    print("store phase " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -1241,7 +1590,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = {"flash_attention_fwd": check_kernel(fa, device, gen, baseline),
             **check_bwd_kernels(fa, device, gen, baseline)}
-    # phases 5-6 are bound by the host's kernel launches: their timed fits
+    # phases 5-7 are bound by the host's kernel launches: their timed fits
     # run before any torch.profiler session of this process (phases 3-4
     # profile, and so do 5-6 at their end), so no profiler hook is left in
     # the launch path while they are timed
@@ -1251,11 +1600,14 @@ def main() -> int:
         nyctaxi, profile_nyctaxi = run_nyctaxi(fa, tmp)
         free_memory()
         dlrm, profile_dlrm = run_dlrm(fa)
+        free_memory()
+        store = run_store(fa, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     nyctaxi["profile"] = profile_nyctaxi()
     dlrm["profile"] = profile_dlrm()
-    print("main path " + json.dumps({"nyctaxi": nyctaxi, "dlrm": dlrm}))
+    print("main path " + json.dumps({"nyctaxi": nyctaxi, "dlrm": dlrm,
+                                     "store": store}))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()

@@ -8,12 +8,23 @@ Hopper under ``raydp_tpu_torch/csrc/``, built at first use by
 
 Ported so far: the long-context ``TransformerLM``, inference and training
 (:mod:`raydp_tpu_torch.models.transformer`), on the flash-attention forward
-and backward kernels (:mod:`raydp_tpu_torch.ops.flash_attention`).
+and backward kernels (:mod:`raydp_tpu_torch.ops.flash_attention`); the
+training half of the main path (:mod:`raydp_tpu_torch.train`); the actor
+runtime and the object store (:mod:`raydp_tpu_torch.runtime`) under the
+store-backed :class:`~raydp_tpu_torch.data.DistributedDataset`.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of quietly using the CPU.
+Importing the package does not import torch, so the runtime's actor
+processes start without it.
 """
 
-from raydp_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from raydp_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -261,6 +261,7 @@ class DeviceEpochCache:
     def __init__(self, dataset, columns: Dict[str, Tuple[ColumnSpec, np.dtype]],
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        _require_torch_dtypes(columns)
         cols = _normalize_columns(columns)
         host: Dict[str, List[np.ndarray]] = {n: [] for n in cols}
         for i in range(dataset.num_blocks()):
@@ -495,10 +496,25 @@ class DevicePrefetcher:
             self._close_src()
 
 
-#: numpy dtype → torch dtype of the pinned staging buffers
-_TORCH_DTYPES = {np.dtype(t): torch.from_numpy(np.empty(0, t)).dtype
-                 for t in (np.float32, np.float64, np.float16, np.int8,
-                           np.int16, np.int32, np.int64, np.uint8, np.bool_)}
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype that holds numpy ``dtype`` — the one
+    ``torch.from_numpy`` gives, so every dtype torch can hold maps (the
+    unsigned 16/32/64-bit integers included). Raises ``ValueError`` for a
+    dtype torch cannot hold (datetimes, strings, objects, long double)."""
+    try:
+        return torch.from_numpy(np.empty(0, dtype)).dtype
+    except TypeError as e:
+        raise ValueError(
+            f"numpy dtype {np.dtype(dtype)} has no torch dtype: {e}") from None
+
+
+def _require_torch_dtypes(columns) -> None:
+    """Refuse, naming the spec, a column spec whose dtype torch cannot hold."""
+    for name, (_, dt) in _normalize_columns(columns).items():
+        try:
+            torch_dtype(dt)
+        except ValueError as e:
+            raise ValueError(f"column spec {name!r}: {e}") from None
 
 
 class DeviceFeed:
@@ -528,6 +544,7 @@ class DeviceFeed:
         pad_remainder: bool = False,
     ):
         self.device = resolve_device(device)
+        _require_torch_dtypes(columns)
         self.host_iter = HostBatchIterator(
             dataset, batch_size, columns, shuffle=shuffle, seed=seed,
             drop_remainder=drop_remainder, pad_remainder=pad_remainder)
@@ -557,7 +574,7 @@ class DeviceFeed:
         t0 = time.perf_counter()
         pinned = {}
         for n, a in batch.items():
-            host = torch.empty(a.shape, dtype=_TORCH_DTYPES[a.dtype],
+            host = torch.empty(a.shape, dtype=torch_dtype(a.dtype),
                                pin_memory=True)
             np.copyto(host.numpy(), a)
             pinned[n] = host

@@ -1,9 +1,13 @@
 """The ``RDT_*`` environment knobs the port reads — its copy of the entries
-of :mod:`raydp_tpu.knobs` on the ported training path, with the same names,
-types, defaults and read semantics.
+of :mod:`raydp_tpu.knobs` on the ported paths (training, the runtime, the
+object store, the fault plane), with the same names, types, defaults and
+read semantics, except ``RDT_WARM_IMPORTS``, whose default names ``torch``
+where the reference's names ``jax``.
 
-Every knob here is read per action: :func:`get` reads the environment at
-the call, so tests and runs can flip a knob between fits. Stdlib only.
+:func:`get` reads the environment at the call, so tests and runs can flip a
+knob between actions; the runtime's process-start knobs are read once by
+the process that uses them. Stdlib only: node agents and forked workers
+read it at bootstrap.
 """
 
 from __future__ import annotations
@@ -55,6 +59,65 @@ _ALL = [
          "Gradient-accumulation microbatches per optimizer step. Must "
          "divide batch_size; the estimator accum_steps= argument "
          "overrides."),
+    # ---- runtime and object store ------------------------------------------
+    Knob("RDT_LOG_LEVEL", "str", "INFO",
+         "Log level of spawned processes (node agents)."),
+    Knob("RDT_DRIVER_REAP_S", "float", 60.0,
+         "Heartbeat silence after which an attached driver's actors and "
+         "owned objects are reaped by the head."),
+    Knob("RDT_ARENA_FREE_GRACE_S", "float", 60.0,
+         "Seconds an arena-resident payload stays mapped after its free "
+         "(borrowed zero-copy views may still be live)."),
+    Knob("RDT_STORE_BUDGET_HEADROOM", "float", 1.5,
+         "Multiplier on the measured per-stage bytes when deriving store "
+         "budgets (derived = min(static capacity, measured x headroom))."),
+    Knob("RDT_PROFILER_MAX_SPANS", "int", 100000,
+         "Bound on retained trace spans per process."),
+    Knob("RDT_FLIGHT_MAX_EVENTS", "int", 1024,
+         "Bound on the per-process flight-recorder event ring; evictions "
+         "are counted, never silent."),
+    Knob("RDT_STORE_ISOLATED", "bool", False,
+         "Force a node agent to host its own payload plane even on the "
+         "head's machine (the multi-host store topology, in tests)."),
+    Knob("RDT_NODE_SHM_BUDGET", "int", None,
+         "Shared-memory budget (bytes) of an isolated node's store host; "
+         "objects past it LRU-spill to disk (default: the node arena's "
+         "size, 1 GiB without an arena)."),
+    Knob("RDT_NODE_ARENA_SIZE", "int", None,
+         "Size (bytes) of an isolated node's store arena (default: sized "
+         "from /dev/shm)."),
+    Knob("RDT_STORE_HOST_ID", "str", "head",
+         "Which machine's payload plane this process writes to (set by the "
+         "runtime for its children)."),
+    Knob("RDT_STORE_PAYLOAD_ADDR", "str", None,
+         "RPC address of this machine's payload server (None = the head; "
+         "set by the runtime for its children)."),
+    Knob("RDT_STORE_ARENA", "str", None,
+         "Shared-memory segment name of the machine-local store arena (set "
+         "by the runtime for its children)."),
+    # ---- warm-start workers --------------------------------------------------
+    Knob("RDT_WARM_FORK", "bool", False,
+         "Fork new workers from a pre-imported prototype process instead of "
+         "cold-spawning a fresh interpreter. Any warm-fork failure degrades "
+         "loudly to the cold-spawn path."),
+    Knob("RDT_WARM_IMPORTS", "str", "pyarrow,pandas,numpy,cloudpickle,torch",
+         "Comma-separated modules the warm-fork prototype pre-imports; a "
+         "module that fails to import is skipped with a warning. The "
+         "prototype never initialises CUDA, so its forks can."),
+    Knob("RDT_WARM_FORK_WAIT_S", "float", 15.0,
+         "How long a spawn waits for the warm-fork prototype's readiness "
+         "handshake before falling back to cold spawn."),
+    Knob("RDT_WARM_FORK_RETRIES", "int", 2,
+         "Supervised prototype restarts after a warm-fork plane failure."),
+    Knob("RDT_WARM_REFRESH_COOLDOWN_S", "float", 30.0,
+         "Minimum seconds between warm-fork prototype restarts."),
+    Knob("RDT_WARM_FORKED", "bool", False,
+         "Set by the warm-fork plane in forked workers (spawn provenance)."),
+    # ---- fault plane ---------------------------------------------------------
+    Knob("RDT_FAULTS", "str", None,
+         "Declarative fault-injection spec; loaded once per process."),
+    Knob("RDT_FAULTS_SEED", "int", 0,
+         "Global default PRNG seed for probability-scheduled fault rules."),
 ]
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}

@@ -210,3 +210,40 @@ def test_shard_parts_are_byte_identical(runtime, shuffle):
                                  shard=port_shard, shuffle=shuffle, seed=4,
                                  drop_remainder=False))
     _assert_same_batches(got, ref)
+
+
+@pytest.mark.parametrize("np_dtype,expected", [
+    (np.float16, torch.float16), (np.float32, torch.float32),
+    (np.float64, torch.float64), (np.int8, torch.int8),
+    (np.int16, torch.int16), (np.int32, torch.int32),
+    (np.int64, torch.int64), (np.uint8, torch.uint8),
+    (np.uint16, torch.uint16), (np.uint32, torch.uint32),
+    (np.uint64, torch.uint64), (np.bool_, torch.bool),
+    (np.complex64, torch.complex64), (np.complex128, torch.complex128),
+])
+def test_torch_dtype_maps_every_dtype_torch_holds(np_dtype, expected):
+    """The CUDA feed stages each batch in pinned buffers of
+    ``torch_dtype(a.dtype)``: every numpy dtype ``torch.from_numpy`` takes
+    maps, the unsigned 16/32/64-bit integers included (a fixed table of
+    nine dtypes once raised ``KeyError`` for them on the card)."""
+    assert port_feed.torch_dtype(np.dtype(np_dtype)) == expected
+    feed = DeviceFeed(TableDataset(_tables()), 16,
+                      {"x": ("i", np_dtype)}, device="cpu", shuffle=False)
+    batch = next(iter(feed))
+    assert batch["x"].dtype == expected
+    want = _tables()[0]["i"].to_numpy()[:16].astype(np_dtype)
+    assert np.array_equal(batch["x"].numpy(), want)
+
+
+@pytest.mark.parametrize("np_dtype", ["datetime64[ns]", "timedelta64[s]",
+                                      "U8", object, np.longdouble])
+def test_feed_refuses_a_dtype_torch_cannot_hold(np_dtype):
+    """A column spec whose dtype torch cannot hold is refused when either
+    device feed is built, on every device, naming the spec."""
+    for make in (lambda ds, cols: DeviceFeed(ds, 16, cols, device="cpu"),
+                 lambda ds, cols: DeviceEpochCache(ds, cols, device="cpu")):
+        with pytest.raises(ValueError,
+                           match="column spec 'x'.*no torch dtype"):
+            make(TableDataset(_tables()), {"x": ("i", np_dtype)})
+    with pytest.raises(ValueError, match="no torch dtype"):
+        port_feed.torch_dtype(np.dtype(np_dtype))

@@ -1,7 +1,9 @@
 """raydp_tpu_torch as a package: no JAX, no reference imports, no quiet CPU
 fallback, and a kernel wrapper that refuses what its kernel does not take."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -9,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from raydp_tpu_torch import resolve_device
+from raydp_tpu_torch import profiler, resolve_device
 from raydp_tpu_torch.data import DeviceEpochCache, DeviceFeed
 from raydp_tpu_torch.models import DLRM, MLP, NYCTaxiModel, TransformerLM
 from raydp_tpu_torch.models.dlrm import DotInteraction
@@ -33,7 +35,12 @@ def test_imports_neither_jax_nor_the_reference():
         "for name in ('models.transformer', 'models.mlp', 'models.dlrm', "
         "'models.layers', 'models.convert', 'data.dataset', 'data.feed', "
         "'native.stage', 'train.torch_estimator', 'train.checkpoint', "
-        "'train.metrics', 'train.estimator', 'knobs', 'log'):\n"
+        "'train.metrics', 'train.estimator', 'knobs', 'log', 'config', "
+        "'utils', 'faults', 'metrics', 'profiler', 'native.arena', "
+        "'runtime.rpc', 'runtime.actor', 'runtime.placement', "
+        "'runtime.cluster_resources', 'runtime.object_store', "
+        "'runtime.head', 'runtime.actor_main', 'runtime.client', "
+        "'runtime.node_agent', 'runtime.warm_fork'):\n"
         "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -41,6 +48,31 @@ def test_imports_neither_jax_nor_the_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def _string_constants(tree):
+    """Every string literal of a module that is not a docstring."""
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_no_string_names_the_reference_package():
+    """Module paths and directories named in strings (``python -m ...``
+    spawn commands, logger names, the session directory) are the port's:
+    a copied string naming ``raydp_tpu`` would have the port's actors run
+    the reference's code."""
+    found = []
+    for path in sorted((REPO / "raydp_tpu_torch").rglob("*.py")):
+        for node in _string_constants(ast.parse(path.read_text())):
+            if re.search(r"raydp_tpu(?!_torch)\b", node.value):
+                found.append(f"{path.relative_to(REPO)}:{node.lineno}")
+    assert found == []
 
 
 @pytest.fixture
@@ -116,6 +148,26 @@ def test_default_device_estimator_and_feeds_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
     assert make(device="cpu").device == torch.device("cpu")
+
+
+
+def test_torch_trace_defaults_to_cuda_and_writes_a_chrome_trace(no_cuda,
+                                                                tmp_path):
+    """``profiler.torch_trace`` traces the card unless asked for the CPU,
+    and raises without CUDA; on the CPU it writes one Chrome trace per
+    use into the log dir."""
+    import json
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with profiler.torch_trace(str(tmp_path)):
+            pass
+    for _ in range(2):
+        with profiler.torch_trace(str(tmp_path), device="cpu") as log_dir:
+            torch.ones(64).sum()
+    traces = sorted(os.listdir(log_dir))
+    assert log_dir == str(tmp_path) and len(traces) == 2
+    events = json.loads((tmp_path / traces[0]).read_text())["traceEvents"]
+    assert any("aten::sum" in e.get("name", "") for e in events)
 
 
 def _qkv3(bh=2, t=16, d=64, dtype=torch.float32):
