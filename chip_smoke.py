@@ -59,17 +59,37 @@
    row once; the driver's put into fresh and into reused arena pages is
    timed; a warm-forked actor allocates on the card; and no segment of
    the session is left after ``shutdown_runtime``;
-8. prints one JSON line of kernel results, then the last line
+8. the main path end to end, CSV -> ETL -> train: the port's ETL session
+   (``raydp_tpu_torch.init``, two executors of 2 cores on the host, no card
+   visible to them) reads a seeded 400,000-row NYCTaxi CSV (the port's
+   ``generate``), runs ``nyc_taxi_preprocess`` and
+   ``TorchEstimator.fit_on_frame`` (NYCTaxiModel f32, smooth L1, Adam 1e-3,
+   batch 8192, 5 epochs, shuffled: the resident path); then a seeded
+   120,000-row Criteo TSV through ``pre_process`` (26 groupBy collects) and
+   a streaming bf16 DLRM ``fit_on_frame`` (phase 6's model, batch 4096,
+   ``RDT_DEVICE_CACHE=0``: the engine's ``random_shuffle`` first). Prints
+   the ETL's split (read + preprocess, the rest of
+   ``from_frame_recoverable``, the engine shuffle, DLRM's collects), rows,
+   features, each epoch's report and steady samples/s beside phases 5-6's
+   of the same model and dtype in this call. Checks: 25 features and the
+   row count of a plain pandas filter, falling losses, an unshuffled
+   ``fit_on_frame`` equal to a fit from a ``TableDataset`` of its blocks
+   (1e-6), ``predict`` on a frame-converted dataset is a plain forward, no
+   executor pid in ``nvidia-smi --query-compute-apps`` while the ETL runs
+   and no CUDA library in an executor, a fit with
+   ``stop_etl_after_conversion``, no flash launch, no segment left after
+   ``stop()``;
+9. prints one JSON line of kernel results, then the last line
    ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 7, 3, 4: phases 5-7 are bound by
-the host's kernel launches, so their timed fits come before any
+The phases run in the order 1, 2, 5, 6, 7, 8, 3, 4: phases 5-8 are bound
+by the host's kernel launches, so their timed fits come before any
 ``torch.profiler`` session of the process, and the two profiled epochs of
 5-6 (one per model, in fits of their own) after the timed fits. Every
 kernel launch counter is set to 0 just before each driven path (3, both
-modes of 4, 5, 6 and 7) and read just after; 5-7 run no attention and must
-launch none. Any failed check exits non-zero; so does a machine without
-CUDA.
+modes of 4, 5, 6, 7 and 8) and read just after; 5-8 run no attention and
+must launch none. Any failed check exits non-zero; so does a machine
+without CUDA.
 """
 
 from __future__ import annotations
@@ -940,14 +960,45 @@ class EpochProfile:
         return out
 
 
+class HostClock:
+    """What the driver's host spends beside a call's own thread: cyclic
+    garbage-collection pauses (``gc.callbacks``; a pause stops every
+    thread), with the count of full (generation 2) collections, and the
+    CPU seconds of the process's other threads (process time less this
+    thread's). A resident fit has no feed thread, so there the other
+    threads are the runtime's and anything else the process runs."""
+
+    def __enter__(self):
+        self.gc_s, self.full_collections, self._t = 0.0, 0, None
+        gc.callbacks.append(self._collect)
+        self._cpu = time.process_time() - time.thread_time()
+        return self
+
+    def _collect(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.gc_s += time.perf_counter() - self._t
+            self.full_collections += info["generation"] == 2
+            self._t = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._collect)
+        self.other_threads_cpu_s = (time.process_time() - time.thread_time()
+                                    - self._cpu)
+
+
 def fit_and_report(label: str, make_estimator, dataset, epochs: int,
                    *, cache: bool = True, profile_epoch=None,
-                   steady_wall_s=None, max_retries: int = 0):
+                   steady_wall_s=None, max_retries: int = 0,
+                   frame_kw=None):
     """One TorchEstimator fit on the card, the residency gate forced
     (``cache``); prints each epoch's report, the peak device memory and,
     with ``profile_epoch``, that epoch's profile (its idle share also
-    against ``steady_wall_s``, an unprofiled epoch's wall). Returns
-    (estimator, result, numbers)."""
+    against ``steady_wall_s``, an unprofiled epoch's wall). With
+    ``frame_kw`` (a dict, maybe empty) ``dataset`` is an ETL DataFrame and
+    the fit is ``fit_on_frame(dataset, **frame_kw)``. Returns (estimator,
+    result, numbers)."""
     import os
 
     prof = EpochProfile(profile_epoch) if profile_epoch is not None else None
@@ -958,7 +1009,12 @@ def fit_and_report(label: str, make_estimator, dataset, epochs: int,
         free_memory()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        result = est.fit(dataset, max_retries=max_retries)
+        with HostClock() as host:
+            if frame_kw is None:
+                result = est.fit(dataset, max_retries=max_retries)
+            else:
+                result = est.fit_on_frame(dataset, max_retries=max_retries,
+                                          **frame_kw)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
     finally:
@@ -980,11 +1036,15 @@ def fit_and_report(label: str, make_estimator, dataset, epochs: int,
     numbers = {"samples_per_s_steady": samples / sum(walls),
                "steady_epochs": [r["epoch"] for r in steady],
                "steady_epoch_s": statistics.median(walls),
-               "fit_wall_s": wall, "peak_bytes": peak, "losses": losses}
+               "fit_wall_s": wall, "peak_bytes": peak, "losses": losses,
+               "gc_s": host.gc_s, "full_collections": host.full_collections,
+               "other_threads_cpu_s": host.other_threads_cpu_s}
     print(f"{label}: {numbers['samples_per_s_steady']:.1f} samples/s steady "
           f"(epochs {numbers['steady_epochs']}), fit {wall:.3f} s, peak "
           f"memory {peak / 2 ** 20:.1f} MiB, loss {losses[0]:.6f} -> "
-          f"{losses[-1]:.6f}")
+          f"{losses[-1]:.6f}; host: gc {host.gc_s:.4f} s "
+          f"({host.full_collections} full), other threads' CPU "
+          f"{host.other_threads_cpu_s:.3f} s")
     require(len(losses) == epochs and all(map(math.isfinite, losses)),
             f"{label}: losses {losses}")
     require(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
@@ -1041,14 +1101,14 @@ def check_card_against_cpu(model, dataset) -> dict:
     return {"steps": CPU_STEPS, "max_rel_diff": rel}
 
 
-def check_predict(label: str, est, rows) -> float:
+def check_predict(label: str, est, rows, columns=NYC_COLUMNS) -> float:
     """``est.predict(rows)`` on a ragged row count vs one plain forward of
-    ``get_model()`` over all of them; returns the share of the limit
-    used."""
+    ``get_model()`` over all of them (``columns``, as float32); returns the
+    share of the limit used."""
     got = est.predict(rows)
     table = rows.to_arrow()
-    x = torch.tensor(np.stack([table[c].to_numpy() for c in NYC_COLUMNS], 1),
-                     device=est.device)
+    x = torch.tensor(np.stack([table[c].to_numpy().astype(np.float32)
+                               for c in columns], 1), device=est.device)
     with torch.no_grad():
         plain = est.get_model()(x)[:, 0].cpu().numpy()
     limit = PREDICT_RTOL * (np.abs(plain) + np.sqrt(np.mean(plain ** 2)))
@@ -1056,7 +1116,7 @@ def check_predict(label: str, est, rows) -> float:
     print(f"{label} predict: {got.shape[0]} rows in batches of {NYC_BATCH}, "
           f"max |predict - forward| {np.max(np.abs(got - plain)):.3e}, "
           f"{used:.3f} of the limit")
-    require(got.shape == plain.shape == (PREDICT_ROWS,),
+    require(got.shape == plain.shape == (rows.count(),),
             f"{label} predict shape {got.shape}")
     require(bool(np.isfinite(got).all()) and used <= 1.0,
             f"{label} predict differs from a plain forward")
@@ -1560,6 +1620,307 @@ def run_store(fa, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the main path end to end, the workload BASELINE.json names: CSV ->
+# the port's ETL (two executors on the host, off the card) ->
+# from_frame_recoverable -> TorchEstimator.fit_on_frame -> predict, for
+# NYCTaxi (bench.py:225-253) and DLRM (bench.py:258-303, with dlrm_stream's
+# RDT_DEVICE_CACHE=0 so the fit streams behind the engine's shuffle)
+
+ETL_SESSION = dict(num_executors=2, executor_cores=2, executor_memory="2GB")
+ETL_PARTITIONS, ETL_CHECK_EPOCHS = 4, 2
+# fit_on_frame's dataset and a TableDataset of the same blocks feed the same
+# batches in the same order: the same kernels on the same values, as
+# resident and streaming do
+ETL_LOSS_RTOL = SAME_PATH_RTOL
+
+
+class CallClock:
+    """Wall seconds spent in some of the port's functions, by label, while
+    a user's call (``fit_on_frame``) runs them: each wrapped function adds
+    the wall of its calls to its label, keeps its last arguments and runs
+    inside ``during`` (a context manager) if given. ``restore`` puts the
+    functions back."""
+
+    def __init__(self):
+        self.seconds, self.last_args, self._undo = {}, {}, []
+
+    def wrap(self, owner, attr: str, label: str, during=None) -> None:
+        real = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            self.last_args[label] = args
+            t0 = time.perf_counter()
+            try:
+                if during is None:
+                    return real(*args, **kwargs)
+                with during:
+                    return real(*args, **kwargs)
+            finally:
+                self.seconds[label] = (self.seconds.get(label, 0.0)
+                                       + time.perf_counter() - t0)
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, real))
+
+    def take(self) -> dict:
+        out, self.seconds = self.seconds, {}
+        return out
+
+    def restore(self) -> None:
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+        self._undo = []
+
+
+class ComputeApps:
+    """The pids ``nvidia-smi --query-compute-apps=pid`` lists, sampled about
+    once a second in a thread while the body runs, and the most processes
+    one sample listed (in a container the pids may be another namespace's,
+    so the count is what shows a second process on the card). Only the ETL
+    runs under it: an nvidia-smi call while a fit runs slows the fit."""
+
+    def __init__(self):
+        self.pids, self.samples, self.most = set(), 0, 0
+
+    def _run(self) -> None:
+        while True:
+            got = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60)
+            pids = [int(p) for p in got.stdout.split() if p.isdigit()]
+            self.pids.update(pids)
+            self.most = max(self.most, len(pids))
+            self.samples += 1
+            if self._stop.wait(1.0):
+                return
+
+    def __enter__(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=120)
+        require(not self._thread.is_alive(), "nvidia-smi sampler hung")
+
+
+def clean_up_rows(csv: str) -> int:
+    """A plain pandas count of the rows nyctaxi_features.clean_up keeps."""
+    import pandas as pd
+
+    d = pd.read_csv(csv)
+    keep = ((d.pickup_longitude <= -72) & (d.pickup_longitude >= -76)
+            & (d.dropoff_longitude <= -72) & (d.dropoff_longitude >= -76)
+            & (d.pickup_latitude <= 42) & (d.pickup_latitude >= 38)
+            & (d.dropoff_latitude <= 42) & (d.dropoff_latitude >= 38)
+            & (d.passenger_count <= 6) & (d.passenger_count >= 1)
+            & (d.fare_amount > 0) & (d.fare_amount < 250)
+            & (d.dropoff_longitude != d.pickup_longitude)
+            & (d.dropoff_latitude != d.pickup_latitude))
+    return int(keep.sum())
+
+
+def etl_split(label: str, seconds: dict, fit_s: float, extra=None) -> dict:
+    """Print and return a fit_on_frame's wall split: read + preprocess (the
+    plan run into the executors' caches by ``persist``), the rest of
+    ``from_frame_recoverable`` (each block put into the store and fetched),
+    the engine's shuffle and the fit."""
+    conv = seconds.get("conversion", 0.0)
+    pre = seconds.get("read_preprocess", 0.0)
+    out = {**(extra or {}), "read_preprocess_s": pre,
+           "conversion_fetch_s": conv - pre,
+           "from_frame_recoverable_s": conv,
+           "engine_shuffle_s": seconds.get("engine_shuffle", 0.0),
+           "fit_s": seconds.get("fit", 0.0), "fit_on_frame_s": fit_s}
+    print(f"{label}: etl split " + json.dumps(
+        {k: round(v, 4) if isinstance(v, float) else v
+         for k, v in out.items()}))
+    return out
+
+
+def run_etl(fa, phase5: dict, phase6: dict, tmp: str) -> dict:
+    """Phase 8: CSV -> the port's ETL -> fit_on_frame -> predict on the
+    card, for NYCTaxi and DLRM at bench.py's sizes."""
+    import os
+
+    import raydp_tpu_torch
+    from raydp_tpu_torch import data as rdt_data
+    from raydp_tpu_torch.data import DistributedDataset, TableDataset
+    from raydp_tpu_torch.etl.frame import DataFrame
+    from raydp_tpu_torch.examples import dlrm_criteo
+    from raydp_tpu_torch.examples.generate_nyctaxi import generate
+    from raydp_tpu_torch.examples.nyctaxi_features import (
+        LABEL, feature_columns, nyc_taxi_preprocess,
+    )
+    from raydp_tpu_torch.models import NYCTaxiModel
+    from raydp_tpu_torch.runtime import get_runtime
+    from raydp_tpu_torch.train import TorchEstimator
+
+    t_phase = time.perf_counter()
+    out = {}
+    csv = os.path.join(tmp, "nyctaxi.csv")
+    tsv = os.path.join(tmp, "criteo.tsv")
+    t0 = time.perf_counter()
+    generate(NYC_ROWS, seed=SEED).to_csv(csv, index=False)
+    dlrm_criteo.generate_criteo(DLRM_ROWS, tsv, seed=SEED)
+    out["generate_s"] = time.perf_counter() - t0
+    out["plain_rows"] = clean_up_rows(csv)
+    print(f"etl: wrote {NYC_ROWS} NYCTaxi CSV rows and {DLRM_ROWS} Criteo TSV "
+          f"rows in {out['generate_s']:.3f} s; pandas keeps "
+          f"{out['plain_rows']} NYCTaxi rows through clean_up's filters")
+
+    # the ETL's calls run under the nvidia-smi sampler, the fits do not
+    apps = ComputeApps()
+    clock = CallClock()
+    clock.wrap(DataFrame, "persist", "read_preprocess")
+    clock.wrap(rdt_data, "from_frame_recoverable", "conversion", apps)
+    clock.wrap(DistributedDataset, "random_shuffle", "engine_shuffle", apps)
+    clock.wrap(TorchEstimator, "fit", "fit")
+    zero_launches(fa)
+    t0 = time.perf_counter()
+    session = raydp_tpu_torch.init("smoke", **ETL_SESSION)
+    out["init_s"] = time.perf_counter() - t0
+    prefix = f"rdt{get_runtime().session_id[:8]}"
+    try:
+        pids = [h.call("spawn_info")["pid"] for h in session.executors]
+        print(f"etl: init {out['init_s']:.3f} s, executors {pids}")
+
+        # NYCTaxi: fit_on_frame as bench.py's nyctaxi mode (resident path)
+        frame = nyc_taxi_preprocess(
+            session.read.csv(csv, num_partitions=ETL_PARTITIONS))
+        features = feature_columns(frame)
+        require(len(features) == NYCTAXI_FEATURES,
+                f"NYCTaxi ETL yields {len(features)} features")
+        model = NYCTaxiModel(len(features), device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
+
+        def nyc(epochs, shuffle):
+            return lambda cb: TorchEstimator(
+                model=model, loss="smooth_l1", feature_columns=features,
+                label_column=LABEL, batch_size=NYC_BATCH, num_epochs=epochs,
+                shuffle=shuffle, metrics=["mae"], callbacks=list(cb),
+                checkpoint_interval=epochs)
+
+        est, _, fit = fit_and_report(
+            "etl nyctaxi f32 resident", nyc(NYC_EPOCHS, True), frame,
+            NYC_EPOCHS, frame_kw={})
+        ds = clock.last_args["fit"][1]
+        out["nyctaxi"] = {**fit, **etl_split(
+            "etl nyctaxi", clock.take(), fit["fit_wall_s"],
+            {"rows": ds.count(), "blocks": ds.num_blocks(),
+             "features": len(features)})}
+        print(f"etl nyctaxi: {ds.count()} rows in {ds.num_blocks()} blocks, "
+              f"{len(features)} features; steady "
+              f"{fit['samples_per_s_steady']:.1f} samples/s, phase 5's f32 "
+              f"resident fit in this call "
+              f"{phase5['f32_resident']['samples_per_s_steady']:.1f}")
+        require(ds.count() == out["plain_rows"],
+                f"ETL rows {ds.count()} vs pandas {out['plain_rows']}")
+        require(out["nyctaxi"]["engine_shuffle_s"] == 0.0,
+                "a resident fit_on_frame ran the engine's shuffle")
+
+        # unshuffled: fit_on_frame == a TableDataset of the same blocks
+        _, framed, _ = fit_and_report(
+            "etl nyctaxi f32 unshuffled", nyc(ETL_CHECK_EPOCHS, False),
+            frame, ETL_CHECK_EPOCHS, frame_kw={})
+        table = TableDataset(clock.last_args["fit"][1].blocks())
+        clock.take()
+        _, tabled, _ = fit_and_report(
+            "etl nyctaxi f32 unshuffled from a table",
+            nyc(ETL_CHECK_EPOCHS, False), table, ETL_CHECK_EPOCHS)
+        a = [r["train_loss"] for r in framed.history]
+        b = [r["train_loss"] for r in tabled.history]
+        print(f"etl nyctaxi unshuffled: fit_on_frame {a}, table {b}")
+        for x, y in zip(a, b):
+            require(abs(x - y) <= ETL_LOSS_RTOL * abs(y),
+                    f"fit_on_frame losses {a} vs table {b}")
+        # limit is per partition (exact only at collect): a ragged count
+        out["predict_limit_used"] = check_predict(
+            "etl nyctaxi", est,
+            rdt_data.from_frame(frame.limit(PREDICT_ROWS)), features)
+        clock.take()
+
+        # DLRM: pre_process's 26 groupBy collects, then a streaming fit
+        names = ([dlrm_criteo.LABEL] + dlrm_criteo.DENSE_COLS
+                 + dlrm_criteo.CAT_COLS)
+        require(names == ["_c0"] + DLRM_DENSE + DLRM_CATS,
+                "Criteo schema differs from phase 6's")
+        raw = session.read.csv(tsv, num_partitions=ETL_PARTITIONS, options={
+            "delimiter": "\t", "column_names": names})
+        with apps:
+            t0 = time.perf_counter()
+            df, sizes = dlrm_criteo.pre_process(session, raw)
+            pre_s = time.perf_counter() - t0
+        require(len(sizes) == len(DLRM_CATS) and max(sizes) <= DLRM_VOCAB,
+                f"category sizes {sizes} exceed phase 6's tables")
+        dmodel = dlrm_model()
+        _, _, fit = fit_and_report(
+            "etl dlrm bf16 streaming", lambda cb: dlrm_estimator(
+                dmodel, DLRM_STREAM_EPOCHS, cb), df, DLRM_STREAM_EPOCHS,
+            cache=False, frame_kw={})
+        ds = clock.last_args["fit"][1]
+        out["dlrm"] = {**fit, **etl_split(
+            "etl dlrm", clock.take(), fit["fit_wall_s"],
+            {"rows": ds.count(), "blocks": ds.num_blocks(),
+             "features": len(names) - 1, "pre_process_collects_s": pre_s,
+             "category_sizes": [min(sizes), max(sizes)]})}
+        print(f"etl dlrm: pre_process (26 groupBy collects) {pre_s:.3f} s, "
+              f"category sizes {min(sizes)}..{max(sizes)}; {ds.count()} rows "
+              f"in {ds.num_blocks()} blocks; steady "
+              f"{fit['samples_per_s_steady']:.1f} samples/s, phase 6's bf16 "
+              f"streaming fit in this call "
+              f"{phase6['bf16_streaming']['samples_per_s_steady']:.1f}")
+        require(ds.count() == DLRM_ROWS, f"DLRM rows {ds.count()}")
+        require(out["dlrm"]["engine_shuffle_s"] > 0,
+                "the streaming fit_on_frame did not run the engine shuffle")
+
+        # the executors stayed off the card
+        maps = {pid: open(f"/proc/{pid}/maps").read() for pid in pids}
+        out["executors_off_card"] = {
+            "nvidia_smi_samples": apps.samples,
+            "compute_app_pids": sorted(apps.pids),
+            "most_compute_apps_at_once": apps.most,
+            "executor_pids": pids, "driver_pid": os.getpid(),
+            "executor_maps_cuda": [pid for pid, m in maps.items()
+                                   if "libcuda" in m or "libtorch" in m]}
+        print("etl: while the ETL ran, " + json.dumps(
+            out["executors_off_card"]))
+        # the driver's own context is the one process on the card
+        require(apps.samples > 0 and not apps.pids & set(pids)
+                and apps.most <= 1, "an ETL executor holds a CUDA context")
+        require(not out["executors_off_card"]["executor_maps_cuda"],
+                "an ETL executor loaded torch or the CUDA driver")
+
+        # the ETL stopped (blocks kept) between conversion and fit
+        _, stopped, _ = fit_and_report(
+            "etl nyctaxi f32 stop_etl_after_conversion",
+            nyc(ETL_CHECK_EPOCHS, False), frame, ETL_CHECK_EPOCHS,
+            frame_kw={"stop_etl_after_conversion": True})
+        require(not session.executors and session.master is not None,
+                "stop(cleanup_data=False) left executors or no master")
+        out["stop_etl_losses"] = [r["train_loss"] for r in stopped.history]
+        clock.take()
+        counts = launches(fa)
+        print(f"etl launches of the flash kernels: {counts}")
+        require(not any(counts.values()), f"etl phase launched {counts}")
+    finally:
+        clock.restore()
+        raydp_tpu_torch.stop()
+    left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+    print(f"etl: after stop(), segments of the session left: {left}")
+    require(not left, f"segments left after stop: {left}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"etl phase: {out['phase_s']:.3f} s")
+    print("etl phase " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -1602,12 +1963,14 @@ def main() -> int:
         dlrm, profile_dlrm = run_dlrm(fa)
         free_memory()
         store = run_store(fa, card)
+        free_memory()
+        etl = run_etl(fa, nyctaxi, dlrm, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     nyctaxi["profile"] = profile_nyctaxi()
     dlrm["profile"] = profile_dlrm()
     print("main path " + json.dumps({"nyctaxi": nyctaxi, "dlrm": dlrm,
-                                     "store": store}))
+                                     "store": store, "etl": etl}))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()

@@ -11,15 +11,26 @@ Ported so far: the long-context ``TransformerLM``, inference and training
 and backward kernels (:mod:`raydp_tpu_torch.ops.flash_attention`); the
 training half of the main path (:mod:`raydp_tpu_torch.train`); the actor
 runtime and the object store (:mod:`raydp_tpu_torch.runtime`) under the
-store-backed :class:`~raydp_tpu_torch.data.DistributedDataset`.
+store-backed :class:`~raydp_tpu_torch.data.DistributedDataset`; the ETL
+engine (:mod:`raydp_tpu_torch.etl`), whose session :func:`init` starts and
+:func:`stop` ends, and the frame conversions that feed its output to
+``TorchEstimator.fit_on_frame``.
+
+    import raydp_tpu_torch
+    session = raydp_tpu_torch.init("nyc", num_executors=2,
+                                   executor_cores=1, executor_memory="1GB")
+    df = session.read.csv("data.csv")
+    ds = raydp_tpu_torch.data.from_frame_recoverable(df)
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of quietly using the CPU.
 Importing the package does not import torch, so the runtime's actor
-processes start without it.
+processes (the ETL executors among them) start without it.
 """
 
-__all__ = ["resolve_device"]
+from raydp_tpu_torch.context import active_session, init, stop
+
+__all__ = ["active_session", "init", "resolve_device", "stop"]
 
 
 def __getattr__(name):

@@ -1,14 +1,17 @@
 """raydp_tpu_torch.data — datasets and the feed to the device.
 
 - :mod:`dataset` — :class:`DistributedDataset`, Arrow blocks in the object
-  store (the reference's store-backed dataset, copied), and
-  :class:`TableDataset`, the same read interface over in-process blocks;
+  store (the reference's dataset, copied), with the ETL frame conversions
+  :func:`from_frame`, :func:`from_frame_recoverable` and :func:`to_frame`,
+  and :class:`TableDataset`, the same read interface over in-process
+  blocks;
 - :mod:`feed` — host batches (byte-identical to the reference's), the
   streaming :class:`DeviceFeed` and the resident :class:`DeviceEpochCache`.
 """
 
 from raydp_tpu_torch.data.dataset import (
-    BlockMeta, DistributedDataset, TableDataset, release,
+    BlockMeta, DistributedDataset, TableDataset, from_frame,
+    from_frame_recoverable, release, to_frame,
 )
 from raydp_tpu_torch.data.feed import (
     MASK_KEY, DeviceEpochCache, DeviceFeed, DevicePrefetcher,
@@ -18,4 +21,5 @@ from raydp_tpu_torch.data.feed import (
 __all__ = ["MASK_KEY", "BlockMeta", "DeviceEpochCache", "DeviceFeed",
            "DevicePrefetcher", "DistributedDataset", "HostBatchIterator",
            "PipelineTimings", "ShardSpec", "TableDataset", "epoch_seed",
-           "pad_batch", "release"]
+           "from_frame", "from_frame_recoverable", "pad_batch", "release",
+           "to_frame"]

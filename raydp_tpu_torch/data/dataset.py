@@ -1,27 +1,38 @@
 """Datasets the feed and the estimator read: Arrow blocks in the object
 store, or Arrow tables held in this process.
 
-- :class:`DistributedDataset` — the port's copy of the store half of
+- :class:`DistributedDataset` — the port's copy of
   :mod:`raydp_tpu.data.dataset`: an immutable list of Arrow blocks in the
   object store (written by ``put_arrow`` / ``put_arrow_many`` from any
-  session process), read with ``get_block(zero_copy=True)``, shuffled
-  (``random_shuffle``), planned into shards (``split_shards``), passed to
-  another process (``portable`` / ``from_portable``) and released. The
-  frame conversions (``from_frame``, ``from_frame_recoverable``,
-  ``to_frame``) and ``random_shuffle``'s distributed path come with the ETL
-  engine; without a session the dataset shuffles locally.
+  session process, or fetched from the ETL executors' block caches), read
+  with ``get_block(zero_copy=True)``, shuffled (``random_shuffle``: on the
+  executors with a session, locally without one), planned into shards
+  (``split_shards``), passed to another process (``portable`` /
+  ``from_portable``) and released.
 - :class:`TableDataset` — the same read interface (``schema``,
   ``num_blocks``, ``count``, ``block_sizes``, ``get_block``, ``blocks``,
   ``to_arrow``) over ``pa.Table`` blocks in memory, with no runtime. The
   unit tests of the feed and the estimator use it.
 
-Reference parity map (python/raydp/spark/dataset.py): :func:`release` is
-``release_spark_recoverable`` (dataset.py:224-237); ownership transfer is
-``get_raydp_master_owner`` (dataset.py:137-158).
+Reference parity map (python/raydp/spark/dataset.py):
+
+- :func:`from_frame` — the eager push path (deprecated ``fromSparkRDD``,
+  ObjectStoreWriter.scala:104-152): materialize every partition into the store.
+- :func:`from_frame_recoverable` — ``from_spark_recoverable`` (dataset.py:172-222):
+  persist the frame into executor block caches, then fetch each partition through
+  the executor data-plane with infinite-retry semantics; a lost block recomputes
+  from its lineage recipe (recache protocol, RayDPExecutor.scala:312-355).
+- :func:`release` — ``release_spark_recoverable`` (dataset.py:224-237).
+- :func:`to_frame` — ``ray_dataset_to_spark_dataframe`` (dataset.py:239-313): the
+  master actor holds the blocks (``add_objects``/``get_object``,
+  ray_cluster_master.py:222-226) so they outlive the dataset producer.
+- ownership transfer — ``get_raydp_master_owner`` (dataset.py:137-158): blocks are
+  written owned by the master so ``stop(cleanup_data=False)`` keeps them.
 """
 
 from __future__ import annotations
 
+import uuid
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -289,8 +300,62 @@ class DistributedDataset:
             get_client().transfer_ownership(refs, self._session.master_name)
 
 
+# ==== conversions ==================================================================
+def from_frame(df, owner: Optional[str] = None) -> DistributedDataset:
+    """Eager conversion: materialize every partition into the object store."""
+    session = df._session
+    owner = owner or session.master_name
+    refs, schema_bytes, num_rows = session.engine.materialize(df._plan,
+                                                              owner=owner)
+    blocks = [BlockMeta(num_rows=n, ref=r) for r, n in zip(refs, num_rows)]
+    schema = pa.ipc.read_schema(pa.py_buffer(schema_bytes))
+    return DistributedDataset(blocks, schema, owner, session=session)
+
+
+def from_frame_recoverable(df, fetch: bool = True) -> DistributedDataset:
+    """Recoverable conversion: persist in executor caches, fetch via data plane.
+
+    Blocks fetched lazily (or eagerly with ``fetch=True`` to mirror the
+    reference's immediate per-partition fetch tasks, dataset.py:203-220)."""
+    from raydp_tpu_torch.etl import plan as P
+
+    session = df._session
+    cached_df = df.persist()
+    plan: P.CachedScan = cached_df._plan
+    blocks = [
+        BlockMeta(num_rows=-1, cache_key=key, executor=ex, recover=rec)
+        for key, ex, rec in zip(plan.cache_keys, plan.executors,
+                                plan.recover_tasks)
+    ]
+    schema = (pa.ipc.read_schema(pa.py_buffer(plan.schema))
+              if plan.schema else df.schema)
+    ds = DistributedDataset(blocks, schema, session.master_name,
+                            frame_id=plan.frame_id, session=session)
+    if fetch:
+        for i in range(ds.num_blocks()):
+            ds.get_block_ref(i)  # fetch records num_rows from the executor
+    return ds
+
+
 def release(ds: DistributedDataset) -> None:
     ds.release()
+
+
+def to_frame(ds: DistributedDataset, session=None):
+    """Dataset → DataFrame; the master holds the block refs
+    (parity: dataset.py:239-313 ``_convert_by_udf`` holder-actor path)."""
+    from raydp_tpu_torch.etl import plan as P
+    from raydp_tpu_torch.etl.frame import DataFrame
+
+    session = session or ds._session
+    if session is None:
+        raise ValueError("to_frame needs a live session")
+    refs = [ds.get_block_ref(i) for i in range(ds.num_blocks())]
+    holder_id = f"ds-{uuid.uuid4().hex[:10]}"
+    session.master.add_objects(holder_id, refs)
+    get_client().transfer_ownership(refs, session.master_name)
+    schema_bytes = ds.schema.serialize().to_pybytes()
+    return DataFrame(session, P.InMemory(refs, schema_bytes), schema=ds.schema)
 
 
 class TableDataset:

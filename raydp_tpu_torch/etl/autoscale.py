@@ -1,0 +1,270 @@
+"""Elastic executor pool: the driver-side autoscale controller.
+
+RayDP's core cluster-lifecycle capability is elastic executor semantics —
+executors join and leave a live session without losing work (PAPER.md §(a),
+``requestExecutors`` / ``killExecutors`` in the reference's dynamic
+allocation). :class:`PoolAutoscaler` is that controller for this runtime:
+a thread that samples :meth:`ExecutorPool.load` once per tick and grows or
+shrinks the pool between ``RDT_POOL_MIN`` and ``RDT_POOL_MAX``:
+
+- **grow** when queued demand (outstanding tasks beyond what the pool has
+  in flight) persists for ``RDT_POOL_SCALE_UP_S`` — a sustained window, so
+  a recovery-induced spike (lineage rounds resubmitting a stage) never
+  spawns an executor by itself. New executors spawn through the session's
+  ordinary launch path (the node agent on remote nodes) and are admitted
+  only after the ``RDT_EXECUTOR_WAIT_S`` readiness probe absorbs their
+  import warm-up — a half-started executor never enters rotation.
+- **shrink** when the pool has been fully idle (zero busy, zero queued)
+  for ``RDT_POOL_IDLE_S``, by GRACEFUL DRAIN (:meth:`Engine.
+  retire_executor` via :meth:`Session.retire_executor`): out of rotation,
+  in-flight work finishes, cached blocks re-home or abandon to lineage,
+  then the node agent reaps the process.
+- **hysteresis**: ``RDT_POOL_COOLDOWN_S`` after any scale event, plus the
+  sustained windows above, so scale-up and the load it sheds cannot chase
+  each other. One signal pierces BOTH dampeners: PARKED admission demand.
+  Admission parks an action only after the backlog bound is already
+  exceeded, so the demand is proven — a post-shrink cooldown that kept
+  parked work waiting would be self-inflicted queueing delay.
+- **predictive sizing**: a grow decision targets the demand it can see
+  instead of stepping +1 — one slot per parked admission, and (when
+  ``RDT_POOL_BYTES_PER_EXEC`` is set) enough executors for the AQE
+  plane's measured per-stage bytes. Each tick also feeds those measured
+  bytes to the store's budget derivation (:meth:`Engine.
+  derive_store_budgets`), so eviction pressure tracks the plan the
+  engine is actually running.
+
+The ``pool.scale`` fault site fires at every scale decision (key:
+``"up"``/``"down"``); ``delay`` models a slow spawn/control plane.
+
+Every knob is re-read per tick, so tests and benches flip cadence at
+runtime (the per-action contract of doc/dev_lint.md).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+from raydp_tpu_torch import faults, knobs, metrics
+from raydp_tpu_torch.log import get_logger
+
+logger = get_logger("etl.autoscale")
+
+
+class PoolAutoscaler:
+    """Grow/shrink a session's executor pool from its scheduling load.
+
+    Construct via :meth:`Session.autoscale`. ``events`` is a bounded
+    in-order record of every scale decision ({ts, direction, size, reason})
+    — what the scale bench and tests assert on.
+    """
+
+    def __init__(self, session, min_size: Optional[int] = None,
+                 max_size: Optional[int] = None):
+        self._session = session
+        self._min_arg = min_size
+        self._max_arg = max_size
+        mn, mx = self._bounds()
+        if mx < max(1, mn):
+            raise ValueError(
+                f"autoscale needs max_size >= min_size >= 1 (got min={mn}, "
+                f"max={mx}); set RDT_POOL_MAX or pass max_size=")
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._cooldown_until = 0.0
+        self._queued_since: Optional[float] = None
+        self._idle_since: Optional[float] = None
+        self._parked_since: Optional[float] = None
+        self.events: List[Dict[str, Any]] = []
+        self._events_cap = 256
+
+    # ---- knob views (re-read per tick) --------------------------------------
+    def _bounds(self) -> tuple:
+        mn = self._min_arg if self._min_arg is not None \
+            else int(knobs.get("RDT_POOL_MIN"))
+        mx = self._max_arg if self._max_arg is not None \
+            else int(knobs.get("RDT_POOL_MAX"))
+        return max(1, mn), mx
+
+    def set_bounds(self, min_size: Optional[int] = None,
+                   max_size: Optional[int] = None) -> None:
+        """Adjust the live controller's bounds (effective next tick; a
+        ``None`` leaves that bound as it was)."""
+        old = (self._min_arg, self._max_arg)
+        if min_size is not None:
+            self._min_arg = min_size
+        if max_size is not None:
+            self._max_arg = max_size
+        mn, mx = self._bounds()
+        if mx < max(1, mn):
+            self._min_arg, self._max_arg = old
+            raise ValueError(
+                f"autoscale needs max_size >= min_size >= 1 (got min={mn}, "
+                f"max={mx})")
+        logger.info("pool autoscaler bounds now min=%d, max=%d", mn, mx)
+
+    # ---- lifecycle ----------------------------------------------------------
+    def start(self) -> "PoolAutoscaler":
+        if self._thread is not None:
+            return self
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="rdt-pool-autoscaler")
+        self._thread.start()
+        logger.info("pool autoscaler started (min=%d, max=%d)",
+                    *self._bounds())
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=30.0)
+        self._thread = None
+
+    def _loop(self) -> None:
+        while not self._stop.wait(
+                max(0.05, float(knobs.get("RDT_POOL_SCALE_INTERVAL_S")))):
+            try:
+                self._tick()
+            except Exception:  # noqa: BLE001 - the controller must survive
+                logger.exception("autoscale tick failed; continuing")
+
+    # ---- one decision -------------------------------------------------------
+    def _tick(self) -> None:
+        engine = self._session.engine
+        if engine is None:
+            return  # session not started (or already torn down)
+        pool = engine.pool
+        # AQE store-budget feed: re-derive per-host budgets from the stage
+        # ledger's measured bytes (no-op when RDT_STORE_AQE_BUDGET is off,
+        # the ledger is empty, or the measurement has not changed); getattr:
+        # unit harnesses drive the controller against bare engine stubs
+        derive = getattr(engine, "derive_store_budgets", None)
+        if derive is not None:
+            derive()
+        load = pool.load()
+        now = time.monotonic()
+        live = load["live"]
+        metrics.set_gauge("pool_size", live)
+        mn, mx = self._bounds()
+        # sustained-signal windows update even inside the cooldown, so a
+        # queue that built up DURING the cooldown acts the moment it ends
+        if load["queued"] > 0:
+            self._queued_since = self._queued_since or now
+            self._idle_since = None
+        elif load["busy"] == 0:
+            self._idle_since = self._idle_since or now
+            self._queued_since = None
+        else:
+            self._queued_since = None
+            self._idle_since = None
+        parked = int(load.get("parked", 0) or 0)
+        if parked > 0:
+            self._parked_since = self._parked_since or now
+        else:
+            self._parked_since = None
+        # PARKED admission demand pierces both dampeners (the post-scale
+        # cooldown and the sustained-queue window): admission parks an
+        # action only once the backlog bound is already exceeded, so the
+        # demand signal is proven — the hysteresis that protects against
+        # recovery spikes does not apply. One PRIOR tick of parked demand
+        # is still required (strictly older than this tick), so the gap
+        # between a finished grow and admission's unpark can't double-spawn.
+        parked_grow = (parked > 0 and live < mx
+                       and self._parked_since is not None
+                       and self._parked_since < now)
+        if now < self._cooldown_until and not parked_grow:
+            return
+        if parked_grow or (self._queued_since is not None and live < mx
+                           and now - self._queued_since
+                           >= float(knobs.get("RDT_POOL_SCALE_UP_S"))):
+            self._grow(load, live)
+        elif self._idle_since is not None and live > mn \
+                and now - self._idle_since \
+                >= float(knobs.get("RDT_POOL_IDLE_S")):
+            self._shrink(load, live)
+
+    def _note(self, direction: str, size: int, reason: str) -> None:
+        self._cooldown_until = time.monotonic() + \
+            float(knobs.get("RDT_POOL_COOLDOWN_S"))
+        self._queued_since = None
+        self._idle_since = None
+        self._parked_since = None
+        ev = {"ts": time.time(), "direction": direction, "size": size,
+              "reason": reason}
+        self.events.append(ev)
+        del self.events[:-self._events_cap]
+        metrics.record_event("pool_scale", direction=direction, size=size,
+                            reason=reason)
+
+    def _apply_scale_fault(self, key: str, live: int) -> None:
+        """Fire the pool.scale site; an injected raise still pays the
+        cooldown (the documented contract: the decision fails and retries
+        after the cooldown, never every tick)."""
+        rule = faults.check("pool.scale", key=key)
+        if rule is None:
+            return
+        try:
+            faults.apply(rule, "pool.scale")
+        except Exception:
+            self._note(f"{key}-failed", live, "injected fault")
+            raise
+
+    def _grow(self, load: Dict[str, Any], live: int) -> None:
+        self._apply_scale_fault("up", live)
+        target = self._grow_target(load, live)
+        reason = (f"queued={load['queued']} busy={load['busy']} "
+                  f"parked={load.get('parked', 0)} target={target}")
+        logger.info("autoscale: growing pool %d -> %d (%s)",
+                    live, target, reason)
+        grown = 0
+        for _ in range(target - live):
+            handle = self._session._grow_executor()
+            if handle is None:
+                # spawn/readiness failed: stop here and cool down so a
+                # broken control plane is retried at the hysteresis
+                # cadence, not every tick
+                break
+            grown += 1
+            metrics.inc("pool_scaled_up_total")
+        if grown == 0:
+            self._note("up-failed", live, reason)
+            return
+        self._note("up", live + grown, reason)
+
+    def _grow_target(self, load: Dict[str, Any], live: int) -> int:
+        """Predictive pool size for one grow decision: at least the classic
+        +1 step, raised to one free slot per PARKED admission (none of them
+        is released until capacity exists) and — when the operator sized
+        ``RDT_POOL_BYTES_PER_EXEC`` — to enough executors for the AQE
+        plane's measured per-stage bytes. Always capped at the max bound."""
+        _, mx = self._bounds()
+        target = live + 1
+        parked = int(load.get("parked", 0) or 0)
+        if parked > 0:
+            target = max(target, live + parked)
+        per_exec = int(knobs.get("RDT_POOL_BYTES_PER_EXEC") or 0)
+        measure = getattr(self._session.engine, "measured_stage_bytes", None)
+        if per_exec > 0 and measure is not None:
+            measured = int(measure() or 0)
+            if measured > 0:
+                target = max(target, -(-measured // per_exec))
+        return min(mx, max(target, live + 1))
+
+    def _shrink(self, load: Dict[str, Any], live: int) -> None:
+        victim = self._session._shrink_candidate()
+        if victim is None:
+            return
+        self._apply_scale_fault("down", live)
+        logger.info("autoscale: draining idle executor %s (pool %d -> %d)",
+                    victim, live, live - 1)
+        try:
+            self._session.retire_executor(victim)
+        except Exception:
+            logger.warning("autoscale drain of %s failed", victim,
+                           exc_info=True)
+            self._note("down-failed", live, "idle")
+            return
+        metrics.inc("pool_scaled_down_total")
+        self._note("down", live - 1, "idle")

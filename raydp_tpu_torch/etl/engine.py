@@ -1,0 +1,3498 @@
+"""The driver-side execution engine: plan → stages → tasks on executor actors.
+
+This plays the role Spark's driver plays for the reference: it splits the plan at
+wide operators, schedules partition tasks onto executor actors with locality (a
+cached block's task prefers the executor holding it, like ``getBlockLocations``
+routing in ObjectStoreWriter.scala:196-202), bounds in-flight work per executor,
+and retries failed tasks — possible on any executor because tasks are lineage
+recipes (SURVEY.md §5 failure-detection subsystem).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import heapq
+import math
+import os
+import random
+import re
+import threading
+import time
+import uuid
+from concurrent.futures import FIRST_COMPLETED, wait
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import cloudpickle
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+
+from raydp_tpu_torch import faults, knobs, metrics, profiler
+from raydp_tpu_torch.etl import optimizer as O
+from raydp_tpu_torch.etl import plan as P
+from raydp_tpu_torch.etl import tasks as T
+from raydp_tpu_torch.etl.expressions import col as _col
+from raydp_tpu_torch.log import get_logger
+from raydp_tpu_torch.runtime.actor import ActorHandle
+from raydp_tpu_torch.runtime.object_store import HEAD_HOST, ObjectRef, get_client
+from raydp_tpu_torch.runtime.rpc import ConnectionLost, RemoteError
+
+logger = get_logger("etl.engine")
+
+
+class StageError(RuntimeError):
+    pass
+
+
+class AdmissionRejected(StageError):
+    """An action parked at admission control (its queued demand would push
+    the pool's backlog past ``RDT_POOL_MAX_QUEUED``) and the backlog never
+    drained within ``RDT_ADMIT_TIMEOUT_S``. Typed and NO-RETRY by contract:
+    re-submitting the same action against the same overloaded pool replays
+    the rejection — callers should shed load or raise the bound."""
+
+
+class ObjectsLostError(StageError):
+    """A stage task read intermediates whose store blobs are gone (host died,
+    payload dropped). Retrying the consumer replays the miss, so the pool
+    fails the stage immediately and hands the engine the lost ids for lineage
+    recovery (regenerate producers → patch consumer refs → resubmit)."""
+
+    def __init__(self, message: str, lost_ids: Sequence[str]):
+        super().__init__(message)
+        self.lost_ids = list(lost_ids)
+        #: completed per-task results at abort time (index-aligned, None =
+        #: unfinished) — recovery resubmits only the unfinished tasks instead
+        #: of redoing the whole stage per round
+        self.partial: Optional[List[Optional[Dict[str, Any]]]] = None
+
+
+#: object ids travel inside ``RemoteError`` messages (see
+#: ``object_store.ObjectLostError``); ids are 32 hex chars (token_hex(16))
+_OBJECT_ID_RE = re.compile(r"\b[0-9a-f]{32}\b")
+
+
+def _lost_ids_of(err: RemoteError) -> List[str]:
+    """Lost object ids carried by a remote ObjectLostError: the structured
+    ``object_id`` field when present, falling back to the 32-hex tokens in
+    the message text (a peer running older code)."""
+    oid = getattr(err, "object_id", None)
+    if oid:
+        return [oid]
+    return _OBJECT_ID_RE.findall(err.message or "")
+
+#: task-retry backoff: exponential with full jitter, replacing the old
+#: immediate hot-loop resubmit (a restarting executor or a transient store
+#: hiccup needs breathing room, and jitter de-synchronizes sibling retries)
+_RETRY_BACKOFF_BASE_S = 0.05
+_RETRY_BACKOFF_CAP_S = 2.0
+
+#: how long an executor marked unreachable is skipped by task placement
+#: before being probed again (restarts re-register under the same name)
+_DOWN_TTL_S = 10.0
+
+
+def _backoff_delay(attempt: int, rng: random.Random,
+                   base: float = _RETRY_BACKOFF_BASE_S,
+                   cap: float = _RETRY_BACKOFF_CAP_S) -> float:
+    """Exponential backoff with jitter for the ``attempt``-th retry
+    (1-based): ``min(cap, base * 2^(attempt-1) * U(0.5, 1.5))`` — the cap is
+    a hard bound on the returned delay, jitter included."""
+    return min(cap,
+               base * (2 ** max(0, attempt - 1)) * (0.5 + rng.random()))
+
+
+def _result_refs(r: Dict[str, Any]) -> List[ObjectRef]:
+    """Store refs a task result carries (per-bucket shuffle blobs, ONE
+    consolidated shuffle blob, and/or RETURN_REF)."""
+    refs = list(r.get("bucket_refs") or [])
+    if r.get("consolidated_ref") is not None:
+        refs.append(r["consolidated_ref"])
+    if r.get("ref") is not None:
+        refs.append(r["ref"])
+    return refs
+
+
+def _consolidate_enabled() -> bool:
+    """Consolidated-map-output kill switch; read per action (driver side)
+    and carried on each task, so a mid-session toggle never mixes formats
+    within one stage. Same pattern as ``RDT_ETL_OPTIMIZER``."""
+    return bool(knobs.get("RDT_SHUFFLE_CONSOLIDATE"))
+
+
+def _pipeline_enabled() -> bool:
+    """Pipelined (push-based) shuffle kill switch, default ON; read per
+    action like ``RDT_ETL_AQE``. The mode requires the consolidated
+    per-bucket index, so ``RDT_SHUFFLE_CONSOLIDATE=0`` cleanly disables it
+    too (doc/etl.md "Pipelined shuffle")."""
+    return bool(knobs.get("RDT_SHUFFLE_PIPELINE"))
+
+
+def _free_result_refs(results: Sequence[Optional[Dict[str, Any]]]) -> None:
+    """Free every output in a failed stage's completed results — they will
+    never reach a caller, so left alone they would orphan in the store."""
+    orphans = [ref for r in results if r is not None for ref in _result_refs(r)]
+    if orphans:
+        try:
+            get_client().free(orphans)
+        except Exception:
+            logger.warning("failed to free %d orphaned outputs of a "
+                           "failed stage", len(orphans))
+
+
+#: how long a failing stage waits for its in-flight tasks before abandoning
+#: them (their outputs would otherwise be orphaned in the store)
+_DRAIN_TIMEOUT_S = 30.0
+
+
+def _recovery_enabled() -> bool:
+    """Lineage recovery kill switch; read per action so tests can flip it."""
+    return bool(knobs.get("RDT_LINEAGE_RECOVERY"))
+
+
+def _recovery_rounds() -> int:
+    """Recovery attempts per stage (each round may regenerate several blobs)."""
+    return int(knobs.get("RDT_LINEAGE_ROUNDS"))
+
+
+def _recovery_depth() -> int:
+    """Max transitive producer-of-producer regeneration depth."""
+    return int(knobs.get("RDT_LINEAGE_DEPTH"))
+
+
+def _unreachable_grace_s() -> float:
+    """How long a stage keeps probing for a reachable executor before failing.
+    An executor restart is a process spawn plus the pyarrow import storm —
+    tens of seconds on a loaded machine — so "cannot reach" must not burn the
+    task-retry budget (~7s of capped backoff): submits rotate to live
+    executors immediately and only give up after this wall-clock grace."""
+    return float(knobs.get("RDT_EXECUTOR_WAIT_S"))
+
+
+# ---- speculation knobs (read per stage, so tests/benches can flip them) ----
+def _speculation_enabled() -> bool:
+    """Speculative-backup kill switch (default ON). Safe by construction:
+    task reruns are byte-identical, so either copy's bytes are valid — the
+    loser's distinct store blobs are drained and freed, never ledgered."""
+    return bool(knobs.get("RDT_SPECULATION"))
+
+
+def _speculation_quantile() -> float:
+    """Completion fraction a stage must reach before backups are considered
+    (LATE-style gate: a median runtime only means something once most of the
+    stage has finished)."""
+    return float(knobs.get("RDT_SPECULATION_QUANTILE"))
+
+
+def _speculation_multiplier() -> float:
+    """A pending attempt is a straggler when its runtime exceeds this
+    multiple of the completed-task median."""
+    return float(knobs.get("RDT_SPECULATION_MULTIPLIER"))
+
+
+def _speculation_min_s() -> float:
+    """Floor on the straggler threshold: sub-second stages never speculate
+    just because their median is tiny."""
+    return float(knobs.get("RDT_SPECULATION_MIN_S"))
+
+
+class _Attempt:
+    """One in-flight copy of a task: where it runs (stable executor identity
+    + display name), when it was submitted, and whether it is a speculative
+    backup of an attempt still running elsewhere."""
+
+    __slots__ = ("i", "ident", "name", "started", "backup")
+
+    def __init__(self, i: int, ident: str, name: str, started: float,
+                 backup: bool):
+        self.i = i
+        self.ident = ident
+        self.name = name
+        self.started = started
+        self.backup = backup
+
+
+class _Producer:
+    """Ledger entry: the serialized task that created a set of intermediates
+    (all shuffle buckets of one map task, or one RETURN_REF block), in output
+    order — rerunning the task yields byte-identical replacements because
+    every task is a deterministic recipe (seeded sampling, stable hashing)."""
+
+    __slots__ = ("task_bytes", "outputs", "label", "entry")
+
+    def __init__(self, task_bytes: bytes, outputs: List[str], label: str):
+        self.task_bytes = task_bytes
+        self.outputs = outputs
+        self.label = label
+        #: the shuffle-report entry of the producing stage, bound by
+        #: _record_stage — recovery attribution goes HERE, so two same-label
+        #: stages in one action (two joins, two groupbys) stay distinct
+        self.entry: Optional[Dict[str, Any]] = None
+
+
+class _StreamStageRec:
+    """Driver-side record of ONE pipelined shuffle stage: the background
+    thread running its map stage, and the seals observed so far (what the
+    driver itself published — only winning attempts' results reach it, so a
+    speculation loser's seal never exists). ``seals`` feeds locality
+    re-weighting for streaming reducers and the post-stage resolution of
+    streaming sources into concrete ranges (cache recover recipes)."""
+
+    def __init__(self, stage_key: str, label: str, num_maps: int):
+        self.stage_key = stage_key
+        self.label = label
+        self.num_maps = num_maps
+        self.start_ts = time.time()
+        #: per map: (consolidated ref, per-bucket (off, size, rows) index)
+        #: of the LATEST generation (a regenerated producer re-seals here)
+        self.seals: List[Optional[Tuple[ObjectRef, list]]] = \
+            [None] * num_maps  # guarded-by: _lock
+        self.gens = [0] * num_maps  # guarded-by: _lock
+        self.thread: Optional[threading.Thread] = None
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.results: Optional[List[Dict[str, Any]]] = None
+        #: THIS stage's ledger entry, bound at _record_stage time —
+        #: consumer attribution goes here, never through the label map
+        #: (two same-label pipelined stages can be live concurrently)
+        self.entry: Optional[Dict[str, Any]] = None
+        self._lock = threading.Lock()
+
+    def publish(self, map_id: int, ref: ObjectRef, index) -> None:
+        """Record + push one seal notification (generation bumps on every
+        publish, so a re-seal after lineage regeneration supersedes)."""
+        with self._lock:
+            self.gens[map_id] += 1
+            gen = self.gens[map_id]
+            self.seals[map_id] = (ref, list(index))
+        if gen > 1:
+            metrics.inc("stream_reseals_total")
+            metrics.record_event("stream_reseal", stage=self.label,
+                                 map_id=map_id, gen=gen, oid=ref.id)
+        get_client().stream_publish(self.stage_key, map_id, gen, ref.id,
+                                    int(ref.size or 0), list(index))
+
+    def parts_for_bucket(self, bucket: int, sealed_only: bool = False
+                         ) -> List[Tuple[ObjectRef, int, int]]:
+        """This bucket's (ref, off, size) ranges from the seals seen so far
+        (``sealed_only``) or from the COMPLETE stage (raises when a map has
+        not sealed — resolution must never bake in a partial read)."""
+        out = []
+        with self._lock:
+            for i, seal in enumerate(self.seals):
+                if seal is None:
+                    if sealed_only:
+                        continue
+                    raise RuntimeError(
+                        f"stream stage {self.label} incomplete: map {i} "
+                        "has not sealed")
+                ref, index = seal
+                off, size = int(index[bucket][0]), int(index[bucket][1])
+                out.append((ref, off, size))
+        return out
+
+
+class _StreamBucket:
+    """Driver-side placeholder for one reduce bucket of a pipelined stage —
+    the barrier mode's ``(ref, off, size)`` triples do not exist yet. Never
+    pickled: its executor-side twin is :class:`tasks.StreamingRangeSource`."""
+
+    __slots__ = ("rec", "bucket")
+
+    def __init__(self, rec: _StreamStageRec, bucket: int):
+        self.rec = rec
+        self.bucket = bucket
+
+    def source(self, schema: Optional[bytes]) -> "T.StreamingRangeSource":
+        return T.StreamingRangeSource(self.rec.stage_key, self.bucket,
+                                      self.rec.num_maps, schema=schema)
+
+    def parts_so_far(self) -> List[Tuple[ObjectRef, int, int]]:
+        return self.rec.parts_for_bucket(self.bucket, sealed_only=True)
+
+
+class _ActionTemps(list):
+    """Per-action intermediate registry: the list half is the free-at-action-
+    end set (what ``temps`` always was); ``lineage`` maps every intermediate
+    object id to its producer so a lost blob can be regenerated mid-action."""
+
+    def __init__(self):
+        super().__init__()
+        self.lineage: Dict[str, _Producer] = {}
+        #: accumulated old-id → regenerated-ref patches from every recovery
+        #: in this action; anything serialized for later use (e.g. cache
+        #: recover recipes) must be patched through this map, or it would
+        #: bake in ids whose blobs are already dead
+        self.ref_patches: Dict[str, ObjectRef] = {}  # guarded-by: _patch_lock
+        #: label → the report entry THIS action recorded (aliases the dict in
+        #: the engine deque), so recovery attribution lands on this action's
+        #: stage even when a concurrent action logged the same label later
+        self.stage_entries: Dict[str, Dict[str, Any]] = {}
+        #: pipelined map stages launched by this action (joined + their seal
+        #: streams closed before the action frees its temps), by UNIQUE
+        #: stage key — labels repeat within one action, keys never do
+        self.streams: List[_StreamStageRec] = []
+        self.stream_by_key: Dict[str, _StreamStageRec] = {}
+        #: consolidated-blob oid → (stream rec, map_id): which publication a
+        #: regenerated producer must RE-SEAL (same map_id, next generation)
+        self.stream_pubs: Dict[str, Tuple[_StreamStageRec, int]] = {}
+        #: guards ref_patches: with pipelining, a background map stage's
+        #: recovery and the main thread's reduce-stage recovery can patch
+        #: the SAME action concurrently (single-threaded before this)
+        self._patch_lock = threading.Lock()
+
+    def close_streams(self) -> None:
+        """Join every pipelined map stage's background thread (their outputs
+        are registered here and must not be freed under running writers),
+        then drop the seal-stream ledgers — a drain-abandoned reducer still
+        polling gets an abort instead of waiting forever."""
+        if not self.streams:
+            return
+        streams, self.streams = self.streams, []
+        for rec in streams:
+            if rec.thread is not None:
+                rec.thread.join()
+            if rec.error is not None:
+                logger.warning("pipelined map stage %r failed: %s",
+                               rec.label, rec.error)
+        try:
+            get_client().stream_close([rec.stage_key for rec in streams])
+        except Exception:
+            pass
+
+    def resolve_streams(self, task: T.Task) -> T.Task:
+        """Rewrite a task's streaming sources into concrete ranged reads
+        from the completed stages' seals — for recipes serialized to outlive
+        this action (the stream ledger closes with it)."""
+        if not self.stream_by_key:
+            return task
+
+        def _resolver(stage_key: str, bucket: int):
+            rec = self.stream_by_key.get(stage_key)
+            if rec is None:
+                raise RuntimeError(f"unknown stream stage {stage_key}")
+            return rec.parts_for_bucket(bucket)
+
+        return T.resolve_stream_sources(task, _resolver)
+
+    def apply_patches(self, mapping: Dict[str, ObjectRef]) -> None:
+        """Fold a recovery round's old-id → fresh-ref mapping into the
+        action's accumulated patches, collapsing transitively: an earlier
+        round's patch target may ITSELF be what just got regenerated, and
+        anything serialized later (cache recover recipes) must point at the
+        live blob, not a dead intermediate generation."""
+        with self._patch_lock:
+            for k, v in self.ref_patches.items():
+                if v.id in mapping:
+                    self.ref_patches[k] = mapping[v.id]
+            self.ref_patches.update(mapping)
+
+
+def _root_limit(node: P.PlanNode) -> Optional[int]:
+    """The global row cap when the plan's root is a ``Limit`` (possibly under
+    other per-row-preserving narrow ops). The compiled LimitStep truncates each
+    partition; the action applies the exact global cut."""
+    while isinstance(node, (P.Rename,)):
+        node = node.child
+    return node.n if isinstance(node, P.Limit) else None
+
+
+# deterministic application failures: retrying replays the same exception, so
+# fail fast with the original error instead of burning the retry budget.
+# ShuffleStreamAborted is deterministic too: a reducer polling an aborted
+# seal stream replays the abort (which carries the map stage's real error).
+_NO_RETRY_EXC_TYPES = {
+    "KeyError", "ValueError", "TypeError", "AttributeError", "IndexError",
+    "ZeroDivisionError", "ArrowInvalid", "ArrowNotImplementedError",
+    "ArrowKeyError", "ArrowTypeError", "ShuffleStreamAborted",
+    "AdmissionRejected",
+}
+
+#: how often the dispatch path re-evaluates store memory pressure (the
+#: watermark check reads one stats() snapshot per interval, never per task)
+_BACKPRESSURE_POLL_S = 0.5
+
+#: the fallback tenant id of an untagged run_tasks call
+_DEFAULT_TENANT = "default"
+
+
+class ExecutorPool:
+    """Straggler-resistant scheduler over executor actor handles with retry.
+
+    Dispatch is **least-loaded**: each executor carries its own in-flight
+    counter capped at ``max_inflight_per_executor`` (the old single global
+    ``4 × pool`` cap let every task stack on one slow executor while its
+    siblings idled); ties rotate round-robin, and a task's preferred
+    (cache-local) executor is honored on every attempt — retries included —
+    unless it is marked down or its queue is at cap, in which case the task
+    hands off to the least-busy live executor instead of stacking.
+
+    Retry parity: the reference's fetch tasks run with ``max_retries=-1``
+    (dataset.py:54) and executor actors revive with ``maxRestarts=-1``; we retry a
+    bounded-but-generous number of times, re-resolving the actor between attempts
+    (a restarted actor keeps its name at a new address).
+    """
+
+    def __init__(self, executors: List[ActorHandle], max_task_retries: int = 8,
+                 hosts_by_name: Optional[Dict[str, str]] = None):
+        if not executors:
+            raise ValueError("executor pool is empty")
+        # membership is ELASTIC (drain/retire + autoscale): ``executors``,
+        # ``_idents``, ``_ident_of``, ``by_name`` and the host maps are
+        # immutable snapshots REPLACED atomically under ``_lock`` on every
+        # membership change — readers that grabbed the old list keep a
+        # consistent view, and no reader needs the lock
+        self.executors = list(executors)
+        self.by_name = {h.name: h for h in executors}
+        self.max_task_retries = max_task_retries
+        #: stable per-handle identity, index-aligned with ``executors`` —
+        #: in-flight counters and the down map key on THIS, never on
+        #: ``handle.name``: several unnamed executors would alias one ""
+        #: entry, so one crash would mark them all down
+        self._idents = [self._executor_ident(h) for h in self.executors]
+        self._ident_of = {id(h): ident
+                          for h, ident in zip(self.executors, self._idents)}
+        #: executor name → data-plane host id (machine), for locality routing
+        self.hosts_by_name: Dict[str, str] = dict(hosts_by_name or {})
+        self._names_by_host: Dict[str, List[str]] = {}
+        for h in self.executors:
+            if h.name and h.name in self.hosts_by_name:
+                self._names_by_host.setdefault(
+                    self.hosts_by_name[h.name], []).append(h.name)
+        self._rr = 0  # guarded-by: _lock
+        self._local_rr: Dict[str, int] = {}  # guarded-by: _lock
+        self._weight_rr = 0  # tie rotation for pick_weighted; guarded-by: _lock
+        self._lock = threading.Lock()
+        #: pool-WIDE in-flight per ident, across every concurrent run_tasks
+        #: call — the drain protocol's quiesce signal and the autoscaler's
+        #: busy signal (per-call caps still use each call's local counters)
+        self._busy: Dict[str, int] = {}  # guarded-by: _lock
+        #: ident → monotonic time marked unreachable. Pool-level (not
+        #: per-call) so every concurrent stage shares the discovery, and a
+        #: restart re-admission (mark_up) is observable session-wide
+        self._down: Dict[str, float] = {}  # guarded-by: _lock
+        #: ident → monotonic drain start; a draining executor accepts NO new
+        #: dispatch but keeps its in-flight tasks until they finish/fail
+        self._draining: Dict[str, float] = {}  # guarded-by: _lock
+        #: outstanding tasks across all active run_tasks calls (queued +
+        #: in-flight); demand - busy = the autoscaler's queue-depth signal
+        self._demand = 0  # guarded-by: _lock
+        # ---- multi-tenant fair sharing + admission (doc/etl.md "Fair
+        # sharing and admission"): per-tenant twins of _busy/_demand, the
+        # registered weights, and cumulative dispatch counts. busy/demand/
+        # weight entries drop when a tenant goes fully idle; dispatched is
+        # cumulative (bounded by the number of tenants ever seen).
+        self._tenant_busy: Dict[str, int] = {}  # guarded-by: _lock
+        self._tenant_demand: Dict[str, int] = {}  # guarded-by: _lock
+        self._tenant_weight: Dict[str, float] = {}  # guarded-by: _lock
+        self._tenant_dispatched: Dict[str, int] = {}  # guarded-by: _lock
+        #: per-tenant demand registered by actions still PARKED at admission
+        #: — included in _demand (the autoscaler must see it and grow to
+        #: absorb it) but excluded from the admission backlog (two parked
+        #: actions must not hold each other out past an already-drained
+        #: queue) AND from the fair-share contention scan (a parked tenant
+        #: cannot take the slot the gate would reserve for it — counting it
+        #: would serialize every running tenant for the whole park)
+        self._parked_by_tenant: Dict[str, int] = {}  # guarded-by: _lock
+        #: FIFO of parked admissions (monotonic tickets, append order): a
+        #: freed backlog admits the LONGEST-parked action first instead of
+        #: whichever poll loop woke up luckiest (ROADMAP 3c)
+        self._park_queue: List[int] = []  # guarded-by: _lock
+        self._park_seq = 0  # guarded-by: _lock
+        # ---- memory backpressure: hosts paused above the store
+        # high-watermark (hysteresis: released below the low-watermark).
+        # The cache tuple (expiry, frozenset) is swapped atomically and
+        # read lock-free on the dispatch hot path.
+        self._pressure_lock = threading.Lock()
+        self._bp_active: set = set()  # guarded-by: _pressure_lock
+        self._pressure_cache: Optional[Tuple[float, frozenset]] = None
+        #: test/override hook: a callable returning {host_id: fraction of
+        #: its store budget in shm}; None = read the store's stats()
+        self.pressure_provider = None
+
+    @staticmethod
+    def _executor_ident(h) -> str:
+        """Stable scheduling identity of a handle: the actor id when it has
+        one, else the name, else the handle object itself (an anonymous
+        stub in tests) — never a shared sentinel like ""."""
+        aid = getattr(h, "actor_id", None)
+        if aid:
+            return str(aid)
+        return h.name or f"anon-{id(h):x}"
+
+    def _next_executor(self) -> ActorHandle:
+        with self._lock:
+            h = self.executors[self._rr % len(self.executors)]
+            self._rr += 1
+            return h
+
+    # ---- elastic membership -------------------------------------------------
+    def _swap_members(self, executors: List[ActorHandle],
+                      hosts_by_name: Dict[str, str]) -> None:
+        """Rebuild and atomically replace every membership snapshot.
+        Caller holds ``_lock``."""
+        idents = [self._executor_ident(h) for h in executors]
+        names_by_host: Dict[str, List[str]] = {}
+        for h in executors:
+            if h.name and h.name in hosts_by_name:
+                names_by_host.setdefault(hosts_by_name[h.name], []) \
+                    .append(h.name)
+        self.executors = executors
+        self._idents = idents
+        self._ident_of = {id(h): i for h, i in zip(executors, idents)}
+        self.by_name = {h.name: h for h in executors}
+        self.hosts_by_name = hosts_by_name
+        self._names_by_host = names_by_host
+
+    def add_executor(self, handle: ActorHandle,
+                     host_id: Optional[str] = None) -> str:
+        """Admit a new executor into rotation (autoscale grow / manual
+        attach); returns its scheduling ident. Stages already running pick
+        it up on their next dispatch pass."""
+        with self._lock:
+            if any(h is handle for h in self.executors):
+                return self._ident_of[id(handle)]
+            hosts = dict(self.hosts_by_name)
+            if handle.name and host_id is not None:
+                hosts[handle.name] = host_id
+            self._swap_members(self.executors + [handle], hosts)
+            ident = self._ident_of[id(handle)]
+            # a re-added name sheds any stale down/drain state
+            self._down.pop(ident, None)
+            self._draining.pop(ident, None)
+            size = len(self.executors) - len(self._draining)
+        metrics.set_gauge("pool_size", size)
+        logger.info("executor %s joined the pool (size %d)",
+                    handle.name or ident, size)
+        return ident
+
+    def remove_executor(self, name: str) -> Optional[ActorHandle]:
+        """Drop an executor from every membership snapshot (the last step of
+        a drain — or an abrupt removal; in-flight attempts on it simply fail
+        and retry elsewhere). Returns the removed handle, or None."""
+        with self._lock:
+            handle = self.by_name.get(name)
+            if handle is None:
+                return None
+            ident = self._ident_of[id(handle)]
+            rest = [h for h in self.executors if h is not handle]
+            hosts = {n: hid for n, hid in self.hosts_by_name.items()
+                     if n != name}
+            self._swap_members(rest, hosts)
+            self._draining.pop(ident, None)
+            self._down.pop(ident, None)
+            self._busy.pop(ident, None)
+            size = len(self.executors) - len(self._draining)
+        metrics.set_gauge("pool_size", size)
+        logger.info("executor %s left the pool (size %d)", name, size)
+        return handle
+
+    def begin_drain(self, name: str) -> bool:
+        """Take ``name`` out of dispatch rotation without touching its
+        in-flight tasks. False when unknown or already draining; raises when
+        the drain would leave zero live executors (the pool would wedge)."""
+        with self._lock:
+            handle = self.by_name.get(name)
+            if handle is None:
+                return False
+            ident = self._ident_of[id(handle)]
+            if ident in self._draining:
+                return False
+            live = [i for i in self._idents if i not in self._draining]
+            if len(live) <= 1:
+                raise ValueError(
+                    f"cannot drain {name!r}: it is the last live executor")
+            self._draining[ident] = time.monotonic()
+            size = len(self.executors) - len(self._draining)
+        metrics.set_gauge("pool_size", size)
+        return True
+
+    def cancel_drain(self, name: str) -> None:
+        """Put a draining executor back into rotation (a failed retirement
+        must not leave it unreachable-by-scheduler forever)."""
+        with self._lock:
+            handle = self.by_name.get(name)
+            if handle is None:
+                return
+            self._draining.pop(self._ident_of[id(handle)], None)
+            size = len(self.executors) - len(self._draining)
+        metrics.set_gauge("pool_size", size)
+
+    def wait_idle(self, name: str, timeout: float) -> bool:
+        """Block until ``name`` has zero pool-wide in-flight tasks (its
+        drain quiesce point) or ``timeout`` lapses; True = quiesced. An
+        executor that crashed mid-drain quiesces too — its attempts fail
+        and their completions decrement the same counter."""
+        deadline = time.monotonic() + max(0.0, timeout)
+        while True:
+            with self._lock:
+                handle = self.by_name.get(name)
+                if handle is None:
+                    return True
+                busy = self._busy.get(self._ident_of[id(handle)], 0)
+            if busy <= 0:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
+
+    def load(self) -> Dict[str, Any]:
+        """Scheduling-load snapshot for the autoscale controller: member /
+        live counts, pool-wide busy, queued demand (outstanding tasks not in
+        flight), and per-executor busy by display name."""
+        now = time.monotonic()
+        with self._lock:
+            members = list(zip(self.executors, self._idents))
+            busy = dict(self._busy)
+            draining = set(self._draining)
+            down = {i for i, t in self._down.items()
+                    if now - t < _DOWN_TTL_S}
+            demand = self._demand
+            tenants = {
+                t: {"busy": self._tenant_busy.get(t, 0),
+                    "demand": self._tenant_demand.get(t, 0),
+                    "queued": max(0, self._tenant_demand.get(t, 0)
+                                  - self._tenant_busy.get(t, 0)),
+                    "weight": self._tenant_weight.get(t, 1.0),
+                    "dispatched": self._tenant_dispatched.get(t, 0)}
+                for t in set(self._tenant_demand) | set(self._tenant_busy)
+                | set(self._tenant_dispatched)}
+            parked = sum(self._parked_by_tenant.values())
+        live = [i for _, i in members if i not in draining]
+        busy_total = sum(busy.get(i, 0) for i in live)
+        return {
+            "size": len(members),
+            "live": len(live),
+            "down": len(down & set(live)),
+            "draining": len(draining),
+            "busy": busy_total,
+            "queued": max(0, demand - sum(busy.values())),
+            "parked": parked,
+            "backpressured_hosts": sorted(self._pressured_hosts()),
+            "per_executor_busy": {
+                (h.name or i): busy.get(i, 0) for h, i in members},
+            "tenants": tenants,
+        }
+
+    def draining_names(self) -> List[str]:
+        with self._lock:
+            draining = set(self._draining)
+            return [h.name or i for h, i in zip(self.executors, self._idents)
+                    if i in draining]
+
+    def _dispatch_view(self) -> Tuple[List[Tuple[ActorHandle, str]], set]:
+        """One-lock snapshot for a dispatch pass: dispatchable (handle,
+        ident) pairs (draining members excluded, members on a
+        memory-backpressured host excluded) plus the set of currently-down
+        idents — the scheduling hot loops evaluate membership/downness
+        against this copy instead of taking the pool lock once per member
+        per pass. With EVERY host paused dispatch simply waits (graceful
+        degradation: the queue holds, the autoscaler still sees demand, and
+        the store drains below the low watermark instead of OOMing)."""
+        now = time.monotonic()
+        pressured = self._pressured_hosts()
+        with self._lock:
+            draining = self._draining
+            hosts = self.hosts_by_name
+            members = [(h, i) for h, i in zip(self.executors, self._idents)
+                       if i not in draining
+                       and (not pressured
+                            or hosts.get(h.name or "", HEAD_HOST)
+                            not in pressured)]
+            down = {i for i, t in self._down.items()
+                    if now - t < _DOWN_TTL_S}
+        return members, down
+
+    def _is_down(self, ident: str) -> bool:
+        with self._lock:
+            t = self._down.get(ident)
+        return t is not None and time.monotonic() - t < _DOWN_TTL_S
+
+    def _mark_down(self, ident: str, name: str) -> None:
+        now = time.monotonic()
+        with self._lock:
+            t = self._down.get(ident)
+            # transition computed under the SAME lock as the write: two
+            # concurrent stages discovering one crash must record one
+            # executor_down, not flood the bounded ring with duplicates
+            transition = t is None or now - t >= _DOWN_TTL_S
+            self._down[ident] = now
+        if transition:
+            # record the TRANSITION, not every probe of an already-down
+            # executor — a 60s unreachable grace of backoff probes must
+            # not flood the bounded flight-recorder ring
+            metrics.inc("sched_executor_down_total", label=name)
+            metrics.record_event("executor_down", executor=name)
+
+    def _mark_up(self, ident: str, name: str) -> None:
+        """A down-marked executor answered: re-admit it immediately (no TTL
+        wait) and record the symmetric executor_up event, so a node-agent
+        restart mid-action returns the pool to full width instead of the
+        action finishing on the shrunken remainder."""
+        with self._lock:
+            was_down = self._down.pop(ident, None)
+        if was_down is not None:
+            metrics.inc("sched_executor_up_total", label=name)
+            metrics.record_event("executor_up", executor=name)
+            logger.info("executor %s is reachable again; re-admitted to "
+                        "task placement", name)
+
+    @staticmethod
+    def _bump(counts: Dict[str, int], key: str, n: int) -> None:
+        """Adjust one floor-at-zero counter map entry, dropping it at 0.
+        Caller holds ``_lock``."""
+        cur = counts.get(key, 0) + n
+        if cur > 0:
+            counts[key] = cur
+        else:
+            counts.pop(key, None)
+
+    def _maybe_drop_tenant(self, tenant: str) -> None:  # guarded-by: _lock
+        """Forget a tenant's weight once it carries no busy and no demand
+        (its next action re-registers). Caller holds ``_lock``."""
+        if not self._tenant_busy.get(tenant) \
+                and not self._tenant_demand.get(tenant):
+            self._tenant_weight.pop(tenant, None)
+
+    def _busy_delta(self, ident: str, n: int,
+                    tenant: Optional[str] = None) -> None:
+        with self._lock:
+            self._bump(self._busy, ident, n)
+            if tenant is not None:
+                self._bump(self._tenant_busy, tenant, n)
+                self._maybe_drop_tenant(tenant)
+
+    def _demand_delta(self, n: int, tenant: Optional[str] = None) -> None:
+        with self._lock:
+            self._demand = max(0, self._demand + n)
+            if tenant is not None:
+                self._bump(self._tenant_demand, tenant, n)
+                self._maybe_drop_tenant(tenant)
+
+    def _register_tenant(self, tenant: str, weight: float) -> None:
+        with self._lock:
+            self._tenant_weight[tenant] = weight
+
+    def _note_dispatch(self, tenant: str) -> None:
+        with self._lock:
+            self._tenant_dispatched[tenant] = \
+                self._tenant_dispatched.get(tenant, 0) + 1
+
+    def _fair_ok(self, tenant: str) -> bool:
+        """Deficit-weighted fair-share gate: may ``tenant`` take the next
+        executor slot? Always yes without contention (no OTHER tenant has
+        queued work). Under contention a tenant may dispatch only while its
+        in-flight count stays within one task of ``weight × the minimum
+        busy/weight share`` among the contending tenants — so the
+        least-served (deficit) tenant always passes, per-tenant in-flight
+        shares converge to the weight ratio, and an idle tenant's first
+        task never waits behind a thousand queued batch tasks."""
+        with self._lock:
+            min_share = None
+            for t, d in self._tenant_demand.items():
+                if t == tenant:
+                    continue
+                b = self._tenant_busy.get(t, 0)
+                if d - self._parked_by_tenant.get(t, 0) - b <= 0:
+                    # nothing DISPATCHABLE queued: no claim on the next
+                    # slot (admission-parked demand is excluded — a parked
+                    # tenant cannot take the slot this gate would hold)
+                    continue
+                share = b / self._tenant_weight.get(t, 1.0)
+                if min_share is None or share < min_share:
+                    min_share = share
+            if min_share is None:
+                return True
+            busy = self._tenant_busy.get(tenant, 0)
+            return busy < self._tenant_weight.get(tenant, 1.0) \
+                * min_share + 1
+
+    def _admit(self, tenant: str, n: int) -> None:
+        """Admission control (``RDT_POOL_MAX_QUEUED``): park this call while
+        the pool's ADMITTED queued backlog plus its ``n`` tasks would exceed
+        the bound. The caller has already registered its demand, so the
+        autoscaler sees the parked work and can grow to absorb it (busy
+        capacity up → backlog down → admitted). An empty backlog always
+        admits — a single action larger than the bound must run, not wedge.
+        Admission is FIFO in park order: freed backlog goes to the
+        longest-parked action first, and a fresh arrival queues BEHIND
+        already-parked actions instead of racing them for the slot.
+        Past ``RDT_ADMIT_TIMEOUT_S`` the call fails with the typed no-retry
+        :class:`AdmissionRejected`."""
+        max_q = int(knobs.get("RDT_POOL_MAX_QUEUED"))
+        if max_q <= 0 or n <= 0:
+            return
+        timeout = float(knobs.get("RDT_ADMIT_TIMEOUT_S"))
+        deadline = time.monotonic() + max(0.0, timeout)
+        parked = False
+        ticket: Optional[int] = None
+        try:
+            while True:
+                newly_parked = False
+                with self._lock:
+                    busy_total = sum(self._busy.values())
+                    own = n if not parked else 0
+                    backlog = max(
+                        0, self._demand
+                        - sum(self._parked_by_tenant.values())
+                        - own - busy_total)
+                    fits = backlog <= 0 or backlog + n <= max_q
+                    # FIFO gate: freed backlog belongs to the queue head;
+                    # an unparked newcomer counts as head only while nobody
+                    # is parked at all (first parked, first admitted)
+                    head = (self._park_queue[0] == ticket if parked
+                            else not self._park_queue)
+                    if fits and head:
+                        if parked:
+                            self._bump(self._parked_by_tenant, tenant, -n)
+                            self._park_queue.remove(ticket)
+                            parked = False
+                        return
+                    if not parked:
+                        parked = newly_parked = True
+                        ticket = self._park_seq
+                        self._park_seq += 1
+                        self._park_queue.append(ticket)
+                        self._bump(self._parked_by_tenant, tenant, n)
+                if newly_parked:
+                    metrics.inc("pool_admission_parked_total", label=tenant)
+                    logger.info(
+                        "action of %d tasks (tenant %r) parked at "
+                        "admission: pool backlog %d exceeds "
+                        "RDT_POOL_MAX_QUEUED=%d", n, tenant, backlog, max_q)
+                if time.monotonic() >= deadline:
+                    metrics.inc("pool_admission_rejects_total", label=tenant)
+                    metrics.record_event("admission_reject", tenant=tenant,
+                                         tasks=n, backlog=backlog,
+                                         max_queued=max_q)
+                    raise AdmissionRejected(
+                        f"admission of {n} tasks (tenant {tenant!r}) timed "
+                        f"out after {timeout:.0f}s: pool backlog of "
+                        f"{backlog} queued tasks exceeds "
+                        f"RDT_POOL_MAX_QUEUED={max_q}")
+                time.sleep(0.05)
+        finally:
+            if parked:
+                with self._lock:
+                    self._bump(self._parked_by_tenant, tenant, -n)
+                    if ticket in self._park_queue:
+                        self._park_queue.remove(ticket)
+
+    # ---- memory backpressure ------------------------------------------------
+    @staticmethod
+    def _store_pressure() -> Dict[str, float]:
+        """{host_id: shm bytes / budget} from the store's stats() — only
+        hosts with a configured budget report (no budget, no watermark)."""
+        stats = get_client().stats()
+        shm = stats.get("host_shm") or {}
+        return {h: shm.get(h, 0) / b
+                for h, b in (stats.get("host_budgets") or {}).items() if b}
+
+    def _pressured_hosts(self) -> frozenset:
+        """Hosts currently paused for dispatch: above the store
+        high-watermark, held until below the low-watermark (hysteresis).
+        Evaluated at most once per ``_BACKPRESSURE_POLL_S``; the cached
+        set is swapped atomically, so the dispatch hot path reads it
+        lock-free."""
+        high = float(knobs.get("RDT_STORE_HIGH_WATERMARK"))
+        if high <= 0:
+            return frozenset()
+        now = time.monotonic()
+        cached = self._pressure_cache
+        if cached is not None and now < cached[0]:
+            return cached[1]
+        with self._pressure_lock:
+            cached = self._pressure_cache
+            if cached is not None and now < cached[0]:
+                return cached[1]
+            low = min(float(knobs.get("RDT_STORE_LOW_WATERMARK")), high)
+            try:
+                provider = self.pressure_provider or self._store_pressure
+                fractions = provider() or {}
+            except Exception:  # noqa: BLE001 - no store/runtime yet, or a
+                # transient stats failure. Fail CLOSED: keep the previous
+                # pause state — an overloaded store head timing out its own
+                # stats RPC is exactly when resuming dispatch to a paused
+                # host would be wrong. (A pool that never reached a store
+                # has an empty _bp_active, so nothing is held paused.)
+                out = frozenset(self._bp_active)
+                self._pressure_cache = (now + _BACKPRESSURE_POLL_S, out)
+                return out
+            for host, frac in fractions.items():
+                if host in self._bp_active:
+                    if frac < low:
+                        self._bp_active.discard(host)
+                        metrics.record_event("backpressure", host=host,
+                                             state="resume",
+                                             pressure=round(frac, 3))
+                        logger.info(
+                            "store pressure on %s back under the low "
+                            "watermark (%.2f < %.2f); dispatch resumed",
+                            host, frac, low)
+                elif frac >= high:
+                    self._bp_active.add(host)
+                    metrics.inc("pool_backpressure_total", label=host)
+                    metrics.record_event("backpressure", host=host,
+                                         state="pause",
+                                         pressure=round(frac, 3))
+                    logger.warning(
+                        "store pressure on %s above the high watermark "
+                        "(%.2f >= %.2f); pausing dispatch to its "
+                        "executors until it drops below %.2f",
+                        host, frac, high, low)
+            # a host that stopped reporting (budget removed, node purged)
+            # must not stay paused forever
+            self._bp_active &= set(fractions)
+            out = frozenset(self._bp_active)
+            self._pressure_cache = (now + _BACKPRESSURE_POLL_S, out)
+            return out
+
+    def multi_host(self) -> bool:
+        """True when executors span machines — only then is locality routing
+        worth overriding round-robin balance."""
+        return len(set(self.hosts_by_name.values())) > 1
+
+    def pick_local(self, host_id: str) -> Optional[str]:
+        """An executor on ``host_id`` (round-robin among that machine's
+        executors for balance), or None when none runs there."""
+        names = self._names_by_host.get(host_id)
+        if not names:
+            return None
+        with self._lock:
+            i = self._local_rr.get(host_id, 0)
+            self._local_rr[host_id] = i + 1
+        return names[i % len(names)]
+
+    def pick_weighted(self, host_weights: Dict[str, float]
+                      ) -> Optional[str]:
+        """Preferred executor from per-host locality weights (data-gravity
+        scheduling): hosts are tried in DESCENDING weight order and the
+        heaviest one that still has a dispatchable member (not draining,
+        not on a memory-backpressured host) wins — when the best host is
+        draining, the runner-up (e.g. the machine holding a spilled
+        copy) takes the task instead of an arbitrary executor. Hosts
+        tied on weight rotate deterministically so tied placements
+        spread. None when no weighted host is dispatchable (dispatch
+        then falls back to least-loaded)."""
+        if not host_weights:
+            return None
+        members, _ = self._dispatch_view()
+        live_hosts = {self.hosts_by_name.get(h.name or "", HEAD_HOST)
+                      for h, _ in members}
+        with self._lock:
+            rr = self._weight_rr
+            self._weight_rr += 1
+        ranked = sorted(host_weights.items(), key=lambda kv: -kv[1])
+        i = 0
+        while i < len(ranked):
+            j = i
+            while j < len(ranked) and ranked[j][1] == ranked[i][1]:
+                j += 1
+            tied = sorted(h for h, _ in ranked[i:j] if h in live_hosts)
+            if tied:
+                return self.pick_local(tied[rr % len(tied)])
+            i = j
+        return None
+
+    def run_tasks(
+        self,
+        tasks: Sequence[T.Task],
+        preferred: Optional[Sequence[Optional[str]]] = None,
+        max_inflight_per_executor: int = 4,
+        payloads: Optional[Sequence[bytes]] = None,
+        sched_stats: Optional[Dict[str, Any]] = None,
+        on_result: Optional[Any] = None,
+        tenant: Optional[str] = None,
+        tenant_weight: Optional[float] = None,
+    ) -> List[Dict[str, Any]]:
+        """Run tasks, preserving order of results; blocks until all complete.
+
+        Dispatch is least-loaded with per-executor in-flight caps (see the
+        class docstring). Once the stage is past a completion quantile
+        (``RDT_SPECULATION_QUANTILE``) and a pending attempt's runtime
+        exceeds ``RDT_SPECULATION_MULTIPLIER`` × the completed-task median
+        (floored by ``RDT_SPECULATION_MIN_S``), a **speculative backup** of
+        the same serialized payload is submitted to a different live
+        executor; the first finisher wins and the loser's outputs are
+        drained and freed through the late-result path — byte-identical
+        reruns make either copy's bytes valid, but each attempt writes its
+        own store blobs, so only the winner's refs reach the caller (and
+        through it the lineage ledger). ``RDT_SPECULATION=0`` disables
+        backups.
+
+        Failed attempts resubmit after exponential backoff with full jitter
+        (never the old immediate hot loop). A task that read a LOST store
+        blob fails the stage at once as :class:`ObjectsLostError` — retrying
+        the consumer replays the miss; only lineage recovery (the engine's
+        job) can fix it. Any stage abort first cancels queued retries, drains
+        in-flight tasks, and frees the outputs the caller will never see.
+
+        ``sched_stats``, when given, is updated in place with
+        ``speculated`` / ``speculation_won`` counters and a
+        ``per_executor_busy`` map (executor display name → peak in-flight
+        during this call), merging across calls.
+
+        ``on_result(i, result)`` fires as EACH task's winning result lands
+        (index into ``tasks``) — the pipelined shuffle's seal-notification
+        hook: the driver publishes a map's consolidated blob the moment it
+        is decided, so only winners ever seal. Callback errors are logged,
+        never fail the stage.
+
+        ``tenant`` tags this stage's load for weighted fair sharing across
+        concurrent callers (doc/etl.md "Fair sharing and admission"):
+        per-tenant busy/demand twins of the pool signals, a deficit-
+        weighted dispatch gate under contention, and admission control —
+        the call parks while the pool's queued backlog would exceed
+        ``RDT_POOL_MAX_QUEUED`` and fails typed (:class:`AdmissionRejected`,
+        no-retry) past ``RDT_ADMIT_TIMEOUT_S``. ``tenant_weight`` defaults
+        to ``RDT_POOL_TENANT_WEIGHT`` (re-read per call)."""
+        n = len(tasks)
+        tenant = tenant or _DEFAULT_TENANT
+        if tenant_weight is None:
+            tenant_weight = float(knobs.get("RDT_POOL_TENANT_WEIGHT"))
+        tenant_weight = max(float(tenant_weight), 1e-3)
+        results: List[Optional[Dict[str, Any]]] = [None] * n
+        attempts = [0] * n
+        cap = max(1, max_inflight_per_executor)
+        pending: Dict[Any, _Attempt] = {}
+        # per-CALL in-flight (the cap + busy-peak stats are per stage);
+        # membership is elastic, so entries appear as executors are chosen
+        inflight: Dict[str, int] = {}
+        busy_peak: Dict[str, int] = {}
+        copies = [0] * n             # live in-flight attempts per task
+        retry_q: List[Tuple[float, int]] = []  # (due monotonic, task index)
+        rng = random.Random()
+        next_idx = 0
+        done_cnt = 0
+        durations: List[float] = []  # winning-attempt runtimes, for the median
+        speculated: set = set()      # task indices that got a backup
+        spec_won = 0
+        spec_on = _speculation_enabled() and len(self.executors) > 1
+        spec_gate = max(1, math.ceil(_speculation_quantile() * n))
+        spec_mult = _speculation_multiplier()
+        spec_min_s = _speculation_min_s()
+        # serialize each task at most once (caller-provided payloads — e.g.
+        # the engine's lineage ledger copies — are reused; retries and
+        # speculative backups reuse the same bytes too)
+        blobs: List[Optional[bytes]] = list(payloads) if payloads is not None \
+            else [None] * n
+
+        uprobe = [0] * n             # unreachable-submit probes per task
+        unreach_since: List[Optional[float]] = [None] * n
+        # down tracking lives on the POOL (shared across concurrent stages;
+        # a node-agent restart re-admits via _mark_up on the first answer)
+        _mark_down = self._mark_down
+
+        def _any_capacity() -> bool:
+            members, down = self._dispatch_view()
+            any_live = live_free = probe_free = False
+            for _h, ident in members:
+                busy = inflight.get(ident, 0)
+                if ident not in down:
+                    any_live = True
+                    if busy < cap:
+                        live_free = True
+                elif busy < cap:
+                    probe_free = True
+            if any_live:
+                # a live executor at cap is BUSY, not gone: tasks wait for a
+                # slot instead of probing a dead address (which would burn
+                # their unreachable grace while the cluster is healthy)
+                return live_free
+            # every executor is down: free slots on them count — probing is
+            # the only way to notice a restart (the down TTL expires and the
+            # submit itself is the probe)
+            return probe_free
+
+        def _choose(i: int, exclude: Optional[str] = None,
+                    probe: bool = True):
+            """(handle, ident) to run task ``i`` on: the preferred executor
+            whenever it is live, not draining, and below its cap — on EVERY
+            attempt, so a transient failure no longer strands a cache-local
+            task on remote hosts for the rest of its retries — else the
+            least-loaded live executor below cap (round-robin tiebreak).
+            Membership is read fresh per call: an executor the autoscaler
+            added mid-stage is dispatchable at once, a draining/removed one
+            never is. When every executor is down, a second pass
+            (``probe=True``) returns a down-but-below-cap executor so the
+            submit itself probes for a restart — but ONLY then: a live
+            executor at its cap means the task should wait for a slot, not
+            accrue unreachable grace against a dead address while the pool
+            is merely busy; (None, None) = nothing to submit to right now."""
+            members, down = self._dispatch_view()
+            member_idents = {ident for _h, ident in members}
+            if preferred is not None and preferred[i] is not None:
+                h = self.by_name.get(preferred[i])
+                if h is not None:
+                    ident = self._ident_of.get(id(h))
+                    if ident is not None and ident in member_idents \
+                            and ident != exclude and ident not in down \
+                            and inflight.get(ident, 0) < cap:
+                        return h, ident
+            k = len(members)
+            if k == 0:
+                return None, None
+            with self._lock:
+                start = self._rr
+                self._rr += 1
+            may_probe = probe and all(ident in down
+                                      for _h, ident in members)
+            best = None
+            for allow_down in (False, True) if may_probe else (False,):
+                for off in range(k):
+                    h, ident = members[(start + off) % k]
+                    busy = inflight.get(ident, 0)
+                    if ident == exclude or busy >= cap:
+                        continue
+                    if (ident in down) != allow_down:
+                        continue
+                    if best is None or busy < best[2]:
+                        best = (h, ident, busy)
+                if best is not None:
+                    break
+            if best is None:
+                return None, None
+            return best[0], best[1]
+
+        # pool-wide accounting (drain quiesce + autoscale + fair-share
+        # signals), reconciled in the final ``finally`` so an abort/
+        # abandonment can never leak a phantom busy count, queued demand,
+        # or per-tenant load
+        pool_acct: Dict[str, int] = {}
+
+        def _pool_busy(ident: str, d: int) -> None:
+            pool_acct[ident] = pool_acct.get(ident, 0) + d
+            self._busy_delta(ident, d, tenant)
+
+        def _register(fut, i: int, ident: str, name: str, backup: bool):
+            pending[fut] = _Attempt(i, ident, name, time.monotonic(), backup)
+            inflight[ident] = inflight.get(ident, 0) + 1
+            _pool_busy(ident, +1)
+            copies[i] += 1
+            busy_peak[name] = max(busy_peak.get(name, 0), inflight[ident])
+            self._note_dispatch(tenant)
+            metrics.inc("sched_tasks_dispatched_total", label=name)
+            metrics.inc("sched_tenant_dispatched_total", label=tenant)
+
+        def _submit(i: int):
+            handle, ident = _choose(i)
+            if handle is None:
+                # every queue is at cap (a race leftover — callers check
+                # capacity first): try again shortly
+                heapq.heappush(retry_q, (time.monotonic() + 0.05, i))
+                return
+            if blobs[i] is None:
+                blobs[i] = cloudpickle.dumps(tasks[i])
+            try:
+                fut = handle.submit("run_task", blobs[i])
+            except (ConnectionLost, OSError) as e:
+                # a crashed executor's address refuses connections until the
+                # supervisor re-homes it — and a restart is a process spawn
+                # plus the pyarrow import storm, seconds under load. That
+                # must not burn the task-retry budget: mark the executor
+                # down, rotate, and keep probing within a wall-clock grace.
+                now = time.monotonic()
+                _mark_down(ident, handle.name or ident)
+                if unreach_since[i] is None:
+                    unreach_since[i] = now
+                uprobe[i] += 1
+                if now - unreach_since[i] > _unreachable_grace_s():
+                    raise StageError(
+                        f"no reachable executor for task "
+                        f"{tasks[i].task_id} after {uprobe[i]} probes over "
+                        f"{now - unreach_since[i]:.0f}s: {e}") from e
+                delay = _backoff_delay(uprobe[i], rng)
+                logger.warning("submit of task %s to %s failed (probe %d, "
+                               "retry in %.2fs): %s", tasks[i].task_id,
+                               handle.name or ident, uprobe[i], delay, e)
+                heapq.heappush(retry_q, (now + delay, i))
+                return
+            unreach_since[i] = None
+            uprobe[i] = 0
+            # the submit reached it: a down-marked executor (a restart the
+            # node agent finished mid-action) re-enters placement now
+            self._mark_up(ident, handle.name or ident)
+            if preferred is not None and preferred[i] is not None \
+                    and (handle.name or ident) == preferred[i]:
+                # data-gravity hit: the task landed where its bytes live
+                metrics.inc("sched_locality_hits_total")
+            _register(fut, i, ident, handle.name or ident, False)
+
+        def _maybe_speculate(now: float) -> Optional[float]:
+            """Submit backups for straggling attempts; return seconds until
+            the next attempt becomes eligible (None = nothing to watch).
+            Fairness-gated like any dispatch: a backup is extra load, and
+            duplicating work while a contending tenant is under-served
+            would amplify the overload speculation is meant to dodge."""
+            if not spec_on or done_cnt < spec_gate or done_cnt >= n \
+                    or not durations or not self._fair_ok(tenant):
+                return None
+            med = sorted(durations)[len(durations) // 2]
+            threshold = max(spec_mult * med, spec_min_s)
+            next_due = None
+            for at in list(pending.values()):
+                i = at.i
+                if at.backup or results[i] is not None or i in speculated \
+                        or blobs[i] is None:
+                    continue
+                age = now - at.started
+                if age < threshold:
+                    due = threshold - age
+                    next_due = due if next_due is None else min(next_due, due)
+                    continue
+                handle, ident = _choose(i, exclude=at.ident, probe=False)
+                if handle is None:
+                    continue  # no DISTINCT live executor below cap right now
+                try:
+                    bfut = handle.submit("run_task", blobs[i])
+                except (ConnectionLost, OSError):
+                    _mark_down(ident, handle.name or ident)
+                    continue
+                speculated.add(i)
+                _register(bfut, i, ident, handle.name or ident, True)
+                with profiler.trace("speculate:submit", "etl",
+                                    task_id=tasks[i].task_id,
+                                    to=handle.name or ident,
+                                    after_s=round(age, 3)):
+                    pass
+                logger.info("speculative backup of task %s submitted to %s "
+                            "after %.2fs (median %.2fs)", tasks[i].task_id,
+                            handle.name or ident, age, med)
+            return next_due
+
+        def _may_dispatch() -> bool:
+            return _any_capacity() and self._fair_ok(tenant)
+
+        # queued-demand signal for the autoscaler: outstanding tasks of this
+        # call, decremented as each is decided, reconciled in the finally.
+        # Registered BEFORE admission so a parked action's demand is what
+        # the autoscaler grows for.
+        self._register_tenant(tenant, tenant_weight)
+        self._demand_delta(n, tenant)
+        demand_left = n
+        try:
+            self._admit(tenant, n)
+            while next_idx < n and _may_dispatch():
+                _submit(next_idx)
+                next_idx += 1
+
+            while done_cnt < n:
+                now = time.monotonic()
+                while retry_q and retry_q[0][0] <= now and _may_dispatch():
+                    _, i = heapq.heappop(retry_q)
+                    if results[i] is None:
+                        _submit(i)  # a backup may have won while it waited
+                spec_due = _maybe_speculate(time.monotonic())
+                if not pending:
+                    if retry_q:
+                        delay = max(0.0, min(
+                            retry_q[0][0] - time.monotonic(),
+                            _RETRY_BACKOFF_CAP_S))
+                        if delay <= 0 and not _may_dispatch():
+                            # a due retry with no slot (a full pool, or the
+                            # fair-share gate): yield instead of spinning
+                            delay = 0.05
+                        time.sleep(delay)
+                        continue
+                    if next_idx < n:
+                        if self._fair_ok(tenant):
+                            _submit(next_idx)
+                            next_idx += 1
+                        else:
+                            # fairness-parked with nothing in flight: wait
+                            # for the contending tenant's share to move
+                            time.sleep(0.05)
+                        continue
+                    break
+                # a due retry only shortens the wait when a slot is free to
+                # take it — otherwise timeout=0 would busy-spin against a
+                # full pool (or the fair-share gate) until some in-flight
+                # task completes; a pending speculation deadline shortens
+                # it likewise
+                timeout = max(0.0, retry_q[0][0] - time.monotonic()) \
+                    if retry_q and _may_dispatch() else None
+                if spec_due is not None:
+                    timeout = spec_due if timeout is None \
+                        else min(timeout, spec_due)
+                if timeout is None and (next_idx < n or retry_q):
+                    # work is queued: wake on a bounded poll so a capacity
+                    # change the futures cannot signal — an executor the
+                    # autoscaler just admitted, or a down TTL expiring —
+                    # is dispatched to promptly, not after the next
+                    # (possibly minutes-long) in-flight completion
+                    timeout = 0.25
+                done, _ = wait(list(pending.keys()), timeout=timeout,
+                               return_when=FIRST_COMPLETED)
+                for fut in done:
+                    at = pending.pop(fut)
+                    i = at.i
+                    inflight[at.ident] = inflight.get(at.ident, 1) - 1
+                    _pool_busy(at.ident, -1)
+                    copies[i] -= 1
+                    err = fut.exception()
+                    if err is None:
+                        # the executor answered: whatever marked it down is
+                        # over — re-admit it to placement at once
+                        self._mark_up(at.ident, at.name)
+                    if results[i] is not None:
+                        # a duplicate of an already-decided task: the
+                        # speculation loser — drain it, free its outputs
+                        if err is None:
+                            self._free_loser_result(fut, results[i])
+                        elif isinstance(err, ConnectionLost):
+                            _mark_down(at.ident, at.name)
+                        continue
+                    if err is None:
+                        r = fut.result()
+                        results[i] = r
+                        done_cnt += 1
+                        demand_left -= 1
+                        self._demand_delta(-1, tenant)
+                        durations.append(time.monotonic() - at.started)
+                        if on_result is not None:
+                            try:
+                                on_result(i, r)
+                            except Exception:
+                                logger.warning(
+                                    "task-result callback failed for %s",
+                                    tasks[i].task_id, exc_info=True)
+                        if i in speculated:
+                            r["_speculated"] = 1
+                            if at.backup:
+                                spec_won += 1
+                                r["_speculation_won"] = 1
+                                with profiler.trace(
+                                        "speculate:win", "etl",
+                                        task_id=tasks[i].task_id,
+                                        on=at.name):
+                                    pass
+                                logger.info(
+                                    "speculative backup of task %s won on "
+                                    "%s", tasks[i].task_id, at.name)
+                        continue
+                    if isinstance(err, ConnectionLost) and at.ident:
+                        # the executor died mid-task: steer the resubmit (and
+                        # every sibling) away from it while it restarts
+                        _mark_down(at.ident, at.name)
+                    if isinstance(err, RemoteError) \
+                            and err.exc_type == "ObjectLostError":
+                        lost = _lost_ids_of(err)
+                        raise ObjectsLostError(
+                            f"task {tasks[i].task_id} read lost store "
+                            f"objects {lost}: {err.message}", lost) from err
+                    if (isinstance(err, RemoteError)
+                            and err.exc_type in _NO_RETRY_EXC_TYPES):
+                        raise StageError(
+                            f"task {tasks[i].task_id} failed: {err}") from err
+                    attempts[i] += 1
+                    if copies[i] > 0:
+                        # a sibling copy of this task is still in flight —
+                        # it IS the retry; queuing another would triple-run
+                        logger.warning(
+                            "task %s attempt failed on %s; its speculative "
+                            "sibling is still running", tasks[i].task_id,
+                            at.name)
+                        continue
+                    if attempts[i] > self.max_task_retries:
+                        raise StageError(
+                            f"task {tasks[i].task_id} failed after "
+                            f"{attempts[i]} attempts: {err}") from err
+                    delay = _backoff_delay(attempts[i], rng)
+                    logger.warning(
+                        "task %s failed on %s (attempt %d, retry in %.2fs): %s",
+                        tasks[i].task_id, at.name, attempts[i], delay,
+                        str(err).splitlines()[0] if str(err) else err)
+                    heapq.heappush(retry_q, (time.monotonic() + delay, i))
+                while next_idx < n and _may_dispatch():
+                    _submit(next_idx)
+                    next_idx += 1
+        except ObjectsLostError as e:
+            # keep completed results: the engine reuses them after lineage
+            # recovery (their outputs are its responsibility from here on).
+            # Sibling consumers failing on OTHER lost blobs surface during
+            # the drain — harvesting their ids lets one recovery round
+            # regenerate everything a dead host took, not one blob per round.
+            more = self._drain_merge(pending, results, retry_q)
+            e.lost_ids = list(dict.fromkeys(e.lost_ids + more))
+            e.partial = list(results)
+            raise
+        except Exception:
+            # ANY stage failure (StageError or an unexpected driver-side
+            # error, e.g. an injected rpc fault) runs the abort contract:
+            # cancel queued retries, drain in-flight tasks, free outputs
+            self._abort_stage(pending, results, retry_q)
+            raise
+        else:
+            # every task is decided; losing duplicates may still be running —
+            # do NOT wait for them (that would hand the straggler back its
+            # hostage). Whenever each one lands, its outputs are freed and a
+            # late cache-put dropped through the loser path.
+            for fut, at in list(pending.items()):
+                winner = results[at.i]
+                fut.add_done_callback(
+                    lambda f, w=winner: self._free_loser_result(f, w))
+            pending.clear()
+            if speculated:
+                metrics.inc("sched_speculated_total", len(speculated))
+            if spec_won:
+                metrics.inc("sched_speculation_won_total", spec_won)
+            if sched_stats is not None:
+                sched_stats["speculated"] = \
+                    sched_stats.get("speculated", 0) + len(speculated)
+                sched_stats["speculation_won"] = \
+                    sched_stats.get("speculation_won", 0) + spec_won
+                peb = sched_stats.setdefault("per_executor_busy", {})
+                for name, peak in busy_peak.items():
+                    peb[name] = max(peb.get(name, 0), peak)
+            return results  # type: ignore[return-value]
+        finally:
+            # reconcile the pool-wide signals whatever path exits: attempts
+            # still counted (losers left running, drain-abandoned
+            # stragglers) stop counting as busy, and this call's undecided
+            # demand is withdrawn — a failed stage must read as idle, not
+            # as a queue the autoscaler keeps growing for. The per-tenant
+            # twins reconcile through the same two calls, so no exit path
+            # (abort, speculation losers, mid-stage drain, admission
+            # rejection) can leak phantom per-tenant load either.
+            self._demand_delta(-demand_left, tenant)
+            for ident, k in pool_acct.items():
+                if k:
+                    self._busy_delta(ident, -k, tenant)
+
+    def _drain_merge(self, pending: Dict[Any, "_Attempt"],
+                     results: List[Optional[Dict[str, Any]]],
+                     retry_q: List[Tuple[float, int]]) -> List[str]:
+        """Stage abort: cancel queued resubmits and drain in-flight tasks
+        KEEPING whatever completed — unlike :meth:`_abort_stage`, nothing is
+        freed, because the caller either resubmits around these results or
+        frees them itself when recovery gives up. Speculation duplicates of
+        tasks that already have a result are the exception: their outputs
+        reach no caller, so they free here (the winner's refs are what the
+        caller keeps). Returns lost object ids harvested from tasks that
+        failed lost-blob during the drain."""
+        retry_q.clear()
+        lost: List[str] = []
+        if not pending:
+            return lost
+        done, not_done = wait(list(pending.keys()), timeout=_DRAIN_TIMEOUT_S)
+        if not_done:
+            logger.warning(
+                "abandoning %d in-flight tasks still running %.0fs after a "
+                "stage abort; their outputs free on completion",
+                len(not_done), _DRAIN_TIMEOUT_S)
+            for fut in not_done:
+                # whenever the straggler finally lands, free what it wrote —
+                # its output is in neither results nor temps, so nothing
+                # else would ever release it
+                fut.add_done_callback(self._free_late_result)
+        for fut in done:
+            at = pending[fut]
+            err = fut.exception()
+            if err is None:
+                if results[at.i] is None:
+                    results[at.i] = fut.result()
+                else:
+                    self._free_loser_result(fut, results[at.i])
+            elif isinstance(err, RemoteError) \
+                    and err.exc_type == "ObjectLostError":
+                lost.extend(_lost_ids_of(err))
+        pending.clear()
+        return lost
+
+    def _free_late_result(self, fut) -> None:
+        """Completion callback for a task abandoned past the drain timeout:
+        free its store outputs, and drop a late-cached block from its
+        executor — the block landed AFTER the aborting action's prefix sweep
+        ran, and each persist() uses a fresh frame id, so no later sweep
+        would ever target it (it would pin executor RAM forever)."""
+        self._free_loser_result(fut, None)
+
+    def _free_loser_result(self, fut, winner: Optional[Dict[str, Any]]
+                           ) -> None:
+        """Free the outputs of a task attempt whose result reaches no caller
+        — a speculation loser, or a drain-abandoned straggler landing late.
+
+        The work runs on a throwaway daemon thread: this may fire as a
+        Future done-callback on the executor connection's RPC read loop, and
+        ``drop_blocks`` is a synchronous call over that same connection —
+        issued inline it would block the only thread able to deliver its own
+        response, wedging the connection for every later task on that
+        executor."""
+        threading.Thread(target=self._free_loser_result_sync,
+                         args=(fut, winner), daemon=True,
+                         name="rdt-free-late-result").start()
+
+    def _free_loser_result_sync(self, fut,
+                                winner: Optional[Dict[str, Any]]) -> None:
+        try:
+            err = fut.exception()
+            if err is not None:
+                return  # a failed loser wrote nothing that survived
+            res = fut.result()
+            _free_result_refs([res])
+            key = res.get("cache_key")
+            if key is None:
+                return
+            if winner is not None and winner.get("cache_key") == key \
+                    and winner.get("executor") == res.get("executor") \
+                    and winner.get("cache_stamp") == res.get("cache_stamp"):
+                # both copies ran on ONE executor and the duplicate
+                # cache-put was idempotent (BlockCache.put_once returned
+                # the first put's stamp): the loser's entry IS the block
+                # the winner's CachedScan references — leave it alone
+                return
+            h = self.by_name.get(res.get("executor"))
+            if h is not None:
+                # stamp-conditioned: a lineage-recovery resubmit of
+                # this same task may have re-cached the key on this
+                # executor; only OUR stale generation must go
+                h.drop_blocks([key], res.get("cache_stamp"))
+        except Exception:
+            pass  # store/executor may already be shut down; nothing to salvage
+
+    def _abort_stage(self, pending: Dict[Any, "_Attempt"],
+                     results: List[Optional[Dict[str, Any]]],
+                     retry_q: List[Tuple[float, int]]) -> None:
+        """The stage is failing: cancel queued resubmits, wait out tasks that
+        are still executing on the pool (there is no remote cancel — draining
+        is what keeps them from writing into the store after the driver has
+        given up), and free every output the caller will never receive."""
+        metrics.inc("stage_aborts_total")
+        metrics.record_event("stage_abort",
+                             inflight=len(pending),
+                             completed=sum(1 for r in results
+                                           if r is not None))
+        self._drain_merge(pending, results, retry_q)
+        _free_result_refs(results)
+
+
+class Engine:
+    """Thread-safe: shuffle intermediates are tracked in a per-action list
+    threaded through compilation (two concurrent actions on one session must
+    not cross-free each other's intermediates — the reference's Spark driver
+    supports concurrent actions).
+
+    ``tenant``/``tenant_weight`` tag every stage this engine dispatches for
+    the pool's weighted fair sharing (doc/etl.md "Fair sharing and
+    admission"). The tenant id is session-scoped by default (the owning
+    master's name); a second Engine over the SAME ExecutorPool with a
+    different tenant is how two user programs share one executor fleet.
+    ``tenant_weight=None`` re-reads ``RDT_POOL_TENANT_WEIGHT`` per action."""
+
+    def __init__(self, pool: ExecutorPool, shuffle_partitions: int = 8,
+                 owner: Optional[str] = None, tenant: Optional[str] = None,
+                 tenant_weight: Optional[float] = None):
+        self.pool = pool
+        self.shuffle_partitions = shuffle_partitions
+        self.owner = owner
+        self.tenant = tenant or owner or _DEFAULT_TENANT
+        self.tenant_weight = tenant_weight
+        self._report_lock = threading.Lock()
+        # bounded per-engine shuffle-stage ledger (one entry per wide-op
+        # stage); benchmarks and tests read it through shuffle_stage_report()
+        # guarded-by: _report_lock
+        self._stage_reports: "collections.deque[Dict[str, Any]]" = \
+            collections.deque(maxlen=256)
+        self._retry_rng = random.Random()  # jitter for recovery resubmits
+        # last measured-bytes figure pushed to the store's budget plane
+        # (derive_store_budgets skips the RPC when unchanged)
+        self._last_budget_measured: Optional[int] = None
+
+    # ---- shuffle accounting -------------------------------------------------
+    def _record_stage(self, label: str, results: Sequence[Dict[str, Any]],
+                      num_buckets: int,
+                      temps: Optional[List[ObjectRef]] = None,
+                      sched_stats: Optional[Dict[str, Any]] = None,
+                      pipelined: bool = False) -> None:
+        """Aggregate map-task shuffle counters into one stage entry and emit
+        a driver-side trace span carrying the totals as args."""
+        rows = sum(int(r.get("num_rows", 0)) for r in results)
+        nbytes = sum(int(r.get("shuffle_bytes", 0)) for r in results)
+        rows_in = sum(int(r.get("shuffle_rows_in", r.get("num_rows", 0)))
+                      for r in results)
+        bytes_in = sum(int(r.get("shuffle_bytes_in", 0)) for r in results)
+        entry = {"stage": label, "maps": len(results),
+                 "buckets": num_buckets,
+                 # which tenant's action ran this stage (weighted fair
+                 # sharing across concurrent engines on one pool)
+                 "tenant": self.tenant,
+                 "rows_in": rows_in, "bytes_in": bytes_in,
+                 "rows_shuffled": rows, "bytes_shuffled": nbytes,
+                 # store control-plane traffic: metadata (seal/lookup) and
+                 # payload-fetch RPCs issued by this stage's map tasks;
+                 # reduce-side reads are attributed here later via
+                 # Task.consumes_stage (_attribute_consumer_rpcs)
+                 "meta_rpcs": sum(int(r.get("meta_rpcs", 0))
+                                  for r in results),
+                 "fetch_rpcs": sum(int(r.get("fetch_rpcs", 0))
+                                   for r in results),
+                 "consolidated": any(r.get("consolidated_ref") is not None
+                                     for r in results),
+                 # straggler-scheduler accounting: tasks that got a
+                 # speculative backup / whose backup won (driver-side
+                 # annotations on the winning results — reduce-task
+                 # speculation folds in later via Task.consumes_stage), and
+                 # the per-executor peak in-flight depth of the MAP stage
+                 "speculated": sum(int(r.get("_speculated", 0))
+                                   for r in results),
+                 "speculation_won": sum(int(r.get("_speculation_won", 0))
+                                        for r in results),
+                 "per_executor_busy": dict(
+                     (sched_stats or {}).get("per_executor_busy") or {}),
+                 # adaptive-execution accounting: joins converted to
+                 # broadcast, skewed buckets split, and buckets fused away
+                 # by coalescing (all 0 when AQE is off or no rule fired)
+                 "aqe_broadcast": 0, "aqe_split": 0, "aqe_coalesced": 0,
+                 # pipelined-shuffle accounting: was this stage's reduce
+                 # side dispatched concurrently with the maps; how long
+                 # reducers spent fetching/decoding BEFORE the last map
+                 # sealed (the measured overlap); and how soon after the
+                 # map stage began the first reduce-side fetch started
+                 # (reduce-side numbers fold in via Task.consumes_stage)
+                 "pipelined": pipelined, "overlap_s": 0.0,
+                 "first_reduce_fetch_s": None,
+                 # lineage-recovery accounting: blobs regenerated for this
+                 # stage's intermediates, and how many recovery events ran
+                 "regenerated": 0, "recovered": 0}
+        with self._report_lock:
+            self._stage_reports.append(entry)
+            if isinstance(temps, _ActionTemps):
+                temps.stage_entries[label] = entry
+                # bind the entry to the producers just ledgered for these
+                # results, so recovery attributes to THIS stage even after
+                # a later same-label stage overwrites stage_entries[label]
+                for r in results:
+                    for ref in _result_refs(r):
+                        prod = temps.lineage.get(ref.id)
+                        if prod is not None and prod.label == label \
+                                and prod.entry is None:
+                            prod.entry = entry
+        with profiler.trace(f"shuffle:{label}", "etl", maps=len(results),
+                            buckets=num_buckets, rows_in=rows_in,
+                            bytes_in=bytes_in, rows_shuffled=rows,
+                            bytes_shuffled=nbytes):
+            pass
+        return entry
+
+    def shuffle_stage_report(self) -> List[Dict[str, Any]]:
+        """Per-stage shuffle ledger: one dict per wide-op stage executed by
+        this engine ({stage, tenant, maps, buckets, rows_in, bytes_in,
+        rows_shuffled, bytes_shuffled, meta_rpcs, fetch_rpcs, consolidated,
+        regenerated, recovered}); ``tenant`` is the fair-share tenant the
+        stage was dispatched under (doc/etl.md "Fair sharing and
+        admission"); in = entering the shuffle stage (before map-side partial
+        aggregation), shuffled = what crossed the object store.
+        ``meta_rpcs``/``fetch_rpcs`` count store control-plane calls (table
+        ops / payload fetches) issued by the stage's map tasks plus its
+        reduce tasks' reads — an upper bound when tasks overlap on one
+        executor (they share process counters); the exact session totals are
+        ``ObjectStoreServer.op_counts()``. ``consolidated`` marks the
+        single-blob map output format. ``speculated``/``speculation_won``
+        count tasks that got a speculative backup and tasks whose backup
+        finished first (map tasks plus the stage's reduce-side consumers;
+        0/0 on a straggler-free run); ``per_executor_busy`` maps executor
+        name → the peak in-flight task depth the least-loaded dispatcher
+        drove it to during the map stage. ``aqe_broadcast``/``aqe_split``/
+        ``aqe_coalesced`` count adaptive re-planning events on the stage:
+        joins converted to broadcast-hash (the ``join-broadcast`` entry is
+        the pre-shuffle form; a post-map conversion marks the map stage it
+        measured), skewed buckets split across extra reduce tasks, and
+        reduce buckets fused away by tiny-partition coalescing (all 0 with
+        ``RDT_ETL_AQE=0`` or when no rule fired). ``pipelined`` marks a
+        stage whose reduce side was dispatched concurrently with its maps
+        (push-based shuffle, ``RDT_SHUFFLE_PIPELINE``); ``overlap_s`` is the
+        total time its reducers spent fetching/decoding BEFORE the last map
+        sealed and ``first_reduce_fetch_s`` how soon after the map stage
+        began the first reduce-side fetch started (False/0.0/None on a
+        barrier-mode stage; first_reduce_fetch_s compares the driver's
+        clock against the executor's ``time.time()``, so on a MULTI-host
+        pool it is subject to cross-machine clock skew — overlap_s is
+        executor-local and skew-free). ``regenerated`` counts intermediate blobs rebuilt
+        through lineage recovery after a store loss, ``recovered`` the
+        recovery events that rebuilt them (0/0 on a fault-free run)."""
+        with self._report_lock:
+            return [dict(e) for e in self._stage_reports]
+
+    def _note_recovery(self, prod: _Producer, num_blobs: int,
+                       temps: "_ActionTemps") -> None:
+        """Attribute a lineage-recovery event to the entry of the stage that
+        produced the lost blobs — the producer's own binding first (distinct
+        for two same-label stages in one action), then the action's entry for
+        that label; concurrent actions may interleave same-label entries in
+        the engine deque, so "most recent with this label" would be the wrong
+        stage exactly when two actions shuffle at once. A label the action
+        never recorded (e.g. a ``materialize``) gets a bare entry with zero
+        shuffle counters, registered so repeat recoveries accumulate."""
+        with self._report_lock:
+            entry = prod.entry
+            if entry is None:
+                entry = temps.stage_entries.get(prod.label)
+            if entry is None:
+                entry = {"stage": prod.label, "maps": 0, "buckets": 0,
+                         "tenant": self.tenant,
+                         "rows_in": 0, "bytes_in": 0, "rows_shuffled": 0,
+                         "bytes_shuffled": 0, "meta_rpcs": 0,
+                         "fetch_rpcs": 0, "consolidated": False,
+                         "speculated": 0, "speculation_won": 0,
+                         "per_executor_busy": {},
+                         "aqe_broadcast": 0, "aqe_split": 0,
+                         "aqe_coalesced": 0,
+                         "pipelined": False, "overlap_s": 0.0,
+                         "first_reduce_fetch_s": None,
+                         "regenerated": 0, "recovered": 0}
+                self._stage_reports.append(entry)
+                temps.stage_entries[prod.label] = entry
+            prod.entry = entry
+            entry["regenerated"] += num_blobs
+            entry["recovered"] += 1
+
+    def reset_shuffle_stage_report(self) -> None:
+        with self._report_lock:
+            self._stage_reports.clear()
+
+    # ---- AQE-fed store policy plane ------------------------------------------
+    def measured_stage_bytes(self, window: int = 32) -> int:
+        """Peak measured working set over the last ``window`` ledger
+        entries: per stage, the bytes that entered it plus the bytes it
+        moved through the store (bytes_in + bytes_shuffled). This is the
+        AQE plane's measured-bytes signal — what store budget derivation
+        and predictive autoscaling size from (0 until a stage has run)."""
+        with self._report_lock:
+            entries = list(self._stage_reports)[-max(1, int(window)):]
+        return max((int(e.get("bytes_in") or 0)
+                    + int(e.get("bytes_shuffled") or 0)
+                    for e in entries), default=0)
+
+    def derive_store_budgets(self) -> Optional[Dict[str, int]]:
+        """Feed the stage ledger's measured bytes to the store's budget
+        plane (``ObjectStoreServer.derive_budgets``): per-host budgets
+        re-derive from what stages actually moved instead of only the
+        static ``ENV_STORE_*`` numbers. Gated by ``RDT_STORE_AQE_BUDGET``;
+        skips the RPC when the measured figure has not changed; never
+        raises (a failed derivation leaves the static budgets standing)."""
+        if not bool(knobs.get("RDT_STORE_AQE_BUDGET")):
+            return None
+        measured = self.measured_stage_bytes()
+        if measured <= 0 or measured == self._last_budget_measured:
+            return None
+        try:
+            out = get_client().derive_budgets(measured)
+        except Exception:
+            logger.warning("store budget derivation failed; static budgets "
+                           "stand", exc_info=True)
+            return None
+        self._last_budget_measured = measured
+        return out
+
+    def _push_stage_hints(self, tasks: Sequence[T.Task]) -> List[ObjectRef]:
+        """Pin this stage's input blobs in the store for its duration
+        (stage-aware eviction, doc/etl.md "Store budgets"); returns the
+        refs to unpin when the stage completes. Advisory and best-effort:
+        a store that cannot take hints changes nothing. Deliberately NOT
+        a metadata RPC (the data-plane counters stay comparable)."""
+        if not bool(knobs.get("RDT_STORE_STAGE_HINTS")):
+            return []
+        seen: Dict[str, ObjectRef] = {}
+        for t in tasks:
+            for oid in T.task_input_ids(t):
+                if oid not in seen:
+                    seen[oid] = ObjectRef(id=oid)
+        if not seen:
+            return []
+        refs = list(seen.values())
+        try:
+            get_client().eviction_hints(pin=refs)
+        except Exception:
+            return []
+        return refs
+
+    def _drop_stage_hints(self, refs: List[ObjectRef]) -> None:
+        """The stage completed (or aborted): release its pins — at
+        refcount zero the store demotes the blobs to evict-first (their
+        consumer stage is done with them; LRU breaks ties only)."""
+        if not refs:
+            return
+        try:
+            get_client().eviction_hints(unpin=refs)
+        except Exception:
+            pass
+
+    # ---- elastic pool: graceful drain ---------------------------------------
+    def retire_executor(self, name: str, rehome=None, reap=None,
+                        timeout: Optional[float] = None) -> Dict[str, Any]:
+        """Gracefully drain one executor out of the pool (doc/etl.md
+        "Elastic executor pool"; doc/fault_tolerance.md "Scale events").
+
+        Protocol: (1) the scheduler stops routing new dispatches to it
+        (:meth:`ExecutorPool.begin_drain`); (2) its in-flight tasks finish —
+        or, if it dies mid-drain, fail and re-queue onto survivors through
+        the ordinary retry/recovery machinery — bounded by
+        ``RDT_DRAIN_TIMEOUT_S``; (3) its executor-RAM state is either
+        re-homed (``RDT_DRAIN_REHOME=1``: the caller's ``rehome(name)`` hook
+        rebuilds cached blocks on survivors from their lineage recipes) or
+        deliberately abandoned to on-read lineage recovery; (4) it leaves
+        every membership snapshot; (5) the caller's ``reap(handle)`` hook
+        kills the process (through the node agent on remote nodes). Store
+        blobs are machine-homed, not executor-homed, so the drain never
+        moves store payloads — a mid-stream pipelined shuffle keeps its
+        sealed generations, and a crash mid-drain re-seals via recovery.
+
+        The ``pool.drain`` fault site fires here (key: executor name);
+        action ``crash`` kills the RETIRING executor abruptly mid-drain —
+        the chaos model for scale-down racing live work."""
+        handle = self.pool.by_name.get(name)
+        if handle is None:
+            raise KeyError(f"unknown executor {name!r}")
+        if timeout is None:
+            timeout = float(knobs.get("RDT_DRAIN_TIMEOUT_S"))
+        if not self.pool.begin_drain(name):
+            raise ValueError(f"executor {name!r} is already draining")
+        metrics.inc("pool_drains_total")
+        metrics.record_event("executor_drain", executor=name)
+        logger.info("draining executor %s out of the pool", name)
+        try:
+            rule = faults.check("pool.drain", key=name)
+            if rule is not None:
+                if rule.action == "crash":
+                    # the RETIRING executor dies mid-drain (scale-down
+                    # racing recovery/streams) — never this driver process.
+                    # submit, not call: the process exits before replying
+                    try:
+                        handle.submit("crash")
+                    except Exception:
+                        pass
+                else:
+                    faults.apply(rule, "pool.drain")
+            quiesced = self.pool.wait_idle(name, timeout)
+            if not quiesced:
+                logger.warning(
+                    "executor %s still busy after the %.0fs drain window; "
+                    "abandoning its in-flight tasks to retry/recovery",
+                    name, timeout)
+            rehomed = 0
+            if rehome is not None and bool(knobs.get("RDT_DRAIN_REHOME")):
+                try:
+                    rehomed = int(rehome(name) or 0)
+                except Exception:
+                    # abandonment is always safe: a cached block that never
+                    # re-homed rebuilds from its recipe on the next read
+                    logger.warning("drain re-home for %s failed; its blocks "
+                                   "recover through lineage on read", name,
+                                   exc_info=True)
+        except BaseException:
+            # a failed retirement must not leave the executor unreachable
+            # by the scheduler forever
+            self.pool.cancel_drain(name)
+            raise
+        self.pool.remove_executor(name)
+        if reap is not None:
+            try:
+                reap(handle)
+            except Exception:
+                logger.warning("reap of drained executor %s failed", name,
+                               exc_info=True)
+        return {"executor": name, "quiesced": quiesced, "rehomed": rehomed,
+                "pool_size": len(self.pool.executors)}
+
+    @staticmethod
+    def _optimized(node: P.PlanNode) -> P.PlanNode:
+        """Plan rewrite applied at every action entry point; the naive
+        compile-verbatim path survives under RDT_ETL_OPTIMIZER=0."""
+        return O.optimize(node)
+
+    def _num_buckets(self) -> int:
+        """Reduce-side bucket count for wide operators: capped by the
+        configured shuffle parallelism, scaled to the executor pool."""
+        return min(self.shuffle_partitions, max(1, len(self.pool.executors) * 2))
+
+    @staticmethod
+    def _gather_buckets(results: Sequence[Dict[str, Any]], num_buckets: int,
+                        temps: List[ObjectRef]) -> List[List[Any]]:
+        """Transpose map-task shuffle outputs (map × bucket → bucket × map),
+        registering every intermediate ref in ``temps``. A consolidated map
+        result contributes ``(ref, offset, size)`` byte-range triples into
+        every bucket list (but only ONE temp ref — the blob); legacy results
+        contribute whole-blob :class:`ObjectRef`\\ s, so a stage can mix
+        formats and :meth:`_bucket_source` still builds a working reader."""
+        buckets: List[List[Any]] = [[] for _ in range(num_buckets)]
+        for r in results:
+            cref = r.get("consolidated_ref")
+            if cref is not None:
+                temps.append(cref)
+                for b, (off, size, _rows) in enumerate(r["bucket_index"]):
+                    buckets[b].append((cref, int(off), int(size)))
+            else:
+                for b, ref in enumerate(r["bucket_refs"]):
+                    buckets[b].append(ref)
+                    temps.append(ref)
+        return buckets
+
+    @staticmethod
+    def _bucket_source(bucket: Sequence[Any],
+                       schema: Optional[bytes]) -> T.Step:
+        """Reader step for one reduce bucket: whole-blob refs decode through
+        :class:`tasks.ArrowRefSource` as always; byte-range triples (the
+        consolidated format) through :class:`tasks.RangeRefSource` — with
+        legacy refs normalized to full-blob ranges when a stage mixes both.
+        A pipelined stage's bucket is a :class:`_StreamBucket` placeholder
+        and reads through :class:`tasks.StreamingRangeSource` instead."""
+        for x in bucket:
+            if isinstance(x, _StreamBucket):
+                return x.source(schema)
+        if any(isinstance(x, tuple) for x in bucket):
+            return T.RangeRefSource(Engine._as_parts(bucket), schema=schema)
+        return T.ArrowRefSource(list(bucket), schema=schema)
+
+    def _bucket_task(self, bucket: Sequence[Any], schema: Optional[bytes],
+                     steps: Optional[List[T.Step]], label: str) -> T.Task:
+        """A reduce task over one bucket, tagged with the stage it consumes
+        so its store-RPC counters land on that stage's ledger entry — and,
+        when that stage is pipelined, with its UNIQUE stream key (labels
+        repeat within one action, stream keys never do)."""
+        task = self._task(self._bucket_source(bucket, schema), steps)
+        task.consumes_stage = label
+        for x in bucket:
+            if isinstance(x, _StreamBucket):
+                task.consumes_stream = x.rec.stage_key
+                break
+        return task
+
+    # ---- adaptive query execution (AQE) -------------------------------------
+    # The three runtime re-planning rules (doc/etl.md "Adaptive execution"):
+    # (a) broadcast-hash join — a join side whose MEASURED bytes fit under
+    #     RDT_AQE_BROADCAST_MAX skips its shuffle and replicates instead
+    #     (pre-shuffle when a static estimate flags it, post-map when the
+    #     left map stage's byte counters reveal it);
+    # (b) skew splitting — a reduce bucket exceeding RDT_AQE_SKEW_FACTOR ×
+    #     the median bucket splits its byte-ranges across k reduce tasks
+    #     (free at range granularity with the consolidated per-bucket index);
+    # (c) tiny-partition coalescing — adjacent buckets fuse into one reduce
+    #     task until their combined bytes reach RDT_AQE_COALESCE_MIN.
+    # Rules (b)/(c) need the consolidated size index (RDT_SHUFFLE_CONSOLIDATE
+    # =0 simply never fires them); every re-planned task flows through
+    # _run_stage like any other, so lineage recovery, speculation, and the
+    # abort/no-orphan contract compose unchanged.
+
+    @staticmethod
+    def _as_parts(bucket: Sequence[Any]) -> List[Tuple[ObjectRef, int, int]]:
+        """Normalize a bucket's items to (ref, offset, size) byte-range
+        triples (legacy whole-blob refs become full-blob ranges)."""
+        return [x if isinstance(x, tuple) else (x, 0, int(x.size or 0))
+                for x in bucket]
+
+    @staticmethod
+    def _bucket_bytes(buckets: Sequence[Sequence[Any]]) -> Optional[List[int]]:
+        """Measured per-bucket byte totals from the consolidated index, or
+        None when any bucket lacks it (legacy blobs — rules (b)/(c) then
+        don't fire; a whole-blob ref's .size IS its bucket's bytes only on
+        the consolidated-off path where the index is absent anyway)."""
+        if not all(isinstance(x, tuple) for b in buckets for x in b):
+            return None
+        return [sum(int(size) for _, _, size in b) for b in buckets]
+
+    def _note_aqe(self, temps, label: str, rule: str, n: int,
+                  **trace_args) -> None:
+        """Credit a fired AQE rule to the action's stage entry and emit the
+        ``aqe:replan`` trace span."""
+        if isinstance(temps, _ActionTemps):
+            with self._report_lock:
+                entry = temps.stage_entries.get(label)
+                if entry is not None:
+                    entry[rule] = entry.get(rule, 0) + n
+        with profiler.trace("aqe:replan", "etl", stage=label, rule=rule,
+                            n=n, **trace_args):
+            pass
+
+    def _aqe_coalesce(self, buckets: List[List[Any]], label: str, temps,
+                      paired: Optional[List[List[Any]]] = None):
+        """Rule (c): fuse runs of adjacent buckets until each fused group's
+        measured bytes reach RDT_AQE_COALESCE_MIN — one multi-range read per
+        group instead of one dispatch per kilobyte-sized bucket. Safe for
+        every hash-bucketed op (a key's rows stay together under bucket
+        union); ``paired`` fuses a join's right buckets in lockstep with the
+        left so each reduce task still sees matching key ranges. Returns
+        (buckets, paired)."""
+        cmin = O.aqe_coalesce_min()
+        if not O.aqe_enabled() or cmin <= 0 or len(buckets) < 2:
+            return buckets, paired
+        sizes = self._bucket_bytes(buckets)
+        psizes = self._bucket_bytes(paired) if paired is not None else \
+            [0] * len(buckets)
+        if sizes is None or psizes is None:
+            return buckets, paired  # no size index (legacy blobs)
+        fused: List[List[Any]] = []
+        pfused: List[List[Any]] = []
+        cur_bytes = 0
+        for b, bucket in enumerate(buckets):
+            size = sizes[b] + psizes[b]
+            if fused and cur_bytes + size <= cmin:
+                fused[-1] = list(fused[-1]) + list(bucket)
+                if paired is not None:
+                    pfused[-1] = list(pfused[-1]) + list(paired[b])
+                cur_bytes += size
+            else:
+                fused.append(list(bucket))
+                if paired is not None:
+                    pfused.append(list(paired[b]))
+                cur_bytes = size
+        away = len(buckets) - len(fused)
+        if away > 0:
+            self._note_aqe(temps, label, "aqe_coalesced", away,
+                           buckets=len(buckets), fused=len(fused))
+        return fused, (pfused if paired is not None else None)
+
+    def _aqe_split_groups(self, buckets: List[List[Any]]
+                          ) -> Optional[List[List[List[Any]]]]:
+        """Rule (b) detector: per bucket, either ``[bucket]`` (no skew) or k
+        byte-balanced contiguous range groups when the bucket's measured
+        bytes exceed RDT_AQE_SKEW_FACTOR × the median bucket (and the
+        2×RDT_AQE_COALESCE_MIN floor — a bucket below the coalesce target
+        is never worth an extra stage). None when nothing splits."""
+        factor = O.aqe_skew_factor()
+        if not O.aqe_enabled() or factor <= 0 or len(buckets) < 2:
+            return None
+        sizes = self._bucket_bytes(buckets)
+        if sizes is None:
+            return None
+        # LOWER median: with an even count (notably 2 buckets after heavy
+        # coalescing), the upper median IS the hot bucket and skew could
+        # never exceed factor × itself
+        med = max(1, sorted(sizes)[(len(sizes) - 1) // 2])
+        floor = 2 * O.aqe_coalesce_min()
+        # split portions aim at median-bucket size (floored by the coalesce
+        # target — splitting below what coalescing would fuse is pure churn)
+        split_target = max(med, O.aqe_coalesce_min(), 1)
+        out: List[List[List[Any]]] = []
+        fired = False
+        for bucket, size in zip(buckets, sizes):
+            if size <= factor * med or size < floor or len(bucket) < 2:
+                out.append([list(bucket)])
+                continue
+            k = min(len(bucket), max(2, math.ceil(size / split_target)))
+            target = size / k
+            groups: List[List[Any]] = [[]]
+            acc = 0
+            for part in bucket:
+                psz = int(part[2]) if isinstance(part, tuple) else 0
+                if groups[-1] and acc + psz > target \
+                        and len(groups) < k:
+                    groups.append([])
+                    acc = 0
+                groups[-1].append(part)
+                acc += psz
+            if len(groups) < 2:
+                out.append([list(bucket)])
+                continue
+            fired = True
+            out.append(groups)
+        return out if fired else None
+
+    @staticmethod
+    def _free(temps: List[ObjectRef]) -> None:
+        if isinstance(temps, _ActionTemps):
+            # join pipelined map stages FIRST: their outputs register here
+            # as they seal, and freeing under still-running writers would
+            # orphan whatever lands after the sweep
+            temps.close_streams()
+        if temps:
+            try:
+                get_client().free(temps)
+            except Exception:
+                logger.warning("failed to free %d shuffle intermediates", len(temps))
+
+    # ---- lineage recovery ---------------------------------------------------
+    @staticmethod
+    def _record_lineage(temps: List[ObjectRef], tasks: Sequence[T.Task],
+                        results: Sequence[Dict[str, Any]], label: str,
+                        task_bytes: Optional[Sequence[bytes]] = None) -> None:
+        """Ledger every intermediate a stage just produced against its
+        serialized producer task: shuffle buckets in bucket order, RETURN_REF
+        blocks as singletons. The recipe (not the data) is what makes a lost
+        blob recoverable on any executor — SURVEY.md's lineage-based fault
+        tolerance, extended from ``cache()`` frames to every intermediate.
+        ``task_bytes`` reuses the dispatch payloads so recording adds no
+        second serialization pass."""
+        if not isinstance(temps, _ActionTemps):
+            return
+        for i, (task, r) in enumerate(zip(tasks, results)):
+            ids = [ref.id for ref in _result_refs(r)]
+            if not ids:
+                continue
+            blob = task_bytes[i] if task_bytes is not None \
+                else cloudpickle.dumps(task)
+            prod = _Producer(blob, ids, label)
+            for oid in ids:
+                temps.lineage[oid] = prod
+
+    def _run_stage(self, tasks: Sequence[T.Task],
+                   preferred: Optional[Sequence[Optional[str]]] = None,
+                   temps: Optional[List[ObjectRef]] = None,
+                   lineage_label: Optional[str] = None,
+                   sched_stats: Optional[Dict[str, Any]] = None,
+                   on_task_result: Optional[Any] = None,
+                   _depth: int = 0) -> List[Dict[str, Any]]:
+        """``pool.run_tasks`` with lineage recovery: on a lost-blob failure,
+        re-execute the producers of the lost intermediates (transitively,
+        bounded depth), re-home the regenerated blobs, patch the stage's
+        input refs, and resubmit — with exponential backoff + jitter between
+        rounds. ``RDT_LINEAGE_RECOVERY=0`` disables recovery (the loss then
+        surfaces as the ``StageError`` it always was).
+
+        ``lineage_label`` ledgers the stage's own outputs AFTER it succeeds —
+        recorded here, not by the caller, so the recipes carry any ref
+        patches recovery applied (a recipe referencing an already-dead input
+        id would force a pointless transitive round later).
+
+        ``on_task_result(i, task, task_bytes, result)`` fires once per task
+        index as its winning result lands (the pipelined shuffle's
+        seal-notification hook; ``task_bytes`` is the dispatch payload so an
+        incremental lineage ledger costs no extra serialization)."""
+        with profiler.trace("stage:run", "etl", tasks=len(tasks),
+                            label=lineage_label or "-", depth=_depth):
+            return self._run_stage_traced(tasks, preferred, temps,
+                                          lineage_label, sched_stats,
+                                          on_task_result, _depth)
+
+    def _run_stage_traced(self, tasks, preferred=None, temps=None,
+                          lineage_label=None, sched_stats=None,
+                          on_task_result=None, _depth=0):
+        tasks = list(tasks)
+        results: List[Optional[Dict[str, Any]]] = [None] * len(tasks)
+        rounds = _recovery_rounds() \
+            if _recovery_enabled() and isinstance(temps, _ActionTemps) else 0
+        attempt = 0
+        # one serialization per task, shared by dispatch AND the lineage
+        # ledger; a recovery round invalidates only the entries it patched
+        # (the blobs must match what actually ran / what a rerun would read)
+        blobs: Optional[List[Optional[bytes]]] = \
+            [None] * len(tasks) if lineage_label is not None else None
+        notified = [False] * len(tasks)
+        # stage-aware eviction: pin this stage's input blobs for its
+        # duration; the finally demotes them to evict-first (their
+        # consumer is done) whether the stage returns or aborts
+        hinted = self._push_stage_hints(tasks)
+
+        def _notify(i: int, r: Dict[str, Any]) -> None:
+            if on_task_result is None or notified[i]:
+                return
+            notified[i] = True
+            try:
+                on_task_result(i, tasks[i],
+                               blobs[i] if blobs is not None else None, r)
+            except Exception:
+                logger.warning("stage result hook failed for task %s",
+                               tasks[i].task_id, exc_info=True)
+
+        try:
+            while True:
+                todo = [i for i, r in enumerate(results) if r is None]
+                sub_pref = [preferred[i] for i in todo] \
+                    if preferred is not None else None
+                if blobs is not None:
+                    for i, t in enumerate(tasks):
+                        if blobs[i] is None:
+                            blobs[i] = cloudpickle.dumps(t)
+                cb = None
+                if on_task_result is not None:
+                    def cb(j, r, _todo=todo):
+                        _notify(_todo[j], r)
+                try:
+                    out = self.pool.run_tasks(
+                        [tasks[i] for i in todo], sub_pref,
+                        payloads=[blobs[i] for i in todo]
+                        if blobs is not None else None,
+                        sched_stats=sched_stats, on_result=cb,
+                        tenant=self.tenant,
+                        tenant_weight=self.tenant_weight)
+                    for i, r in zip(todo, out):
+                        results[i] = r
+                    if lineage_label is not None:
+                        self._record_lineage(temps, tasks, results,
+                                             lineage_label, task_bytes=blobs)
+                    self._attribute_consumer_rpcs(tasks, results, temps)
+                    return results
+                except ObjectsLostError as e:
+                    if e.partial is not None:
+                        # keep this round's completed work; only the
+                        # unfinished tasks resubmit after recovery
+                        for i, r in zip(todo, e.partial):
+                            if r is not None:
+                                results[i] = r
+                                _notify(i, r)
+                    if attempt >= rounds or not e.lost_ids:
+                        raise
+                    lost = self._expand_lost(e.lost_ids, tasks, results,
+                                             temps)
+                    mapping = self._regenerate(sorted(lost), temps, _depth)
+                    if mapping is None:
+                        raise
+                    patched = [T.patch_task_refs(t, mapping) for t in tasks]
+                    if blobs is not None:
+                        for i, (old, new) in enumerate(zip(tasks, patched)):
+                            if new is not old:
+                                blobs[i] = None
+                    tasks = patched
+                    delay = _backoff_delay(attempt + 1, self._retry_rng,
+                                           base=0.1)
+                    logger.warning(
+                        "resubmitting %d/%d stage tasks after lineage "
+                        "recovery of %d blobs (round %d, backoff %.2fs)",
+                        sum(1 for r in results if r is None), len(tasks),
+                        len(lost), attempt + 1, delay)
+                    time.sleep(delay)
+                    attempt += 1
+        except Exception:
+            # outputs completed in earlier rounds never reach the caller on a
+            # raise: free them (the pool already freed its own sub-round's)
+            _free_result_refs(results)
+            raise
+        finally:
+            self._drop_stage_hints(hinted)
+
+    def _attribute_consumer_rpcs(self, tasks: Sequence[T.Task],
+                                 results: Sequence[Optional[Dict[str, Any]]],
+                                 temps) -> None:
+        """Fold reduce-task store-RPC counters into the ledger entry of the
+        shuffle stage each task consumed (``Task.consumes_stage``). Tasks
+        that themselves end in a SHUFFLE write are skipped — their counters
+        already landed on the stage they PRODUCE via ``_record_stage`` (one
+        task, one entry; a join reduce reads both sides but is attributed to
+        the left label it was tagged with — its pipelined overlap stats
+        follow the same convention, so a pipelined join's right-stream
+        overlap folds into the join-left entry: per-stage splits are coarse
+        for joins, sums across entries exact)."""
+        if not isinstance(temps, _ActionTemps):
+            return
+        # a pipelined stage's ledger entry is recorded by ITS background
+        # thread when the map stage returns; reduce tasks can complete (and
+        # land here) a beat earlier — wait for the entry before attributing.
+        # Keyed on the UNIQUE stream key, never the label (labels repeat
+        # within one action — a.join(b).join(c) runs "join-left" twice and
+        # a label lookup would hand a cascaded stage its OWN rec, which this
+        # thread can never see done: self-deadlock until the timeout)
+        cur_thread = threading.current_thread()
+        for key in {getattr(t, "consumes_stream", None) for t in tasks}:
+            rec = temps.stream_by_key.get(key) if key else None
+            if rec is not None and rec.thread is not cur_thread:
+                rec.done.wait(timeout=300.0)
+        with self._report_lock:
+            for task, r in zip(tasks, results):
+                label = getattr(task, "consumes_stage", None)
+                if label is None or r is None:
+                    continue
+                # a pipelined stage's entry is bound to its rec — the label
+                # map would misroute stats when two same-label stages are
+                # live concurrently (a later _record_stage overwrites the
+                # shared stage_entries[label] slot)
+                rec = temps.stream_by_key.get(
+                    getattr(task, "consumes_stream", None) or "")
+                entry = rec.entry if rec is not None \
+                    and rec.entry is not None \
+                    else temps.stage_entries.get(label)
+                if entry is None:
+                    continue
+                # pipelined-shuffle overlap folds in regardless of the
+                # task's own output mode (a downstream SHUFFLE map reading
+                # a pipelined stage still overlapped THAT stage's tail)
+                ov = float(r.get("stream_overlap_s", 0) or 0)
+                if ov:
+                    entry["overlap_s"] = entry.get("overlap_s", 0.0) + ov
+                ts = r.get("stream_first_fetch_ts")
+                if ts is not None and rec is not None:
+                    rel = max(0.0, float(ts) - rec.start_ts)
+                    cur = entry.get("first_reduce_fetch_s")
+                    entry["first_reduce_fetch_s"] = \
+                        rel if cur is None else min(cur, rel)
+                if task.output == T.SHUFFLE:
+                    # RPC/speculation counters already landed on the stage
+                    # this task PRODUCES via _record_stage
+                    continue
+                entry["meta_rpcs"] += int(r.get("meta_rpcs", 0))
+                entry["fetch_rpcs"] += int(r.get("fetch_rpcs", 0))
+                # reduce-side speculation lands on the stage the task
+                # consumed, same attribution as its store RPCs
+                entry["speculated"] += int(r.get("_speculated", 0))
+                entry["speculation_won"] += \
+                    int(r.get("_speculation_won", 0))
+
+    @staticmethod
+    def _expand_lost(lost_ids: Sequence[str], tasks: Sequence[T.Task],
+                     results: Sequence[Optional[Dict[str, Any]]],
+                     temps: "_ActionTemps") -> set:
+        """Widen a consumer-reported loss to everything one locations() probe
+        says is equally gone, sharing the read path's loss criterion. A
+        consumer reports only the FIRST missing blob it read, so without
+        this a host death taking several producers' outputs recovers one
+        producer per round until the rounds budget burns. Two signals:
+        ledgered inputs of unfinished tasks absent from the store table
+        (freed or already purged), and — because a dead payload host's table
+        entries outlive it until purge_host runs — every ledgered candidate
+        homed on a host that still "lists" a blob whose read just failed.
+        Head-local losses stay blob-specific (a missing spill file says
+        nothing about its neighbors). Best-effort: on probe failure the
+        per-round discovery still converges, just more slowly."""
+        lost = set(lost_ids)
+        try:
+            cand = {cid: ObjectRef(id=cid)
+                    for i, r in enumerate(results) if r is None
+                    for cid in T.task_input_ids(tasks[i])
+                    if cid in temps.lineage}
+            if not cand:
+                return lost
+            probe = list(cand.values()) + [
+                ObjectRef(id=lid) for lid in lost if lid not in cand]
+            locs = get_client().locations(probe)
+            lost.update(c for c in cand if c not in locs)
+            dead_hosts = {locs[lid] for lid in lost_ids
+                          if lid in locs} - {HEAD_HOST}
+            if dead_hosts:
+                lost.update(c for c in cand if locs.get(c) in dead_hosts)
+        except Exception:
+            pass
+        return lost
+
+    def _regenerate(self, lost_ids: Sequence[str], temps: "_ActionTemps",
+                    depth: int) -> Optional[Dict[str, ObjectRef]]:
+        """Re-execute the producer task of every lost intermediate; return
+        old-id → fresh-ref patches for ALL the producers' outputs (reruns are
+        deterministic, so sibling buckets are identical — patching them too
+        costs nothing and spares bookkeeping). None = unrecoverable (no
+        lineage for a source blob, or the transitive depth budget burned)."""
+        if depth >= _recovery_depth():
+            logger.warning("lineage recovery depth %d exhausted", depth)
+            return None
+        groups: Dict[int, Tuple[_Producer, List[str]]] = {}
+        for oid in set(lost_ids):
+            prod = temps.lineage.get(oid)
+            if prod is None:
+                logger.warning("no lineage recorded for lost object %s; "
+                               "cannot recover", oid)
+                return None
+            groups.setdefault(id(prod), (prod, []))[1].append(oid)
+        # one batched rerun per producer LABEL (one loss usually takes a
+        # whole stage's worth of producers — _expand_lost harvests them all,
+        # and serial single-task stages would leave the pool idle for
+        # N × single-task latency instead of ceil(N / pool))
+        by_label: Dict[str, List[Tuple[_Producer, List[str]]]] = {}
+        for prod, ids in groups.values():
+            by_label.setdefault(prod.label, []).append((prod, ids))
+        mapping: Dict[str, ObjectRef] = {}
+        for label, plist in by_label.items():
+            rerun = [cloudpickle.loads(p.task_bytes) for p, _ in plist]
+            metrics.inc("recovery_rounds_total")
+            metrics.inc("recovery_blobs_regenerated_total",
+                        sum(len(ids) for _, ids in plist))
+            metrics.record_event(
+                "recovery_round", stage=label, producers=len(plist),
+                lost=sum(len(ids) for _, ids in plist), depth=depth)
+            with profiler.trace("recover:lineage", "etl", stage=label,
+                                lost=sum(len(ids) for _, ids in plist),
+                                producers=len(plist)):
+                # nested losses (the producers' own inputs) recover through
+                # the same machinery, one depth level down; the rerun also
+                # re-ledgers its outputs (with any nested ref patches)
+                res_list = self._run_stage(rerun, None, temps,
+                                           lineage_label=label,
+                                           _depth=depth + 1)
+            for (prod, ids), res in zip(plist, res_list):
+                # same extraction the ledger used, so outputs zip 1:1
+                new_refs = _result_refs(res)
+                temps.extend(new_refs)
+                if len(new_refs) != len(prod.outputs):
+                    logger.warning(
+                        "regenerated producer emitted %d outputs, expected "
+                        "%d; aborting recovery", len(new_refs),
+                        len(prod.outputs))
+                    return None
+                sub = dict(zip(prod.outputs, new_refs))
+                mapping.update(sub)
+                temps.apply_patches(sub)
+                # pipelined stages: a regenerated producer RE-SEALS under
+                # its map_id with the next generation, so in-flight and
+                # resubmitted streaming reducers read the fresh blob (the
+                # stale range's ObjectLostError is what got us here)
+                for old_id, new_ref in sub.items():
+                    pub = temps.stream_pubs.pop(old_id, None)
+                    if pub is None:
+                        continue
+                    srec, map_id = pub
+                    temps.stream_pubs[new_ref.id] = (srec, map_id)
+                    try:
+                        index = res.get("bucket_index")
+                        if not index:
+                            # an index-less rerun result can never serve
+                            # ranged readers: abort with the real cause
+                            # instead of publishing an empty index every
+                            # poll would trip over (same shape as the
+                            # missing-consolidated_ref abort)
+                            get_client().stream_abort(
+                                srec.stage_key,
+                                f"regenerated map {map_id} returned no "
+                                "bucket index")
+                        else:
+                            srec.publish(map_id, new_ref, index)
+                    except Exception:
+                        logger.warning("re-seal of regenerated map %d "
+                                       "(stage %r) failed", map_id,
+                                       srec.label, exc_info=True)
+                self._note_recovery(prod, len(ids), temps)
+                # the rerun re-ledgered fresh _Producer objects for its
+                # outputs; inherit the stage binding so a SECOND loss of a
+                # regenerated blob still attributes to the original entry
+                for ref in new_refs:
+                    nprod = temps.lineage.get(ref.id)
+                    if nprod is not None and nprod.entry is None:
+                        nprod.entry = prod.entry
+                logger.warning(
+                    "lineage recovery: regenerated %d lost blob(s) (of %d "
+                    "outputs) for stage %r", len(ids), len(prod.outputs),
+                    label)
+        return mapping
+
+    # ---- public entry points ------------------------------------------------
+    @contextlib.contextmanager
+    def _action(self, label: str):
+        """Every driver-initiated action runs under one ``etl:action`` root
+        span — minting the ``trace_id`` all its stage/task/recovery spans
+        (local and remote) inherit — and a :class:`StageError` surfacing
+        from it triggers the flight-recorder harvest: every process's event
+        ring lands in a ``blackbox-<label>.json`` postmortem bundle
+        (doc/observability.md), so a chaos-failed action leaves an artifact
+        instead of log archaeology. Harvest failures never mask the error."""
+        with profiler.trace("etl:action", "driver", action=label):
+            try:
+                yield
+            except StageError as e:
+                metrics.record_event("action_failed", action=label,
+                                     exc_type=type(e).__name__,
+                                     error=str(e)[:500])
+                try:
+                    path = metrics.write_blackbox(label, e)
+                    if path:
+                        logger.warning("action %r failed; flight-recorder "
+                                       "bundle written to %s", label, path)
+                except Exception:  # noqa: BLE001 - never mask the failure
+                    logger.warning("blackbox harvest for failed action %r "
+                                   "itself failed", label, exc_info=True)
+                raise
+
+    def materialize(self, node: P.PlanNode, owner: Optional[str] = None
+                    ) -> Tuple[List[ObjectRef], Optional[bytes], List[int]]:
+        """Execute the plan; return per-partition (refs, schema bytes, row counts)."""
+        temps = _ActionTemps()
+        try:
+            with self._action("materialize"):
+                # the returned refs are the action's FINAL outputs: nothing
+                # later in this action can lose them, so ledgering their
+                # recipes would be pure serialization overhead on the
+                # data-feed hot path
+                return self._materialize_inner(self._optimized(node), owner,
+                                               temps, lineage_label=None)
+        finally:
+            self._free(temps)
+
+    def _materialize_inner(self, node: P.PlanNode, owner: Optional[str],
+                           temps: List[ObjectRef],
+                           lineage_label: Optional[str] = "materialize"):
+        """``lineage_label`` defaults on: the internal callers (sort child,
+        window input, coalesce) feed these refs to LATER stages of the same
+        action, which is exactly when a lost blob needs the recipe."""
+        tasks, preferred = self._compile(node, temps)
+        tasks = [t.with_output(output=T.RETURN_REF, owner=owner or self.owner)
+                 for t in tasks]
+        results = self._run_stage(tasks, preferred, temps,
+                                  lineage_label=lineage_label)
+        refs = [r["ref"] for r in results]
+        schema = results[0]["schema"] if results else None
+        num_rows = [r["num_rows"] for r in results]
+        return refs, schema, num_rows
+
+    def collect(self, node: P.PlanNode) -> pa.Table:
+        temps = _ActionTemps()
+        try:
+            with self._action("collect"):
+                tasks, preferred = self._compile(self._optimized(node), temps)
+                tasks = [t.with_output(output=T.COLLECT) for t in tasks]
+                results = self._run_stage(tasks, preferred, temps)
+                tables = [pa.ipc.open_stream(pa.py_buffer(r["ipc"])).read_all()
+                          for r in results]
+                out = pa.concat_tables(tables, promote_options="permissive")
+                limit = _root_limit(node)
+                return out.slice(0, limit) if limit is not None else out
+        finally:
+            self._free(temps)
+
+    def count(self, node: P.PlanNode) -> int:
+        temps = _ActionTemps()
+        try:
+            with self._action("count"):
+                tasks, preferred = self._compile(self._optimized(node), temps)
+                tasks = [t.with_output(output=T.ROWCOUNT) for t in tasks]
+                results = self._run_stage(tasks, preferred, temps)
+                total = sum(r["num_rows"] for r in results)
+                limit = _root_limit(node)
+                return min(total, limit) if limit is not None else total
+        finally:
+            self._free(temps)
+
+    def cache(self, node: P.PlanNode, frame_id: str) -> P.CachedScan:
+        """Materialize into executor block caches with lineage recipes.
+
+        Parity: ``prepareRecoverableRDD`` = persist + count + pin + locations map
+        (ObjectStoreWriter.scala:164-204). The returned ``CachedScan`` carries,
+        per partition: the cache key, the executor that holds it, and the pickled
+        recipe that can rebuild it anywhere. Shuffle intermediates feeding the
+        cached plan are pinned (not freed) because the lineage recipes reference
+        them — they are released with the frame (the GC-pin of
+        ObjectStoreWriter.scala:175-177).
+        """
+        with self._action("cache"):
+            return self._cache_inner(node, frame_id)
+
+    def _cache_inner(self, node: P.PlanNode, frame_id: str) -> P.CachedScan:
+        temps = _ActionTemps()
+        try:
+            tasks, preferred = self._compile(self._optimized(node), temps)
+            cache_tasks, keys = [], []
+            for i, t in enumerate(tasks):
+                key = f"block_{frame_id}_{i}"
+                keys.append(key)
+                cache_tasks.append(t.with_output(output=T.CACHE, cache_key=key))
+            results = self._run_stage(cache_tasks, preferred, temps)
+            # recover recipes are serialized AFTER the stage so they carry
+            # any ref patches in-stage lineage recovery applied — a recipe
+            # pointing at a pre-recovery (dead) blob id would fail every
+            # future cache miss. Streaming sources resolve to concrete
+            # ranged reads first: the seal-stream ledger closes with this
+            # action, and the cache stage's completion guarantees every map
+            # has sealed (their blobs stay pinned with the frame)
+            recover_blobs = [
+                cloudpickle.dumps(T.patch_task_refs(
+                    temps.resolve_streams(
+                        t.with_output(output=T.RETURN_REF)),
+                    temps.ref_patches))
+                for t in tasks
+            ]
+        except BaseException:
+            self._free(temps)
+            # partitions that completed before the failure already stored
+            # their tables in executor block caches, beyond the reach of the
+            # store-only free above — drop them by prefix everywhere, or
+            # every retried persist of a failing plan pins more partition
+            # tables in unbounded executor RAM. A straggler abandoned past
+            # the drain timeout can still cache AFTER this sweep: the
+            # pool's _free_late_result drops that block when it lands
+            for h in self.pool.executors:
+                try:
+                    h.drop_block_prefix(f"block_{frame_id}_")
+                except Exception:
+                    pass
+            raise
+        # the success path keeps temps pinned (recipes reference them), so
+        # the usual _free won't run — the seal-stream ledgers must still
+        # close with the action (recipes were resolved to concrete ranges
+        # above; an unclosed stage would leak in the head ledger and a
+        # drain-abandoned straggler would never get its close-abort)
+        temps.close_streams()
+        executors = [r["executor"] for r in results]
+        schema = results[0]["schema"] if results else None
+        # temps stay pinned: the lineage recipes reference them (plain list —
+        # the per-action ledger has no meaning past this action)
+        return P.CachedScan(frame_id=frame_id, cache_keys=keys,
+                            executors=executors, recover_tasks=recover_blobs,
+                            schema=schema, pinned_refs=list(temps))
+
+    def random_shuffle_refs(self, refs: Sequence[ObjectRef],
+                            schema_bytes: Optional[bytes],
+                            seed: Optional[int],
+                            owner: Optional[str] = None,
+                            ) -> Tuple[List[ObjectRef], List[int]]:
+        """Executor-side uniform shuffle of materialized blocks.
+
+        Two stages over the store data plane — map: seeded random bucketing
+        of each block (:func:`tasks.random_buckets`); reduce: concat each
+        bucket + in-partition permutation (:class:`tasks.LocalShuffleStep`).
+        The driver handles ONLY refs: no row ever crosses the driver process
+        (the reference's shuffle is likewise distributed — ray.data
+        random_shuffle at torch/estimator.py:335-338). Returns (refs, rows)
+        per output block; intermediates are freed before returning.
+        """
+        with self._action("random-shuffle"):
+            return self._random_shuffle_inner(refs, schema_bytes, seed, owner)
+
+    def _random_shuffle_inner(self, refs, schema_bytes, seed, owner=None):
+        temps = _ActionTemps()
+        try:
+            nb = max(1, len(refs))
+            base = 0 if seed is None else int(seed)
+            consolidate = _consolidate_enabled()
+            map_tasks = [
+                self._task(T.ArrowRefSource([r], schema=schema_bytes))
+                .with_output(output=T.SHUFFLE, num_buckets=nb,
+                             shuffle_seed=(base * 1_000_003 + i) & 0x7FFFFFFF,
+                             shuffle_consolidate=consolidate,
+                             owner=self.owner)
+                for i, r in enumerate(refs)
+            ]
+            # random-shuffle is never AQE-re-planned: pipelines under AQE
+            buckets, _ = self._dispatch_shuffle_stage(
+                map_tasks, self._locality([[r] for r in refs]), nb,
+                "random-shuffle", temps, aqe_capable=False,
+                consolidate=consolidate)
+            reduce_tasks = [
+                self._bucket_task(bucket, schema_bytes,
+                                  [T.LocalShuffleStep(
+                                      (base * 9_176 + 77 + b) & 0x7FFFFFFF)],
+                                  "random-shuffle")
+                .with_output(output=T.RETURN_REF, owner=owner or self.owner)
+                for b, bucket in enumerate(buckets)
+            ]
+            out = self._run_stage(reduce_tasks, self._locality(buckets), temps)
+            return [r["ref"] for r in out], [r["num_rows"] for r in out]
+        finally:
+            self._free(temps)
+
+    def num_partitions(self, node: P.PlanNode) -> int:
+        temps = _ActionTemps()
+        try:
+            tasks, _ = self._compile(self._optimized(node), temps)
+            return len(tasks)
+        finally:
+            self._free(temps)
+
+    # ---- compilation --------------------------------------------------------
+    def _compile(self, node: P.PlanNode, temps: List[ObjectRef]
+                 ) -> Tuple[List[T.Task], List[Optional[str]]]:
+        """Return (tasks, preferred-executor-per-task); shuffle intermediates
+        created along the way are appended to ``temps`` (per-action list)."""
+        if isinstance(node, P.RangeScan):
+            per = math.ceil((node.stop - node.start) / max(node.step, 1)
+                            / node.num_partitions)
+            tasks = []
+            for i in range(node.num_partitions):
+                lo = node.start + i * per * node.step
+                hi = min(node.start + (i + 1) * per * node.step, node.stop)
+                tasks.append(self._task(T.RangeSource(lo, hi, node.step, node.column)))
+            return tasks, [None] * len(tasks)
+
+        if isinstance(node, P.CsvScan):
+            return self._compile_csv(node)
+
+        if isinstance(node, P.ParquetScan):
+            return self._compile_parquet(node)
+
+        if isinstance(node, P.InMemory):
+            tasks = [self._task(T.ArrowRefSource([ref], schema=node.schema))
+                     for ref in node.refs]
+            return tasks, self._locality([[ref] for ref in node.refs])
+
+        if isinstance(node, P.CachedScan):
+            tasks, preferred = [], []
+            for key, executor, recover in zip(
+                    node.cache_keys, node.executors, node.recover_tasks):
+                rec_task: T.Task = cloudpickle.loads(recover)
+                tasks.append(self._task(T.CachedSource(key, rec_task)))
+                preferred.append(executor)
+            return tasks, preferred
+
+        # ---- narrow unary: fuse into child's task chains ----
+        narrow = {
+            P.Project: lambda n: T.ProjectStep(n.columns),
+            P.Filter: lambda n: T.FilterStep(n.predicate),
+            P.DropNa: lambda n: T.DropNaStep(n.subset),
+            P.Limit: lambda n: T.LimitStep(n.n),
+            P.Rename: lambda n: T.RenameStep(n.mapping),
+        }
+        for cls, make in narrow.items():
+            if isinstance(node, cls):
+                tasks, preferred = self._compile(node.child, temps)
+                step = make(node)
+                return [t.with_output(steps=t.steps + [step]) for t in tasks], preferred
+
+        if isinstance(node, P.Sample):
+            tasks, preferred = self._compile(node.child, temps)
+            out = [t.with_output(steps=t.steps + [
+                T.SampleStep(node.fraction, node.seed, i)])
+                for i, t in enumerate(tasks)]
+            return out, preferred
+
+        if isinstance(node, P.SplitSelect):
+            tasks, preferred = self._compile(node.child, temps)
+            out = [t.with_output(steps=t.steps + [
+                T.SplitSelectStep(node.lo, node.hi, node.seed, i)])
+                for i, t in enumerate(tasks)]
+            return out, preferred
+
+        # ---- wide: execute child, shuffle through the object store ----
+        if isinstance(node, P.Repartition):
+            return self._compile_repartition(node, temps)
+
+        if isinstance(node, P.GroupAgg):
+            return self._compile_groupagg(node, temps)
+
+        if isinstance(node, P.Join):
+            return self._compile_join(node, temps)
+
+        if isinstance(node, P.Sort):
+            return self._compile_sort(node, temps)
+
+        if isinstance(node, P.Distinct):
+            return self._compile_distinct(node, temps)
+
+        if isinstance(node, P.WindowOp):
+            return self._compile_window(node, temps)
+
+        if isinstance(node, P.Union):
+            all_tasks, all_pref = [], []
+            for child in node.inputs:
+                tasks, preferred = self._compile(child, temps)
+                all_tasks.extend(tasks)
+                all_pref.extend(preferred)
+            return all_tasks, all_pref
+
+        raise TypeError(f"unknown plan node {type(node).__name__}")
+
+    # ---- leaves -------------------------------------------------------------
+    def _task(self, source: T.Step, steps: Optional[List[T.Step]] = None) -> T.Task:
+        return T.Task(task_id=f"t-{uuid.uuid4().hex[:10]}", source=source,
+                      steps=steps or [])
+
+    def _locality(self, ref_lists: Sequence[Sequence[Optional[ObjectRef]]]
+                  ) -> List[Optional[str]]:
+        """Preferred executor per ref-reading task: one on the machine whose
+        RESIDENT bytes dominate the task's inputs — data-gravity weighted
+        (doc/etl.md "Data-gravity scheduling"): bytes whose local copy
+        sits in shared memory count at full weight; bytes whose copy is
+        SPILLED to disk at ``RDT_LOCALITY_SPILLED_WEIGHT`` (the fault-in
+        is paid wherever the task lands, so disk-local placement is a
+        smaller win than shm-local but still beats remote); bytes a host
+        would PULL over the network count at
+        ``RDT_LOCALITY_REMOTE_WEIGHT`` — that crediting is
+        ranking-neutral among byte-holders (each host's score is
+        ``(1-r)*local + r*total``, monotone in its local bytes) but
+        gives every live host a real score, so when the gravity host is
+        draining or backpressured :meth:`ExecutorPool.pick_weighted`
+        falls back to a ranked live host instead of returning no
+        preference; 0 restores holder-only scoring, 1 is distance-blind
+        (all hosts tie and rotate). Absent bytes weigh nothing. One bulk
+        ``residency`` RPC (``locations`` when the
+        store predates tiers — weighting then degrades to tier-blind); a
+        no-op on single-machine pools so round-robin balance is
+        untouched. The heaviest host that still has a dispatchable member
+        wins (:meth:`ExecutorPool.pick_weighted`; equal weights rotate).
+        Parity: preferred locations from block owner addresses
+        (RayDatasetRDD.scala:48-56, RayDPExecutor.scala:271-287).
+
+        A task's entry may hold plain refs, ``(ref, offset, size)`` range
+        triples, or nested lists of either (a coalesced multi-range read
+        fusing several buckets): EVERY range contributes its own byte
+        weight, so a multi-range source is routed by the total bytes it
+        reads across all its (ref, off, size) triples — not just wherever
+        its first ref happens to live. A streaming reducer's
+        :class:`_StreamBucket` expands to the ranges of the seals seen SO
+        FAR — early reducers re-weight from partial knowledge instead of
+        dispatching preference-free (no seals yet → genuinely no
+        preference)."""
+        if not self.pool.multi_host():
+            return [None] * len(ref_lists)
+
+        def _flat(items):
+            for item in items:
+                if isinstance(item, list):
+                    yield from _flat(item)
+                elif isinstance(item, _StreamBucket):
+                    yield from item.parts_so_far()
+                else:
+                    yield item
+
+        def _norm(item) -> Tuple[Optional[ObjectRef], int]:
+            # items are refs OR (ref, offset, size) range triples — weight a
+            # range by ITS size, not the whole consolidated blob's
+            if isinstance(item, tuple):
+                return item[0], max(int(item[2]), 1)
+            if item is not None:
+                return item, max(int(item.size or 0), 1)
+            return None, 0
+
+        try:
+            seen: Dict[str, ObjectRef] = {}
+            for refs in ref_lists:
+                for item in _flat(refs):
+                    r, _ = _norm(item)
+                    if r is not None:
+                        seen[r.id] = r
+            client = get_client()
+            fetch = getattr(client, "residency", None)
+            if fetch is not None:
+                locs = fetch(list(seen.values()))
+            else:  # tier-blind store: every present byte counts as shm
+                locs = client.locations(list(seen.values()))
+        except Exception:
+            return [None] * len(ref_lists)
+        spilled_w = max(0.0,
+                        float(knobs.get("RDT_LOCALITY_SPILLED_WEIGHT")))
+        remote_w = min(1.0, max(0.0, float(
+            knobs.get("RDT_LOCALITY_REMOTE_WEIGHT"))))
+        pool_hosts = (set(self.pool.hosts_by_name.values())
+                      if remote_w > 0 else set())
+        preferred: List[Optional[str]] = []
+        for refs in ref_lists:
+            weight: Dict[str, float] = {}
+            total = 0.0
+            for item in _flat(refs):
+                r, w = _norm(item)
+                loc = locs.get(r.id) if r is not None else None
+                if loc is None:
+                    continue
+                if isinstance(loc, (tuple, list)):
+                    host, tier = loc[0], loc[1]
+                else:
+                    host, tier = loc, "shm"
+                scaled = w * (spilled_w if tier == "spilled" else 1.0)
+                if scaled > 0:
+                    weight[host] = weight.get(host, 0.0) + scaled
+                    total += scaled
+            if remote_w > 0 and total > 0:
+                # local bytes at full (tier-scaled) weight, the rest of the
+                # task's bytes at the remote-pull discount: (1-r)*local +
+                # r*total — holder ranking is preserved, non-holders gain a
+                # ranked fallback score
+                weight = {h: (1.0 - remote_w) * weight.get(h, 0.0)
+                          + remote_w * total
+                          for h in pool_hosts | set(weight)}
+            preferred.append(self.pool.pick_weighted(weight))
+        return preferred
+
+    def _compile_csv(self, node: P.CsvScan):
+        tasks = []
+        headerless = bool((node.options or {}).get("column_names"))
+        for path in node.paths:
+            size = os.path.getsize(path)
+            if headerless:
+                header = b""  # first line is data (column names via options)
+            else:
+                with open(path, "rb") as f:
+                    header = f.readline()
+            body = size - len(header)
+            nparts = node.num_partitions or max(
+                1, min(self.shuffle_partitions, body // (8 << 20) + 1))
+            per = math.ceil(body / nparts) if body > 0 else 1
+            for i in range(nparts):
+                start = len(header) + i * per
+                end = min(len(header) + (i + 1) * per, size)
+                if start >= size:
+                    break
+                tasks.append(self._task(T.CsvSliceSource(
+                    path, start if i > 0 else 0, end, header, node.options)))
+        return tasks, [None] * len(tasks)
+
+    def _compile_parquet(self, node: P.ParquetScan):
+        import pyarrow.parquet as pq
+        tasks = []
+        for path in node.paths:
+            f = pq.ParquetFile(path)
+            for rg in range(f.num_row_groups):
+                tasks.append(self._task(T.ParquetSource(path, [rg], node.columns)))
+            if f.num_row_groups == 0:
+                tasks.append(self._task(T.ParquetSource(path, None, node.columns)))
+        return tasks, [None] * len(tasks)
+
+    # ---- pipelined (push-based) shuffle -------------------------------------
+    def _stream_ok(self, temps, aqe_capable: bool,
+                   consolidate: bool) -> bool:
+        """Whether a shuffle stage may pipeline its reduce side (doc/etl.md
+        "Pipelined shuffle"). Requires the consolidated per-bucket index and
+        an action ledger; and the AQE interaction rule is **AQE wins**: a
+        stage AQE may re-plan (groupagg/join/distinct/repartition —
+        post-map broadcast, skew split, and coalescing all need the full
+        map-size picture) runs in barrier mode whenever ``RDT_ETL_AQE`` is
+        on, while never-re-planned stages (window, sort-range,
+        random-shuffle) pipeline regardless."""
+        return (_pipeline_enabled() and consolidate
+                and isinstance(temps, _ActionTemps)
+                and not (aqe_capable and O.aqe_enabled()))
+
+    def _stream_shuffle_stage(self, tasks: List[T.Task],
+                              preferred: Optional[Sequence[Optional[str]]],
+                              num_buckets: int, label: str,
+                              temps: "_ActionTemps") -> List[List[Any]]:
+        """Launch a shuffle map stage WITHOUT a barrier: the stage runs on a
+        background thread and this returns immediately with per-bucket
+        :class:`_StreamBucket` placeholders, so the caller's reduce tasks
+        compile and dispatch while the maps are still running. As each map's
+        winning result lands, the driver ledgers its lineage and publishes
+        the seal ``(map_id, ref, per-bucket index)`` to the store server's
+        stream ledger — already-running reducers fetch + decode that portion
+        immediately. A failed map stage aborts the stream (reducers fail
+        fast, typed) ; the thread is joined and the ledger closed by the
+        action's ``_free`` via :meth:`_ActionTemps.close_streams`."""
+        client = get_client()
+        stage_key = f"ss-{uuid.uuid4().hex[:12]}"
+        rec = _StreamStageRec(stage_key, label, len(tasks))
+        client.stream_begin(stage_key, len(tasks))
+        temps.streams.append(rec)
+        temps.stream_by_key[stage_key] = rec
+
+        def _on_map_result(i: int, task: T.Task, tbytes: Optional[bytes],
+                           r: Dict[str, Any]) -> None:
+            cref = r.get("consolidated_ref")
+            if cref is None:
+                # never expected (streaming requires shuffle_consolidate on
+                # every task): abort rather than hang the reducers
+                client.stream_abort(stage_key,
+                                    f"map {task.task_id} returned a "
+                                    "non-consolidated result")
+                return
+            temps.append(cref)
+            # incremental lineage: a reducer can lose this blob while the
+            # map stage is still running — the recipe must already be
+            # ledgered (the stage-end _record_lineage re-ledgers, harmless)
+            prod = _Producer(tbytes if tbytes is not None
+                             else cloudpickle.dumps(task), [cref.id], label)
+            temps.lineage[cref.id] = prod
+            temps.stream_pubs[cref.id] = (rec, i)
+            try:
+                rec.publish(i, cref, r["bucket_index"])
+            except BaseException as e:  # noqa: BLE001 - reducers must learn
+                # a seal that never reaches the ledger would hang every
+                # reducer in an unbounded poll loop: abort the stream so
+                # the stage fails typed instead of the action never
+                # returning
+                logger.warning("seal publish for map %d (stage %r) "
+                               "failed: %s", i, label, e)
+                try:
+                    client.stream_abort(
+                        stage_key, f"seal publish failed for map "
+                        f"{task.task_id}: {type(e).__name__}: {e}")
+                except Exception:
+                    pass
+
+        sstats: Dict[str, Any] = {}
+        # the map stage runs on a background thread but belongs to the
+        # calling action's trace — hand the context across the Thread gap
+        ctx = profiler.capture()
+
+        def _runner():
+            try:
+                with profiler.activate(ctx):
+                    results = self._run_stage(tasks, preferred, temps,
+                                              lineage_label=label,
+                                              sched_stats=sstats,
+                                              on_task_result=_on_map_result)
+                    rec.results = results
+                    rec.entry = self._record_stage(label, results,
+                                                   num_buckets, temps,
+                                                   sched_stats=sstats,
+                                                   pipelined=True)
+            except BaseException as e:  # noqa: BLE001 - reducers must learn
+                rec.error = e
+                try:
+                    client.stream_abort(stage_key,
+                                        f"{type(e).__name__}: {e}")
+                except Exception:
+                    pass
+            finally:
+                rec.done.set()
+
+        rec.thread = threading.Thread(target=_runner, daemon=True,
+                                      name=f"rdt-stream-map-{label}")
+        rec.thread.start()
+        return [[_StreamBucket(rec, b)] for b in range(num_buckets)]
+
+    def _dispatch_shuffle_stage(self, tasks: List[T.Task],
+                                preferred: Optional[Sequence[Optional[str]]],
+                                num_buckets: int, label: str, temps,
+                                aqe_capable: bool, consolidate: bool,
+                                stats: Optional[Dict[str, Any]] = None,
+                                ) -> Tuple[List[List[Any]], Optional[bytes]]:
+        """Run a built shuffle map stage, streamed or barrier — the ONE
+        place the mt- map-task-id convention, the :meth:`_stream_ok` gate,
+        and the barrier fallback live (every shuffle flavor routes through
+        here, so their semantics cannot diverge). Returns (buckets, schema);
+        a streamed stage returns :class:`_StreamBucket` placeholders and
+        ``None`` schema (streamed reads decode it from the blobs' IPC
+        streams), and ``stats`` stays unfilled (only AQE — which forces
+        barrier — consumes it)."""
+        # shuffle MAP task ids are prefixed so a fault/chaos schedule can
+        # pin the map side (`executor.run_task` key match=|mt-)
+        tasks = [t.with_output(task_id=f"mt-{t.task_id}") for t in tasks]
+        if tasks and self._stream_ok(temps, aqe_capable, consolidate):
+            return self._stream_shuffle_stage(tasks, preferred, num_buckets,
+                                              label, temps), None
+        sstats: Dict[str, Any] = {}
+        results = self._run_stage(tasks, preferred, temps,
+                                  lineage_label=label, sched_stats=sstats)
+        self._record_stage(label, results, num_buckets, temps,
+                           sched_stats=sstats)
+        schema = results[0]["schema"] if results else None
+        if stats is not None:
+            stats["bytes_shuffled"] = sum(int(r.get("shuffle_bytes", 0))
+                                          for r in results)
+        return self._gather_buckets(results, num_buckets, temps), schema
+
+    # ---- wide operators -----------------------------------------------------
+    def _shuffle_children(self, node: P.PlanNode, num_buckets: int,
+                          keys: Optional[List[str]], temps: List[ObjectRef],
+                          range_key=None, pre_steps: Optional[List[T.Step]] = None,
+                          label: str = "shuffle",
+                          stats: Optional[Dict[str, Any]] = None,
+                          aqe_capable: bool = True,
+                          ) -> Tuple[List[List[Any]], Optional[bytes]]:
+        """Execute ``node`` with SHUFFLE output; transpose map×bucket → bucket×map.
+
+        ``pre_steps`` run on each map task AFTER the narrow chain and BEFORE
+        bucketing (the hook map-side partial aggregation uses); ``label`` names
+        the stage in the engine's shuffle ledger. ``stats``, when given, is
+        filled with the stage's measured ``bytes_shuffled`` — the number the
+        AQE post-map broadcast rule re-plans on (AQE-capable stages never
+        stream, so the two never coexist). When the stage pipelines
+        (:meth:`_stream_ok`) the returned buckets are
+        :class:`_StreamBucket` placeholders, the map stage keeps running on
+        a background thread, and the schema comes back ``None`` — streamed
+        reads decode it from the map blobs' IPC streams."""
+        tasks, preferred = self._compile(node, temps)
+        extra = list(pre_steps or [])
+        consolidate = _consolidate_enabled()
+        tasks = [t.with_output(steps=t.steps + extra,
+                               shuffle_pre_steps=len(extra),
+                               output=T.SHUFFLE, num_buckets=num_buckets,
+                               shuffle_keys=keys, range_key=range_key,
+                               shuffle_consolidate=consolidate,
+                               owner=self.owner)
+                 for t in tasks]
+        return self._dispatch_shuffle_stage(tasks, preferred, num_buckets,
+                                            label, temps, aqe_capable,
+                                            consolidate, stats=stats)
+
+    def _aqe_split_partial_agg(self, buckets: List[List[Any]],
+                               schema: Optional[bytes], keys: List[str],
+                               partials, label: str,
+                               temps: List[ObjectRef]) -> List[List[Any]]:
+        """Rule (b) for a decomposable aggregation: run an INLINE stage of
+        split tasks over each skewed bucket's range groups — each merges its
+        portion's partials into partials (:class:`tasks.
+        GroupAggPartialMergeStep`) — then hand the final reduce task the
+        split outputs instead of the raw ranges, so the ordinary
+        ``GroupAggMergeStep`` finishes the bucket unchanged. The split
+        outputs are ledgered under the map stage's label: a lost split blob
+        regenerates through the same recovery path as any intermediate (its
+        producer itself reads ledgered map blobs, so nested losses recover
+        transitively)."""
+        groups = self._aqe_split_groups(buckets)
+        if groups is None:
+            return buckets
+        split_tasks, split_pref_parts, placed = [], [], []
+        for b, portions in enumerate(groups):
+            if len(portions) < 2:
+                continue
+            for portion in portions:
+                split_tasks.append(
+                    self._bucket_task(portion, schema,
+                                      [T.GroupAggPartialMergeStep(
+                                          list(keys), list(partials))],
+                                      label)
+                    .with_output(owner=self.owner))
+                split_pref_parts.append(list(portion))
+            placed.append((b, len(portions)))
+        results = self._run_stage(split_tasks,
+                                  self._locality(split_pref_parts), temps,
+                                  lineage_label=label)
+        out = [list(b) for b in buckets]
+        it = iter(results)
+        for b, n in placed:
+            refs = [next(it)["ref"] for _ in range(n)]
+            temps.extend(refs)
+            out[b] = [(r, 0, int(r.size or 0)) for r in refs]
+        self._note_aqe(temps, label, "aqe_split", len(placed),
+                       tasks=len(split_tasks))
+        return out
+
+    def _compile_repartition(self, node: P.Repartition, temps: List[ObjectRef]):
+        n = node.num_partitions
+        if not node.shuffle:
+            # coalesce: group existing partitions without moving rows by key
+            refs, schema, _ = self._materialize_inner(node.child, None, temps)
+            temps.extend(refs)
+            groups = [[refs[i] for i in g]
+                      for g in np.array_split(np.arange(len(refs)), n)
+                      if len(g) > 0]
+            tasks = [self._task(T.ArrowRefSource(group, schema=schema))
+                     for group in groups]
+            return tasks, self._locality(groups)
+        buckets, schema = self._shuffle_children(node.child, n, keys=None,
+                                                 temps=temps, label="repartition")
+        buckets, _ = self._aqe_coalesce(buckets, "repartition", temps)
+        # skewed buckets split into SEPARATE output partitions (repartition
+        # makes no key promise, so the "merge" of split outputs is just the
+        # action-level concat — no combiner stage, no extra data movement)
+        groups = self._aqe_split_groups(buckets)
+        if groups is not None:
+            self._note_aqe(temps, "repartition", "aqe_split",
+                           sum(1 for g in groups if len(g) > 1))
+            buckets = [portion for g in groups for portion in g]
+        tasks = [self._bucket_task(bucket, schema, None, "repartition")
+                 for bucket in buckets]
+        return tasks, self._locality(buckets)
+
+    def _compile_groupagg(self, node: P.GroupAgg, temps: List[ObjectRef]):
+        nb = self._num_buckets()
+        decomposable = all(f in O.DECOMPOSABLE_AGGS for _, f, _ in node.aggs)
+        if O.enabled() and decomposable:
+            # two-phase aggregation: partials computed map-side BEFORE the
+            # shuffle, so one row per (map task, key) crosses the store; the
+            # reduce side merges partials (mean = sum-of-sums / sum-of-counts)
+            partials, merges = T.decompose_aggs(node.aggs)
+            buckets, schema = self._shuffle_children(
+                node.child, nb, keys=node.keys, temps=temps,
+                pre_steps=[T.GroupAggPartialStep(node.keys, partials)],
+                label="groupagg-partial")
+            buckets, _ = self._aqe_coalesce(buckets, "groupagg-partial",
+                                            temps)
+            buckets = self._aqe_split_partial_agg(buckets, schema, node.keys,
+                                                  partials,
+                                                  "groupagg-partial", temps)
+            tasks = [self._bucket_task(bucket, schema,
+                                       [T.GroupAggMergeStep(node.keys, merges)],
+                                       "groupagg-partial")
+                     for bucket in buckets]
+            return tasks, self._locality(buckets)
+        # single-phase fallback (non-decomposable aggs / optimizer off): a
+        # key's rows must all reach ONE task, so skew splitting cannot apply
+        # — only coalescing does
+        buckets, schema = self._shuffle_children(node.child, nb, keys=node.keys,
+                                                 temps=temps, label="groupagg")
+        buckets, _ = self._aqe_coalesce(buckets, "groupagg", temps)
+        tasks = [self._bucket_task(bucket, schema,
+                                   [T.GroupAggStep(node.keys, node.aggs)],
+                                   "groupagg")
+                 for bucket in buckets]
+        return tasks, self._locality(buckets)
+
+    def _aqe_broadcast_pre(self, node: P.Join, temps, bmax: int):
+        """Rule (a), pre-shuffle form: when a static estimate says one
+        (semantically broadcastable) side fits under ``bmax``, materialize it
+        and CONFIRM with measured bytes — if confirmed, neither side buckets:
+        the big side's partitions stream against executor-local replicas of
+        the small side (one ranged fetch per executor). A lying estimate
+        degrades gracefully: the materialized refs shuffle as an in-memory
+        side through the ordinary bucketed join. Returns compiled (tasks,
+        preferred) or None when the rule doesn't apply."""
+        cands = []
+        rest = O.estimate_plan_bytes(node.right)
+        if rest is not None and rest <= bmax \
+                and node.how in T.BROADCAST_RIGHT_JOIN_TYPES:
+            cands.append(("right", rest))
+        lest = O.estimate_plan_bytes(node.left)
+        if lest is not None and lest <= bmax \
+                and node.how in T.BROADCAST_LEFT_JOIN_TYPES:
+            cands.append(("left", lest))
+        if not cands:
+            return None
+        side = min(cands, key=lambda c: c[1])[0]
+        small = node.right if side == "right" else node.left
+        big = node.left if side == "right" else node.right
+        stasks, spref = self._compile(small, temps)
+        if not stasks:
+            return None  # degenerate 0-task side: keep the bucketed path
+        stasks = [t.with_output(output=T.RETURN_REF, owner=self.owner)
+                  for t in stasks]
+        sstats: Dict[str, Any] = {}
+        results = self._run_stage(stasks, spref, temps,
+                                  lineage_label="join-broadcast",
+                                  sched_stats=sstats)
+        refs = [r["ref"] for r in results]
+        temps.extend(refs)
+        schema = results[0]["schema"] if results else None
+        size = sum(int(getattr(r, "size", 0) or 0) for r in refs)
+
+        def _fallback():
+            # bucketed join reusing the materialization as an in-memory
+            # side (its blobs are ledgered, so nothing is wasted or lost)
+            mem = P.InMemory(refs, schema=schema)
+            fb = P.Join(mem, node.right, node.keys, node.right_keys,
+                        node.how) if side == "left" else \
+                P.Join(node.left, mem, node.keys, node.right_keys, node.how)
+            return self._compile_join(fb, temps, allow_broadcast=False)
+
+        if size > bmax or schema is None:
+            return _fallback()  # measured bytes overrule the estimate
+        # the big side compiles only now that the broadcast is confirmed —
+        # its own wide subtrees execute exactly once either way
+        big_tasks, big_pref = self._compile(big, temps)
+        if not big_tasks:
+            return _fallback()
+        # the broadcast side's movement, in the ledger: what crossed the
+        # store once (ref.size = serialized payload), under its own label
+        for r in results:
+            r["shuffle_bytes"] = int(r["ref"].size or 0)
+            r.setdefault("shuffle_bytes_in", int(r.get("nbytes", 0)))
+        self._record_stage("join-broadcast", results, 0, temps,
+                           sched_stats=sstats)
+        self._note_aqe(temps, "join-broadcast", "aqe_broadcast", 1,
+                       side=side, bytes=size)
+        step = T.BroadcastJoinStep([(r, 0, int(r.size or 0)) for r in refs],
+                                   list(node.keys), list(node.right_keys),
+                                   node.how, broadcast_side=side,
+                                   schema=schema)
+        tasks = [t.with_output(steps=t.steps + [step],
+                               consumes_stage="join-broadcast")
+                 for t in big_tasks]
+        return tasks, big_pref
+
+    def _compile_join(self, node: P.Join, temps: List[ObjectRef],
+                      allow_broadcast: bool = True):
+        nb = self._num_buckets()
+        bmax = O.aqe_broadcast_max() if O.aqe_enabled() else 0
+        if bmax > 0 and allow_broadcast:
+            out = self._aqe_broadcast_pre(node, temps, bmax)
+            if out is not None:
+                return out
+        lstats: Dict[str, Any] = {}
+        left_buckets, lschema = self._shuffle_children(node.left, nb, node.keys,
+                                                       temps, label="join-left",
+                                                       stats=lstats)
+        # rule (a), post-map form: the left map stage's measured bytes reveal
+        # a small side no estimate could see (aggregated/joined subtrees).
+        # Converting HERE — before the right side buckets — is what saves the
+        # big side's shuffle: right partitions stream against replicas built
+        # from the left's already-written map blobs (every bucket's range).
+        if allow_broadcast and bmax > 0 and lschema is not None \
+                and lstats.get("bytes_shuffled", 0) <= bmax \
+                and node.how in T.BROADCAST_LEFT_JOIN_TYPES:
+            right_tasks, right_pref = self._compile(node.right, temps)
+            if right_tasks:
+                parts = [p for lb in left_buckets
+                         for p in self._as_parts(lb)]
+                self._note_aqe(temps, "join-left", "aqe_broadcast", 1,
+                               side="left",
+                               bytes=lstats.get("bytes_shuffled", 0))
+                step = T.BroadcastJoinStep(
+                    parts, list(node.keys), list(node.right_keys), node.how,
+                    broadcast_side="left", schema=lschema)
+                tasks = [t.with_output(steps=t.steps + [step],
+                                       consumes_stage="join-left")
+                         for t in right_tasks]
+                return tasks, right_pref
+        right_buckets, rschema = self._shuffle_children(node.right, nb,
+                                                        node.right_keys, temps,
+                                                        label="join-right")
+        left_buckets, right_buckets = self._aqe_coalesce(
+            left_buckets, "join-left", temps, paired=right_buckets)
+        # rule (b) on the probe side: a skewed left bucket's ranges split
+        # across k join tasks, each probing the SAME right bucket — an inner/
+        # semi/outer-left row lands in exactly one split, so the concat of
+        # split outputs (the action-level gather) is the bucket's join. The
+        # gate is the same partition-safety condition as broadcasting the
+        # right side: any join type that emits RIGHT-side rows on their own
+        # (right/full outer, right semi/anti) would emit them once per
+        # split, because every split probes the whole right bucket
+        split_groups = self._aqe_split_groups(left_buckets) \
+            if node.how in T.BROADCAST_RIGHT_JOIN_TYPES else None
+        tasks, pref_parts = [], []
+        for b, (lb, rb) in enumerate(zip(left_buckets, right_buckets)):
+            stream_rb = next((x for x in rb if isinstance(x, _StreamBucket)),
+                             None)
+            if stream_rb is not None:
+                # pipelined right side: the build table accumulates from
+                # seal notifications while BOTH map stages still run
+                join_step = T.HashJoinStep([], node.keys, node.right_keys,
+                                           node.how, right_schema=rschema,
+                                           right_stream=stream_rb.source(
+                                               rschema))
+            elif any(isinstance(x, tuple) for x in rb):
+                join_step = T.HashJoinStep([], node.keys, node.right_keys,
+                                           node.how, right_schema=rschema,
+                                           right_parts=self._as_parts(rb))
+            else:
+                join_step = T.HashJoinStep(list(rb), node.keys,
+                                           node.right_keys, node.how,
+                                           right_schema=rschema)
+            portions = split_groups[b] if split_groups is not None else [lb]
+            for portion in portions:
+                tasks.append(self._bucket_task(portion, lschema, [join_step],
+                                               "join-left"))
+                # a join task reads BOTH sides: weight locality over them
+                pref_parts.append(list(portion) + list(rb))
+        if split_groups is not None:
+            self._note_aqe(temps, "join-left", "aqe_split",
+                           sum(1 for g in split_groups if len(g) > 1))
+        return tasks, self._locality(pref_parts)
+
+    def _compile_sort(self, node: P.Sort, temps: List[ObjectRef]):
+        """Range-partitioned sort on the COMPOSITE key: materialize the child
+        ONCE, sample boundary key-tuples from EVERY block on the executors
+        (any orderable type — no numeric cast), range-shuffle those refs by
+        lexicographic comparison, locally sort each range. Composite
+        boundaries keep the partitioning balanced even when the first key has
+        few distinct values (per-key boundaries would collapse there)."""
+        keys = node.keys
+        key_names = [k for k, _ in keys]
+        refs, schema, num_rows = self._materialize_inner(node.child, None, temps)
+        temps.extend(refs)
+
+        # boundary sample: a bounded uniform sample over ALL blocks, taken by
+        # the executors — sampling only the first blocks skews the range
+        # boundaries on sorted or clustered input. Only the key columns
+        # travel back to the driver.
+        nb = self._num_buckets()
+        total = sum(num_rows)
+        target = max(1000, 100 * nb)
+        frac = min(1.0, target / total) if total else 0.0
+        sample_tasks = [
+            self._task(T.ArrowRefSource([ref], schema=schema),
+                       [T.SampleStep(frac, seed=0, partition_index=i),
+                        T.ProjectStep([(k, _col(k)) for k in key_names])]
+                       ).with_output(output=T.COLLECT)
+            for i, (ref, n) in enumerate(zip(refs, num_rows)) if n > 0
+        ]
+        sampled = []
+        if sample_tasks:
+            for r in self._run_stage(sample_tasks, None, temps):
+                tbl = pa.ipc.open_stream(pa.py_buffer(r["ipc"])).read_all()
+                if tbl.num_rows:
+                    sampled.append(tbl)
+        boundaries: List[Tuple] = []
+        if sampled:
+            sample = pa.concat_tables(sampled, promote_options="permissive")
+            # rows with a null or NaN key need no boundary: both always sort
+            # at the extreme (and either as a boundary value would poison
+            # every comparison — NaN > x and NaN == x are both false)
+            for k in key_names:
+                column = sample.column(k)
+                sample = sample.filter(pc.is_valid(column))
+                column = sample.column(k)
+                if pa.types.is_floating(column.type) and sample.num_rows:
+                    sample = sample.filter(pc.invert(pc.is_nan(column)))
+            if sample.num_rows:
+                sample = sample.sort_by(keys)
+                qpos = [int(q * (sample.num_rows - 1))
+                        for q in np.linspace(0, 1, nb + 1)[1:-1]]
+                cols = {k: sample.column(k) for k in key_names}
+                for p in qpos:
+                    tup = tuple(cols[k][p].as_py() for k in key_names)
+                    if not boundaries or tup != boundaries[-1]:
+                        boundaries.append(tup)
+
+        consolidate = _consolidate_enabled()
+        shuffle_tasks = [
+            self._task(T.ArrowRefSource([ref], schema=schema)).with_output(
+                output=T.SHUFFLE, num_buckets=len(boundaries) + 1,
+                range_key=(list(keys), boundaries),
+                shuffle_consolidate=consolidate,
+                owner=self.owner)
+            for ref in refs
+        ]
+        # sort-range is never AQE-re-planned: it pipelines under AQE too
+        buckets, _ = self._dispatch_shuffle_stage(
+            shuffle_tasks, None, len(boundaries) + 1, "sort-range", temps,
+            aqe_capable=False, consolidate=consolidate)
+        # buckets come out in global sort order for any direction mix (the
+        # composite comparison honors per-key direction; nulls sort last)
+        tasks = [self._bucket_task(bucket, schema,
+                                   [T.LocalSortStep(node.keys)], "sort-range")
+                 for bucket in buckets]
+        return tasks, self._locality(buckets)
+
+    def _compile_distinct(self, node: P.Distinct, temps: List[ObjectRef]):
+        """distinct / dropDuplicates: hash-shuffle on the key columns (the
+        ``["*"]`` sentinel = full row, resolved executor-side), then local
+        first-per-key dedupe — equal keys share a bucket, so local dedupe is
+        globally exact."""
+        nb = self._num_buckets()
+        keys = list(node.subset) if node.subset else ["*"]
+        buckets, schema = self._shuffle_children(node.child, nb, keys=keys,
+                                                 temps=temps, label="distinct")
+        # equal keys share a bucket, and that stays true under bucket UNION:
+        # tiny-partition coalescing keeps local dedupe globally exact
+        buckets, _ = self._aqe_coalesce(buckets, "distinct", temps)
+        tasks = [self._bucket_task(bucket, schema,
+                                   [T.DistinctStep(node.subset)], "distinct")
+                 for bucket in buckets]
+        return tasks, self._locality(buckets)
+
+    def _compile_window(self, node: P.WindowOp, temps: List[ObjectRef]):
+        """Window function: equal partition keys share a bucket (hash
+        shuffle), so per-bucket sorted evaluation is globally exact. Without
+        partition keys everything collapses to one task (Spark's "No
+        Partition Defined" single-partition path).
+
+        Adjacent WindowOps over the SAME partition keys collapse into one
+        shuffle feeding a chain of WindowSteps (innermost first) — Spark
+        likewise evaluates same-spec window functions in a single exchange;
+        the doc example chains three columns over one spec and must not pay
+        three shuffles of the whole dataset."""
+        def _step(w: P.WindowOp) -> T.WindowStep:
+            return T.WindowStep(list(w.partition_keys), list(w.order_keys),
+                                w.out_name, w.fn, w.arg_col,
+                                w.offset, w.default)
+
+        steps = [_step(node)]
+        child = node.child
+        while (isinstance(child, P.WindowOp)
+               and list(child.partition_keys) == list(node.partition_keys)):
+            steps.append(_step(child))
+            child = child.child
+        steps.reverse()  # innermost (first-defined) column computes first
+
+        if node.partition_keys:
+            nb = self._num_buckets()
+            # window is never AQE-re-planned: it pipelines under AQE too
+            buckets, schema = self._shuffle_children(
+                child, nb, keys=list(node.partition_keys), temps=temps,
+                label="window", aqe_capable=False)
+            tasks = [self._bucket_task(bucket, schema, list(steps), "window")
+                     for bucket in buckets]
+            return tasks, self._locality(buckets)
+        refs, schema, _ = self._materialize_inner(child, None, temps)
+        temps.extend(refs)
+        tasks = [self._task(T.ArrowRefSource(list(refs), schema=schema),
+                            list(steps))]
+        return tasks, self._locality([list(refs)])
+
+    # ---- driver-merged summaries -------------------------------------------
+    def describe(self, node: P.PlanNode, cols: List[str]) -> Dict[str, Dict]:
+        """count/mean/stddev/min/max per column: executors reduce each
+        partition to one row of moment partials (DescribeStep); the driver
+        merges K tiny rows, never the data. Sample stddev (ddof=1), matching
+        Spark's ``describe``."""
+        temps = _ActionTemps()
+        try:
+            # describe reads only `cols`: expose that to the optimizer by
+            # narrowing the plan root, so scans and shuffles below prune too
+            narrowed = (P.Project(node, [(c, _col(c)) for c in cols])
+                        if O.enabled() else node)
+            tasks, preferred = self._compile(self._optimized(narrowed), temps)
+            tasks = [t.with_output(steps=t.steps + [T.DescribeStep(cols)],
+                                   output=T.COLLECT)
+                     for t in tasks]
+            results = self._run_stage(tasks, preferred, temps)
+        finally:
+            self._free(temps)
+        agg = {c: {"count": 0, "sum": 0.0, "sumsq": 0.0,
+                   "min": None, "max": None} for c in cols}
+        for r in results:
+            tbl = pa.ipc.open_stream(pa.py_buffer(r["ipc"])).read_all()
+            row = {name: tbl.column(name)[0].as_py()
+                   for name in tbl.column_names}
+            for c in cols:
+                a = agg[c]
+                a["count"] += int(row[f"{c}:count"])
+                a["sum"] += float(row[f"{c}:sum"])
+                a["sumsq"] += float(row[f"{c}:sumsq"])
+                for fn, key in ((min, "min"), (max, "max")):
+                    v = row[f"{c}:{key}"]
+                    if v is not None:
+                        a[key] = v if a[key] is None else fn(a[key], v)
+        out: Dict[str, Dict] = {}
+        for c, a in agg.items():
+            n = a["count"]
+            mean = a["sum"] / n if n else None
+            if n > 1:
+                var = max(0.0, (a["sumsq"] - a["sum"] ** 2 / n) / (n - 1))
+                std = math.sqrt(var)
+            else:
+                std = None
+            out[c] = {"count": n, "mean": mean, "stddev": std,
+                      "min": a["min"], "max": a["max"]}
+        return out

@@ -1,8 +1,8 @@
 """The ``RDT_*`` environment knobs the port reads — its copy of the entries
 of :mod:`raydp_tpu.knobs` on the ported paths (training, the runtime, the
-object store, the fault plane), with the same names, types, defaults and
-read semantics, except ``RDT_WARM_IMPORTS``, whose default names ``torch``
-where the reference's names ``jax``.
+object store, the ETL engine, the fault plane), with the same names, types,
+defaults and read semantics, except ``RDT_WARM_IMPORTS``, whose default
+names ``torch`` where the reference's names ``jax``.
 
 :func:`get` reads the environment at the call, so tests and runs can flip a
 knob between actions; the runtime's process-start knobs are read once by
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 #: the truthiness convention every boolean knob shares (``RDT_X=0`` /
 #: ``false`` / ``off`` / ``no`` disables; anything else enables)
@@ -59,6 +59,131 @@ _ALL = [
          "Gradient-accumulation microbatches per optimizer step. Must "
          "divide batch_size; the estimator accum_steps= argument "
          "overrides."),
+    # ---- ETL engine ----------------------------------------------------------
+    Knob("RDT_ETL_OPTIMIZER", "bool", True,
+         "Rule-based logical-plan optimizer (projection pruning + predicate "
+         "pushdown); 0 preserves the naive compile-verbatim path."),
+    Knob("RDT_ETL_AQE", "bool", True,
+         "Adaptive query execution: runtime re-planning from measured stage "
+         "statistics (broadcast join, skew split, coalesce)."),
+    Knob("RDT_AQE_BROADCAST_MAX", "int", 8 << 20,
+         "Broadcast-hash-join threshold: a join side whose measured bytes "
+         "fit under this replicates instead of shuffling. 0 disables the "
+         "rule."),
+    Knob("RDT_AQE_SKEW_FACTOR", "float", 4.0,
+         "Skew trigger: a reduce bucket larger than this multiple of the "
+         "(lower) median bucket splits across reduce tasks. 0 disables."),
+    Knob("RDT_AQE_COALESCE_MIN", "int", 1 << 20,
+         "Coalescing target: adjacent reduce buckets fuse until their "
+         "combined bytes reach this; also the floor under which a bucket "
+         "never skew-splits. 0 disables."),
+    Knob("RDT_SHUFFLE_CONSOLIDATE", "bool", True,
+         "Consolidated map outputs: one store blob per map task with a "
+         "per-bucket byte-range index; 0 restores per-bucket blobs."),
+    Knob("RDT_SHUFFLE_PIPELINE", "bool", True,
+         "Pipelined (push-based) shuffle: reducers stream ranges as maps "
+         "seal. Needs the consolidated index, so RDT_SHUFFLE_CONSOLIDATE=0 "
+         "disables it too."),
+    Knob("RDT_LINEAGE_RECOVERY", "bool", True,
+         "Lineage rebuild of lost intermediates; 0 surfaces losses as stage "
+         "failures."),
+    Knob("RDT_LINEAGE_ROUNDS", "int", 4,
+         "Recovery rounds per stage (each round may regenerate several "
+         "blobs)."),
+    Knob("RDT_LINEAGE_DEPTH", "int", 4,
+         "Max transitive producer-of-producer regeneration depth."),
+    Knob("RDT_EXECUTOR_WAIT_S", "float", 60.0,
+         "Wall-clock grace a stage keeps probing for a reachable executor "
+         "(sized for restart spawn + the executor's imports) before "
+         "failing."),
+    Knob("RDT_SPECULATION", "bool", True,
+         "Speculative backup tasks for stragglers; first finisher wins, the "
+         "loser's outputs are freed."),
+    Knob("RDT_SPECULATION_QUANTILE", "float", 0.75,
+         "Completion fraction a stage must reach before backups are "
+         "considered."),
+    Knob("RDT_SPECULATION_MULTIPLIER", "float", 1.5,
+         "A pending attempt is a straggler past this multiple of the "
+         "completed-task median runtime."),
+    Knob("RDT_SPECULATION_MIN_S", "float", 1.0,
+         "Floor on the straggler threshold: sub-second stages never "
+         "speculate."),
+    Knob("RDT_POOL_MIN", "int", 1,
+         "Autoscale floor: the controller never drains the pool below this "
+         "many live executors."),
+    Knob("RDT_POOL_MAX", "int", 0,
+         "Autoscale ceiling: the controller never grows past this. 0 keeps "
+         "the pool fixed at its session size (autoscaling must be asked for "
+         "explicitly via Session.autoscale(max_size=...))."),
+    Knob("RDT_POOL_SCALE_INTERVAL_S", "float", 1.0,
+         "Autoscale controller tick period (load is sampled once per tick)."),
+    Knob("RDT_POOL_SCALE_UP_S", "float", 2.0,
+         "Sustained queue-depth window before the controller grows the pool "
+         "(a single recovery-induced spike never spawns an executor)."),
+    Knob("RDT_POOL_IDLE_S", "float", 10.0,
+         "Sustained fully-idle window before the controller drains an "
+         "executor back out."),
+    Knob("RDT_POOL_COOLDOWN_S", "float", 5.0,
+         "Hysteresis: no further scale decision for this long after any "
+         "grow/shrink event."),
+    Knob("RDT_DRAIN_REHOME", "bool", True,
+         "Graceful drain re-homes a retiring executor's cached blocks onto "
+         "survivors (rebuilt from their lineage recipes); 0 abandons them "
+         "to on-read lineage recovery instead."),
+    Knob("RDT_DRAIN_TIMEOUT_S", "float", 30.0,
+         "How long a drain waits for the retiring executor's in-flight "
+         "tasks before abandoning them to the normal retry/recovery "
+         "machinery."),
+    Knob("RDT_POOL_TENANT_WEIGHT", "float", 1.0,
+         "Fair-share weight of this action's tenant: under contention each "
+         "tenant's in-flight share tracks weight/sum(weights). Engine-level "
+         "tenant_weight= overrides per tenant."),
+    Knob("RDT_POOL_MAX_QUEUED", "int", 0,
+         "Admission bound on the pool's queued (admitted, not yet "
+         "in-flight) backlog: an action that would push past it parks at "
+         "admission — visible to the autoscaler — instead of flooding "
+         "dispatch. 0 disables admission control."),
+    Knob("RDT_ADMIT_TIMEOUT_S", "float", 30.0,
+         "How long an action parks at admission before failing with the "
+         "typed, no-retry AdmissionRejected."),
+    Knob("RDT_STORE_HIGH_WATERMARK", "float", 1.25,
+         "Memory backpressure trip point: dispatch to a host whose store "
+         "shm use exceeds this fraction of its budget pauses (spill is not "
+         "keeping up). <= 0 disables backpressure."),
+    Knob("RDT_STORE_LOW_WATERMARK", "float", 0.95,
+         "Memory backpressure release point: a paused host re-enters "
+         "dispatch once its shm use drops below this fraction of its "
+         "budget."),
+    Knob("RDT_LOCALITY_SPILLED_WEIGHT", "float", 0.5,
+         "Locality weight multiplier for bytes whose local copy is SPILLED "
+         "to disk: a spilled-local host scores between in-memory-local "
+         "(1.0) and remote (0) — reading spilled bytes pays a fault-in "
+         "wherever the task lands, so disk-local placement is a smaller "
+         "win. 0 makes spilled bytes count as absent; 1 restores tier-blind "
+         "weighting."),
+    Knob("RDT_LOCALITY_REMOTE_WEIGHT", "float", 0.25,
+         "Locality weight multiplier for a task's bytes held on OTHER "
+         "dispatchable hosts (remote in-memory residency tier): every live "
+         "host is credited remote bytes x this, so when the byte-holding "
+         "host is draining or backpressured the ranking still prefers a "
+         "real host instead of returning no preference. 0 restores the "
+         "holder-only ranking; 1 scores remote copies like local ones "
+         "(distance-blind)."),
+    Knob("RDT_STORE_STAGE_HINTS", "bool", True,
+         "Stage-aware eviction: each stage pins its input blobs in the "
+         "store for its duration and demotes them to evict-first when it "
+         "completes, so LRU only breaks ties among blobs no stage is "
+         "reading. 0 restores pure-LRU spill order."),
+    Knob("RDT_STORE_AQE_BUDGET", "bool", True,
+         "Re-derive per-host store budgets from the AQE plane's measured "
+         "stage bytes (clamped to the statically configured capacity), so "
+         "cold bytes spill ahead of demand when the measured working set is "
+         "smaller than the static budget. 0 keeps static budgets only."),
+    Knob("RDT_POOL_BYTES_PER_EXEC", "int", 0,
+         "Predictive autoscale: measured per-stage bytes each executor is "
+         "expected to carry; a grow decision targets ceil(measured stage "
+         "bytes / this) executors (capped by RDT_POOL_MAX). 0 disables the "
+         "byte-driven component (parked-demand sizing stays on)."),
     # ---- runtime and object store ------------------------------------------
     Knob("RDT_LOG_LEVEL", "str", "INFO",
          "Log level of spawned processes (node agents)."),
@@ -95,6 +220,9 @@ _ALL = [
     Knob("RDT_STORE_ARENA", "str", None,
          "Shared-memory segment name of the machine-local store arena (set "
          "by the runtime for its children)."),
+    Knob("RDT_SUBMIT_ARGS", "str", None,
+         "JSON config packaged by rdt-submit; fills init() arguments left "
+         "at their defaults."),
     # ---- warm-start workers --------------------------------------------------
     Knob("RDT_WARM_FORK", "bool", False,
          "Fork new workers from a pre-imported prototype process instead of "
@@ -133,3 +261,10 @@ def get(name: str):
     if raw is None or raw.strip() == "":
         return knob.default
     return knob.parse(raw)
+
+
+def get_raw(name: str) -> Optional[str]:
+    """The raw environment string of a declared knob (None when unset).
+    For sites that need the unparsed value (e.g. JSON payloads)."""
+    KNOBS[name]  # unknown name must fail loudly, same as get()
+    return os.environ.get(name)

@@ -12,8 +12,9 @@ feed/decode/stage/h2d/dispatch/sync, ``train_<metric>``, ``eval_loss``,
 ``eval_<metric>``), runs the callbacks, checkpoints every
 ``checkpoint_interval`` epochs (and the last) through
 :mod:`raydp_tpu_torch.train.checkpoint`, and on a failure restores the last
-checkpoint this fit wrote, up to ``max_retries`` times. ``predict`` and
-``get_model`` follow.
+checkpoint this fit wrote, up to ``max_retries`` times. ``fit_on_frame``
+converts ETL DataFrames first (:class:`FrameEstimatorInterface`).
+``predict`` and ``get_model`` follow.
 
 How the reference's pieces map:
 
@@ -37,8 +38,8 @@ How the reference's pieces map:
 
 Not ported yet (ROADMAP): ``mesh``/``mesh_spec``/``param_rules``,
 ``steps_per_dispatch``, ``remat``, ``seq_sharded``, ``PipelineModel``,
-``fit_gang`` and resume, ``fit_on_frame``, ``partial_fit``,
-``export_serving``.
+``fit_gang`` and resume (so ``fit_on_frame`` refuses ``num_workers > 1``),
+``partial_fit``, ``export_serving``.
 """
 
 from __future__ import annotations
@@ -62,7 +63,9 @@ from raydp_tpu_torch.data.feed import (
 from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.log import get_logger
 from raydp_tpu_torch.train import checkpoint as ckpt
-from raydp_tpu_torch.train.estimator import EstimatorInterface, save_epoch_now
+from raydp_tpu_torch.train.estimator import (
+    EstimatorInterface, FrameEstimatorInterface, save_epoch_now,
+)
 from raydp_tpu_torch.train.metrics import Metric, build_metrics
 
 logger = get_logger("train.torch_estimator")
@@ -261,7 +264,7 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int):
     return train_step
 
 
-class TorchEstimator(EstimatorInterface):
+class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
     def __init__(
         self,
         model: Optional[nn.Module] = None,
@@ -599,6 +602,31 @@ class TorchEstimator(EstimatorInterface):
                     history = []
 
         return state, history
+
+    # ----------------------------------------------------------- fit_on_frame
+    def fit_on_frame(self, train_df, evaluate_df=None, *,
+                     fs_directory: Optional[str] = None,
+                     stop_etl_after_conversion: bool = False,
+                     max_retries: int = 0,
+                     num_workers: Optional[int] = None) -> TrainingResult:
+        """``fit`` on ETL DataFrames (``flax_estimator.py:1430-1453``): the
+        frames convert through the object store (or ``fs_directory``'s
+        parquet files), optionally with the ETL stopped and the blocks kept
+        (``stop_etl_after_conversion``). With ``shuffle`` a streaming fit
+        reads the engine's ``random_shuffle(seed)`` of the train set; a
+        resident fit skips it, since its per-epoch on-device permutation is
+        already a uniform row shuffle."""
+        if num_workers is not None and num_workers > 1:
+            raise NotImplementedError(
+                "fit_on_frame(num_workers > 1) is gang training, which the "
+                "port does not have yet")
+        train_ds, eval_ds = self._convert_frames(
+            train_df, evaluate_df, fs_directory=fs_directory,
+            stop_etl_after_conversion=stop_etl_after_conversion)
+        if self.shuffle and not DeviceEpochCache.eligible(
+                train_ds, self._columns(), self.batch_size, self.drop_last):
+            train_ds = train_ds.random_shuffle(seed=self.seed)
+        return self.fit(train_ds, eval_ds, max_retries=max_retries)
 
     # ---------------------------------------------------------------- predict
     def predict(self, ds, batch_size: Optional[int] = None) -> np.ndarray:

@@ -40,7 +40,12 @@ def test_imports_neither_jax_nor_the_reference():
         "'runtime.rpc', 'runtime.actor', 'runtime.placement', "
         "'runtime.cluster_resources', 'runtime.object_store', "
         "'runtime.head', 'runtime.actor_main', 'runtime.client', "
-        "'runtime.node_agent', 'runtime.warm_fork'):\n"
+        "'runtime.node_agent', 'runtime.warm_fork', 'etl.expressions', "
+        "'etl.window', 'etl.functions', 'etl.plan', 'etl.optimizer', "
+        "'etl.tasks', 'etl.executor', 'etl.master', 'etl.engine', "
+        "'etl.frame', 'etl.autoscale', 'etl.session', 'context', 'cluster', "
+        "'examples.nyctaxi_features', 'examples.generate_nyctaxi', "
+        "'examples.dlrm_criteo'):\n"
         "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -148,6 +153,32 @@ def test_default_device_estimator_and_feeds_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
     assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_init_runs_the_etl_on_the_host_and_training_still_needs_cuda(no_cuda):
+    """``raydp_tpu_torch.init`` starts the ETL on host executors, which see
+    no card by design; what it feeds to training does not make training
+    quietly run on the CPU: ``fit_on_frame``'s estimator and the feeds of a
+    frame-converted dataset raise without CUDA unless asked for the CPU."""
+    import raydp_tpu_torch
+    from raydp_tpu_torch.data import from_frame
+
+    session = raydp_tpu_torch.init("pytest-package", num_executors=1,
+                                   executor_cores=1, executor_memory="256MB")
+    try:
+        ds = from_frame(session.range(64).withColumnRenamed("id", "x"))
+        assert ds.count() == 64
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TorchEstimator(model=NYCTaxiModel(1, device="cpu"),
+                           feature_columns=["x"], label_column="x")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DeviceFeed(ds, 8, {"features": ("x", "float32")})
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DeviceEpochCache(ds, {"features": ("x", "float32")})
+        assert DeviceFeed(ds, 8, {"features": ("x", "float32")},
+                          device="cpu").device == torch.device("cpu")
+    finally:
+        raydp_tpu_torch.stop()
 
 
 
