@@ -79,21 +79,39 @@
    and no CUDA library in an executor, a fit with
    ``stop_etl_after_conversion``, no flash launch, no segment left after
    ``stop()``;
-9. prints one JSON line of kernel results, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. the estimator's dispatch plane, at the widths of phases 5-6: on the
+   card a resident fit replays one CUDA graph a step and a streaming fit
+   with ``steps_per_dispatch=k`` one graph a stack of ``k`` batches (every
+   resident fit of phases 5-8 replays graphs too). NYCTaxi f32 and bf16
+   and DLRM bf16, unshuffled: graphed resident against eager streaming
+   fits in turns (3 epochs each; f32 losses equal within 1e-6) and
+   ``steps_per_dispatch=8`` (bench.py's CHAIN) against 1 in turns (the
+   reference's rtol 1e-5, atol 1e-6), each with samples/s, peak memory,
+   the capture's wall and the graph replays of every epoch (one a step or
+   a stack, none skipped, each step run once); DLRM under remat none, dots
+   and full (equal losses, peak memory, the captured step's activation
+   bytes) and the optimizer step its checkpoint records after a graphed
+   fit; a graphed NYCTaxi fit retried after the fault plane raises at
+   ``estimator.epoch`` in epoch 2 (``max_retries=1``), equal to an
+   uninterrupted one; ``partial_fit`` of 3 stream epochs of NYCTaxi rows
+   through the port's ``ContinuousPipeline`` on its ETL session, equal to
+   one fit over the same rows;
+10. prints one JSON line of kernel results, then the last line
+    ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 7, 8, 3, 4: phases 5-8 are bound
-by the host's kernel launches, so their timed fits come before any
+The phases run in the order 1, 2, 5, 6, 7, 8, 9, 3, 4: phases 5-9 are
+bound by the host's kernel launches, so their timed fits come before any
 ``torch.profiler`` session of the process, and the two profiled epochs of
-5-6 (one per model, in fits of their own) after the timed fits. Every
-kernel launch counter is set to 0 just before each driven path (3, both
-modes of 4, 5, 6, 7 and 8) and read just after; 5-8 run no attention and
-must launch none. Any failed check exits non-zero; so does a machine
-without CUDA.
+5-6 (one per model, in fits of their own, replaying graphs) after the
+timed fits. Every kernel launch counter is set to 0 just before each driven
+path (3, both modes of 4, 5, 6, 7, 8 and 9) and read just after; 5-9 run
+no attention and must launch none. Any failed check exits non-zero; so
+does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -988,6 +1006,23 @@ class HostClock:
                                     - self._cpu)
 
 
+@contextlib.contextmanager
+def device_cache(on: bool):
+    """``RDT_DEVICE_CACHE`` set to ``on`` (the residency gate forced) for
+    the block, and back to what it was after it."""
+    import os
+
+    old = os.environ.get("RDT_DEVICE_CACHE")
+    os.environ["RDT_DEVICE_CACHE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RDT_DEVICE_CACHE"]
+        else:
+            os.environ["RDT_DEVICE_CACHE"] = old
+
+
 def fit_and_report(label: str, make_estimator, dataset, epochs: int,
                    *, cache: bool = True, profile_epoch=None,
                    steady_wall_s=None, max_retries: int = 0,
@@ -999,13 +1034,9 @@ def fit_and_report(label: str, make_estimator, dataset, epochs: int,
     ``frame_kw`` (a dict, maybe empty) ``dataset`` is an ETL DataFrame and
     the fit is ``fit_on_frame(dataset, **frame_kw)``. Returns (estimator,
     result, numbers)."""
-    import os
-
     prof = EpochProfile(profile_epoch) if profile_epoch is not None else None
     est = make_estimator([prof] if prof else [])
-    old = os.environ.get("RDT_DEVICE_CACHE")
-    os.environ["RDT_DEVICE_CACHE"] = "1" if cache else "0"
-    try:
+    with device_cache(cache):
         free_memory()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1017,11 +1048,6 @@ def fit_and_report(label: str, make_estimator, dataset, epochs: int,
                                           **frame_kw)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-    finally:
-        if old is None:
-            del os.environ["RDT_DEVICE_CACHE"]
-        else:
-            os.environ["RDT_DEVICE_CACHE"] = old
     for r in result.history:
         print(f"{label} epoch {r['epoch']}: " + json.dumps(
             {k: (round(v, 6) if isinstance(v, float) else v)
@@ -1039,12 +1065,17 @@ def fit_and_report(label: str, make_estimator, dataset, epochs: int,
                "fit_wall_s": wall, "peak_bytes": peak, "losses": losses,
                "gc_s": host.gc_s, "full_collections": host.full_collections,
                "other_threads_cpu_s": host.other_threads_cpu_s}
+    numbers["dispatch"] = result.dispatch
+    replays = [d["graph_replays"] for d in result.dispatch]
+    eager = [d["eager_steps"] for d in result.dispatch]
+    capture = sum(d["capture_s"] for d in result.dispatch)
     print(f"{label}: {numbers['samples_per_s_steady']:.1f} samples/s steady "
           f"(epochs {numbers['steady_epochs']}), fit {wall:.3f} s, peak "
           f"memory {peak / 2 ** 20:.1f} MiB, loss {losses[0]:.6f} -> "
           f"{losses[-1]:.6f}; host: gc {host.gc_s:.4f} s "
           f"({host.full_collections} full), other threads' CPU "
-          f"{host.other_threads_cpu_s:.3f} s")
+          f"{host.other_threads_cpu_s:.3f} s; graph replays {replays}, "
+          f"eager steps {eager}, capture {capture:.4f} s")
     require(len(losses) == epochs and all(map(math.isfinite, losses)),
             f"{label}: losses {losses}")
     require(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
@@ -1069,36 +1100,61 @@ def nyctaxi_estimator(model, dtype, epochs, *, shuffle=True, callbacks=(),
 
 
 def check_card_against_cpu(model, dataset) -> dict:
-    """The first CPU_STEPS step losses of one unshuffled f32 fit, on the
-    card and on the CPU, from the same weights and batches. The loss
-    callable records each step's loss tensor (no host read in the loop)."""
+    """The CPU_STEPS step losses of one unshuffled f32 fit, from the same
+    weights and batches: on the CPU, on the card's eager streaming path
+    and on the card's graphed resident path, each step held against the
+    CPU's. The loss callable writes each step's loss into a device buffer
+    at a cursor kept on the device, so the replays of a graph record their
+    steps as the eager steps do (no host read in the loop)."""
     from raydp_tpu_torch.data import TableDataset
     from raydp_tpu_torch.train.torch_estimator import _resolve_loss
 
     first = TableDataset([dataset.to_arrow().slice(0, CPU_STEPS * NYC_BATCH)])
     smooth_l1 = _resolve_loss("smooth_l1")
-    losses = {}
-    for device in ("cuda", "cpu"):
-        record = []
+
+    def step_losses(device, cache):
+        rec = {}
 
         def loss(preds, labels, mask=None):
             value = smooth_l1(preds, labels, mask=mask)
-            record.append(value.detach())
+            if not rec:   # the fit's first step is eager: not in a capture
+                rec["losses"] = torch.zeros(2 * CPU_STEPS,
+                                            device=value.device)
+                rec["cursor"] = torch.zeros(1, dtype=torch.long,
+                                            device=value.device)
+            rec["losses"].index_copy_(0, rec["cursor"],
+                                      value.detach().float().reshape(1))
+            rec["cursor"].add_(1)
             return value
 
-        nyctaxi_estimator(model, None, 1, shuffle=False, loss=loss,
-                          device=device).fit(first)
-        losses[device] = [float(v) for v in record]
-    card, cpu = losses["cuda"], losses["cpu"]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        with device_cache(cache):
+            result = nyctaxi_estimator(model, None, 1, shuffle=False,
+                                       loss=loss, device=device).fit(first)
+        n = int(rec["cursor"])
+        require(n == CPU_STEPS, f"{device} cache={cache}: {n} steps recorded")
+        return result, [float(v) for v in rec["losses"][:n].cpu()]
+
+    _, cpu = step_losses("cpu", False)
+    _, card = step_losses("cuda", False)
+    graphed, card_graphed = step_losses("cuda", True)
+
+    def largest(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    rel, rel_graphed = largest(card, cpu), largest(card_graphed, cpu)
     print(f"nyctaxi card vs cpu, {CPU_STEPS} f32 steps: largest relative "
-          f"loss difference {rel:.3e} (limit {CPU_LOSS_RTOL}); card "
-          f"{card[0]:.6f} -> {card[-1]:.6f}, cpu {cpu[0]:.6f} -> "
-          f"{cpu[-1]:.6f}")
-    require(len(card) == len(cpu) == CPU_STEPS,
-            f"steps: card {len(card)}, cpu {len(cpu)}")
+          f"loss difference {rel:.3e} eager streaming, {rel_graphed:.3e} "
+          f"graphed resident (limit {CPU_LOSS_RTOL}; graphed vs eager "
+          f"{largest(card_graphed, card):.3e}); card {card[0]:.6f} -> "
+          f"{card[-1]:.6f}, cpu {cpu[0]:.6f} -> {cpu[-1]:.6f}; dispatch "
+          f"{graphed.dispatch}")
+    require(graphed.dispatch[0]["graph_steps"] == CPU_STEPS - 1,
+            f"graphed card fit dispatch {graphed.dispatch}")
     require(rel <= CPU_LOSS_RTOL, f"card vs cpu losses: {card} vs {cpu}")
-    return {"steps": CPU_STEPS, "max_rel_diff": rel}
+    require(rel_graphed <= CPU_LOSS_RTOL,
+            f"graphed card vs cpu losses: {card_graphed} vs {cpu}")
+    return {"steps": CPU_STEPS, "max_rel_diff": rel,
+            "graphed_rel_diff": rel_graphed}
 
 
 def check_predict(label: str, est, rows, columns=NYC_COLUMNS) -> float:
@@ -1217,13 +1273,10 @@ def run_nyctaxi(fa, tmp: str):
     # resident == streaming, unshuffled, epoch 0
     first = {}
     for cache in (True, False):
-        os.environ["RDT_DEVICE_CACHE"] = "1" if cache else "0"
-        try:
+        with device_cache(cache):
             first[cache] = nyctaxi_estimator(
                 model, None, 1, shuffle=False).fit(dataset).history[0][
                     "train_loss"]
-        finally:
-            del os.environ["RDT_DEVICE_CACHE"]
     print(f"nyctaxi unshuffled epoch 0: resident {first[True]:.9f}, "
           f"streaming {first[False]:.9f}")
     require(abs(first[True] - first[False])
@@ -1254,9 +1307,10 @@ def dlrm_model():
                 device="cpu", generator=torch.Generator().manual_seed(SEED))
 
 
-def dlrm_estimator(model, epochs, callbacks, shuffle=True):
+def dlrm_estimator(model, epochs, callbacks, shuffle=True, **kw):
     """bench.py's DLRM estimator: BCE with logits, the optax.adagrad(1e-2)
-    mapping, bf16 compute, batch 4096."""
+    mapping, bf16 compute, batch 4096 (``kw``: more estimator
+    arguments)."""
     from raydp_tpu_torch.models import criteo_batch_preprocessor
     from raydp_tpu_torch.train import TorchEstimator
 
@@ -1268,7 +1322,7 @@ def dlrm_estimator(model, epochs, callbacks, shuffle=True):
         batch_size=DLRM_BATCH, num_epochs=epochs, shuffle=shuffle,
         batch_preprocessor=criteo_batch_preprocessor(len(DLRM_DENSE)),
         compute_dtype=torch.bfloat16, metrics=["accuracy"],
-        callbacks=list(callbacks), checkpoint_interval=epochs)
+        callbacks=list(callbacks), checkpoint_interval=epochs, **kw)
 
 
 def run_dlrm(fa):
@@ -1921,6 +1975,347 @@ def run_etl(fa, phase5: dict, phase6: dict, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the estimator's dispatch plane at the main path's widths. On the
+# card a resident fit replays one CUDA graph a step (epoch 0: one eager
+# warm-up step, a capture, replays) and a streaming fit with
+# steps_per_dispatch=k one graph a stack of k batches; held against the
+# eager streaming path, in turns. Then remat, a retry under graphs, the
+# optimizer step a DLRM checkpoint records, and partial_fit over the port's
+# continuous pipeline.
+
+DISPATCH_EPOCHS = 3
+# bench.py's CHAIN (bench.py:57): steps per dispatch on the streaming path
+CHAIN = 8
+# k steps chained vs dispatched one by one: the reference's own limits for
+# the same contract (tests/test_train.py, steps_per_dispatch parity)
+CHAIN_RTOL, CHAIN_ATOL = 1e-5, 1e-6
+REMAT_EPOCHS = 2
+# partial_fit: stream epochs of whole batches, so that the three epochs are
+# the batches of one unshuffled fit over their rows, in the same order
+ONLINE_EPOCHS, ONLINE_ROWS = 3, 4 * NYC_BATCH
+
+
+def expected_dispatch(steps: int, k: int, first: bool) -> tuple:
+    """(graph replays, eager steps) of one epoch of ``steps`` steps, one
+    graph a step (``k = 1``, resident) or a stack of ``k``: the fit's
+    first call is the eager warm-up and the next one captures; an epoch's
+    remainder stack (steps % k) runs eagerly. Holds for epochs of at least
+    two whole stacks (phases 5-6's widths: 48 and 29 steps)."""
+    full, rem = divmod(steps, k)
+    return (full - 1 if first else full, (k if first else 0) + rem)
+
+
+def check_dispatch(label: str, result, k: int) -> None:
+    """Every epoch of a graphed fit replays as ``expected_dispatch`` says,
+    runs every step once, and epoch 0 captured."""
+    for d, r in zip(result.dispatch, result.history):
+        want = expected_dispatch(r["steps"], k, d["epoch"] == 0)
+        got = (d["graph_replays"], d["eager_steps"])
+        require(got == want and d["graph_steps"] + d["eager_steps"]
+                == r["steps"], f"{label} epoch {d['epoch']}: (replays, "
+                f"eager) {got}, expected {want}; {d}")
+    require(result.dispatch[0]["capture_s"] > 0,
+            f"{label}: no capture in epoch 0 ({result.dispatch[0]})")
+
+
+def losses_of(result) -> list:
+    return [r["train_loss"] for r in result.history]
+
+
+def graphs_against_eager(label: str, make, dataset, gate: bool) -> dict:
+    """Unshuffled fits in turns, graphed resident, eager streaming, eager
+    streaming, graphed resident; every fit's losses against the first
+    graphed one's (SAME_PATH_RTOL, a requirement only with ``gate``: f32;
+    the bf16 differences are printed)."""
+    runs = []
+    for name, cache in (("graphed", True), ("eager", False),
+                        ("eager", False), ("graphed", True)):
+        _, result, numbers = fit_and_report(
+            f"dispatch {label} {name}", make(DISPATCH_EPOCHS), dataset,
+            DISPATCH_EPOCHS, cache=cache)
+        if cache:
+            check_dispatch(f"dispatch {label} graphed", result, 1)
+        else:
+            require(all(d["graph_replays"] == 0 for d in result.dispatch),
+                    f"{label}: the eager streaming fit replayed a graph")
+        runs.append((name, losses_of(result), numbers))
+    ref = runs[0][1]
+    worst = max(abs(a - b) / abs(b) for _, losses, _ in runs
+                for a, b in zip(losses, ref))
+    out = {"max_rel_diff": worst, "gated": gate}
+    for name in ("graphed", "eager"):
+        mine = [n for m, _, n in runs if m == name]
+        out[name] = {
+            "samples_per_s_steady": [n["samples_per_s_steady"] for n in mine],
+            "peak_mib": [n["peak_bytes"] / 2 ** 20 for n in mine],
+            "capture_s": [sum(d["capture_s"] for d in n["dispatch"])
+                          for n in mine]}
+    print(f"dispatch {label}: graphed "
+          f"{[round(v, 1) for v in out['graphed']['samples_per_s_steady']]}"
+          f" vs eager "
+          f"{[round(v, 1) for v in out['eager']['samples_per_s_steady']]} "
+          f"samples/s steady; peak graphed "
+          f"{[round(v, 1) for v in out['graphed']['peak_mib']]} vs eager "
+          f"{[round(v, 1) for v in out['eager']['peak_mib']]} MiB; capture "
+          f"{[round(v, 4) for v in out['graphed']['capture_s']]} s; losses "
+          f"differ by at most {worst:.3e} of themselves "
+          f"({'limit ' + str(SAME_PATH_RTOL) if gate else 'not gated'})")
+    if gate:
+        require(worst <= SAME_PATH_RTOL,
+                f"{label}: graphed vs eager losses {runs}")
+    return out
+
+
+def chain_against_one(label: str, make, dataset) -> dict:
+    """Streaming fits in turns, steps_per_dispatch=CHAIN, 1, 1, CHAIN;
+    every fit's losses against the first's at the reference's limits."""
+    runs = []
+    for k in (CHAIN, 1, 1, CHAIN):
+        _, result, numbers = fit_and_report(
+            f"dispatch {label} streaming k={k}", make(2, k), dataset, 2,
+            cache=False)
+        if k > 1:
+            check_dispatch(f"dispatch {label} k={k}", result, k)
+        runs.append((k, losses_of(result), numbers))
+    ref = runs[0][1]
+    for k, losses, _ in runs:
+        require(all(abs(a - b) <= CHAIN_ATOL + CHAIN_RTOL * abs(b)
+                    for a, b in zip(losses, ref)),
+                f"{label}: k={k} losses {losses} vs k={CHAIN} {ref}")
+    out = {f"k{k}": [n["samples_per_s_steady"] for m, _, n in runs if m == k]
+           for k in (CHAIN, 1)}
+    print(f"dispatch {label}: streaming k={CHAIN} "
+          f"{[round(v, 1) for v in out[f'k{CHAIN}']]} vs k=1 "
+          f"{[round(v, 1) for v in out['k1']]} samples/s steady; losses "
+          f"within rtol {CHAIN_RTOL}, atol {CHAIN_ATOL} ({ref})")
+    return out
+
+
+def run_remat(dataset, tmp: str) -> dict:
+    """DLRM (phase 6's widths, bf16, graphed resident) under remat none,
+    dots and full: the same losses (recomputation recomputes, it does not
+    approximate), the peak memory and the captured step's activation bytes
+    per mode. The ``none`` fit checkpoints; its restored optimizer state
+    must record the steps it ran (Adagrad keeps its step counter on the
+    host, and a replay does not advance it: the runner does)."""
+    import os
+
+    from raydp_tpu_torch import metrics as rdt_metrics
+    from raydp_tpu_torch.train import checkpoint as ckpt
+
+    model = dlrm_model()
+    out = {}
+    ckpt_dir = os.path.join(tmp, "dlrm_remat_none")
+    losses = {}
+    for mode in ("none", "dots", "full"):
+        rdt_metrics.reset()
+        est, result, numbers = fit_and_report(
+            f"dispatch dlrm bf16 remat={mode}", lambda cb: dlrm_estimator(
+                model, REMAT_EPOCHS, cb, shuffle=False, remat=mode,
+                checkpoint_dir=ckpt_dir if mode == "none" else None),
+            dataset, REMAT_EPOCHS)
+        check_dispatch(f"dlrm remat={mode}", result, 1)
+        gauge = rdt_metrics.snapshot()["gauges"].get(
+            "train_activation_bytes_per_process", {}).get("")
+        require((gauge is None) == (mode == "none"),
+                f"remat={mode}: activation gauge {gauge}")
+        losses[mode] = losses_of(result)
+        out[mode] = {"losses": losses[mode],
+                     "peak_mib": numbers["peak_bytes"] / 2 ** 20,
+                     "activation_mib": None if gauge is None
+                     else gauge / 2 ** 20,
+                     "samples_per_s_steady": numbers["samples_per_s_steady"]}
+        if mode == "none":
+            steps = sum(r["steps"] for r in result.history)
+            saved, _ = ckpt.restore(ckpt_dir, est._result.state.state_dict())
+            recorded = sorted({float(s["step"]) for s in
+                               saved["optimizer"]["state"].values()})
+            print(f"dispatch dlrm checkpoint after a graphed fit of {steps} "
+                  f"steps: the optimizer's step counters read {recorded}")
+            require(recorded == [float(steps)],
+                    f"the checkpoint records steps {recorded}, ran {steps}")
+            out["checkpoint_step"] = recorded[0]
+    for mode in ("dots", "full"):
+        require(all(abs(a - b) <= SAME_PATH_RTOL * abs(b)
+                    for a, b in zip(losses[mode], losses["none"])),
+                f"remat={mode} losses {losses[mode]} vs none {losses['none']}")
+    print("dispatch dlrm remat: " + ", ".join(
+        f"{m} peak {out[m]['peak_mib']:.1f} MiB, captured step "
+        f"{out[m]['activation_mib'] if out[m]['activation_mib'] is None else round(out[m]['activation_mib'], 1)} MiB"
+        for m in ("none", "dots", "full"))
+        + f"; losses equal within {SAME_PATH_RTOL}")
+    return out
+
+
+def run_retry(dataset, tmp: str) -> dict:
+    """NYCTaxi f32, graphed resident, shuffled: the port's fault plane
+    raises at ``estimator.epoch`` in epoch 2 with ``max_retries=1``; the
+    fit restores epoch 1's checkpoint, captures again and must end as an
+    uninterrupted one."""
+    import os
+
+    from raydp_tpu_torch import faults
+    from raydp_tpu_torch.models import NYCTaxiModel
+
+    model = NYCTaxiModel(NYCTAXI_FEATURES, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+    epochs = 4
+
+    def make(name):
+        return lambda cb: nyctaxi_estimator(
+            model, None, epochs, callbacks=cb,
+            checkpoint_dir=os.path.join(tmp, f"retry_{name}"))
+
+    _, clean, _ = fit_and_report("dispatch nyctaxi f32 graphed clean",
+                                 make("clean"), dataset, epochs)
+    faults.clear()
+    try:
+        rule = faults.inject("estimator.epoch", "raise", match="2", times=1)
+        _, retried, _ = fit_and_report(
+            "dispatch nyctaxi f32 graphed retried", make("retried"), dataset,
+            epochs, max_retries=1)
+    finally:
+        faults.clear()
+    a, b = losses_of(clean), losses_of(retried)
+    print(f"dispatch retry: the fault fired {rule.fires} time(s) at epoch "
+          f"2; losses {b} vs uninterrupted {a}; dispatch {retried.dispatch}")
+    require(rule.fires == 1, "the estimator.epoch fault never fired")
+    require(len(a) == len(b) == epochs and all(
+        abs(x - y) <= SAME_PATH_RTOL * abs(y) for x, y in zip(b, a)),
+        f"retried {b} vs uninterrupted {a}")
+    # the retried epoch warms up and captures again
+    require([d["epoch"] for d in retried.dispatch] == [0, 1, 2, 3]
+            and retried.dispatch[2]["eager_steps"] == 1
+            and retried.dispatch[2]["capture_s"] > 0,
+            f"retried dispatch {retried.dispatch}")
+    return {"losses": b, "fires": rule.fires}
+
+
+def run_online(tmp: str) -> dict:
+    """partial_fit over the port's continuous pipeline on its ETL session:
+    ONLINE_EPOCHS stream epochs of ONLINE_ROWS NYCTaxi rows each, through a
+    filter that keeps every row, train NYCTaxiModel f32 eagerly, one pass an
+    epoch; the same steps as one unshuffled fit over the epochs' rows, so
+    the per-epoch losses average to that fit's loss and the weights end
+    equal (SAME_PATH_RTOL)."""
+    import os
+
+    import raydp_tpu_torch
+    from raydp_tpu_torch import stream
+    from raydp_tpu_torch.data import TableDataset
+    from raydp_tpu_torch.etl.expressions import col
+    from raydp_tpu_torch.models import NYCTaxiModel
+    from raydp_tpu_torch.runtime import get_runtime
+
+    def rows(epoch):
+        return nyctaxi_tables(ONLINE_ROWS, 1, SEED + 10 + epoch)[0]
+
+    model = NYCTaxiModel(NYCTAXI_FEATURES, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+    out = {}
+    t0 = time.perf_counter()
+    session = raydp_tpu_torch.init("smoke-stream", **ETL_SESSION)
+    prefix = f"rdt{get_runtime().session_id[:8]}"
+    try:
+        est = nyctaxi_estimator(model, None, 1, shuffle=False)
+        pipe = stream.read_stream(
+            stream.SyntheticSource(rows, max_epochs=ONLINE_EPOCHS),
+            session).transform(lambda df: df.filter(col(NYC_LABEL) > 0))
+        with pipe:
+            t1 = time.perf_counter()
+            online = est.partial_fit(pipe, max_epochs=ONLINE_EPOCHS)
+            out["partial_fit_s"] = time.perf_counter() - t1
+        for r in online.history:
+            print(f"online nyctaxi f32 epoch {r['epoch']}: " + json.dumps(
+                {k: (round(v, 6) if isinstance(v, float) else v)
+                 for k, v in r.items() if k != "epoch"}))
+        online_model = est.get_model()
+    finally:
+        raydp_tpu_torch.stop()
+    out["phase_s"] = time.perf_counter() - t0
+    left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+    losses = [r["train_loss"] for r in online.history]
+    steps = [r["steps"] for r in online.history]
+    with device_cache(False):
+        plain = nyctaxi_estimator(model, None, 1, shuffle=False).fit(
+            TableDataset([rows(e) for e in range(ONLINE_EPOCHS)]))
+    mean = statistics.fmean(losses)
+    want = plain.history[0]["train_loss"]
+    a = online_model.state_dict()
+    b = plain.state.model.state_dict()
+    weights = max(float((a[k].float() - b[k].float()).abs().max()
+                        / b[k].float().abs().max().clamp_min(1e-30))
+                  for k in b)
+    print(f"online: {online.epochs} stream epochs in "
+          f"{out['partial_fit_s']:.3f} s (session and all "
+          f"{out['phase_s']:.3f} s), steps {steps}, losses {losses}; their "
+          f"mean {mean:.9f} vs one fit over the same rows {want:.9f}; "
+          f"weights differ by at most {weights:.3e} of their largest; "
+          f"segments of the session left: {left}")
+    require(online.epochs == ONLINE_EPOCHS
+            and steps == [ONLINE_ROWS // NYC_BATCH] * ONLINE_EPOCHS
+            and all(map(math.isfinite, losses)),
+            f"partial_fit history {online.history}")
+    require(abs(mean - want) <= SAME_PATH_RTOL * abs(want)
+            and weights <= SAME_PATH_RTOL,
+            f"partial_fit vs fit: {mean} vs {want}, weights {weights}")
+    require(not left, f"segments left after stop: {left}")
+    out.update(losses=losses, steps=steps)
+    return out
+
+
+def run_dispatch(fa, tmp: str) -> dict:
+    """Phase 9: graphs against eager, k=CHAIN against 1, remat, a retry,
+    DLRM's checkpointed step and partial_fit, at the main path's widths."""
+    from raydp_tpu_torch.data import TableDataset
+    from raydp_tpu_torch.models import NYCTaxiModel
+
+    t_phase = time.perf_counter()
+    nyc = TableDataset(nyctaxi_tables(NYC_ROWS, NYC_BLOCKS, SEED))
+    dlrm = TableDataset(criteo_tables(DLRM_ROWS, DLRM_BLOCKS, SEED))
+    model = NYCTaxiModel(NYCTAXI_FEATURES, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+    model16 = NYCTaxiModel(NYCTAXI_FEATURES, dtype=torch.bfloat16,
+                           device="cpu")
+    model16.load_state_dict(model.state_dict())
+    dmodel = dlrm_model()
+
+    def nyc_make(m, dtype):
+        return lambda epochs, k=1: lambda cb: nyctaxi_estimator(
+            m, dtype, epochs, shuffle=False, callbacks=cb,
+            checkpoint_interval=epochs, steps_per_dispatch=k)
+
+    def dlrm_make(epochs, k=1):
+        return lambda cb: dlrm_estimator(dmodel, epochs, cb, shuffle=False,
+                                         steps_per_dispatch=k)
+
+    configs = (("nyctaxi f32", nyc_make(model, None), nyc, True),
+               ("nyctaxi bf16", nyc_make(model16, torch.bfloat16), nyc,
+                False),
+               ("dlrm bf16", dlrm_make, dlrm, False))
+    out = {}
+    zero_launches(fa)
+    for label, make, dataset, gate in configs:
+        free_memory()
+        out[label] = {
+            "graphs_vs_eager": graphs_against_eager(label, make, dataset,
+                                                    gate),
+            "chain_vs_one": chain_against_one(label, make, dataset)}
+    free_memory()
+    out["remat"] = run_remat(dlrm, tmp)
+    free_memory()
+    out["retry"] = run_retry(nyc, tmp)
+    counts = launches(fa)
+    require(not any(counts.values()), f"dispatch phase launched {counts}")
+    free_memory()
+    out["online"] = run_online(tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dispatch phase: {out['phase_s']:.3f} s")
+    print("dispatch phase " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -1951,7 +2346,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = {"flash_attention_fwd": check_kernel(fa, device, gen, baseline),
             **check_bwd_kernels(fa, device, gen, baseline)}
-    # phases 5-7 are bound by the host's kernel launches: their timed fits
+    # phases 5-9 are bound by the host's kernel launches: their timed fits
     # run before any torch.profiler session of this process (phases 3-4
     # profile, and so do 5-6 at their end), so no profiler hook is left in
     # the launch path while they are timed
@@ -1965,12 +2360,16 @@ def main() -> int:
         store = run_store(fa, card)
         free_memory()
         etl = run_etl(fa, nyctaxi, dlrm, tmp)
+        free_memory()
+        dispatch = run_dispatch(fa, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # the profiled epochs replay graphs: the idle share of a graphed epoch
     nyctaxi["profile"] = profile_nyctaxi()
     dlrm["profile"] = profile_dlrm()
     print("main path " + json.dumps({"nyctaxi": nyctaxi, "dlrm": dlrm,
-                                     "store": store, "etl": etl}))
+                                     "store": store, "etl": etl,
+                                     "dispatch": dispatch}))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()

@@ -14,7 +14,11 @@ runtime and the object store (:mod:`raydp_tpu_torch.runtime`) under the
 store-backed :class:`~raydp_tpu_torch.data.DistributedDataset`; the ETL
 engine (:mod:`raydp_tpu_torch.etl`), whose session :func:`init` starts and
 :func:`stop` ends, and the frame conversions that feed its output to
-``TorchEstimator.fit_on_frame``.
+``TorchEstimator.fit_on_frame``; the estimator's dispatch plane (CUDA
+graphs of the resident epoch's step and of ``steps_per_dispatch`` chains,
+:mod:`raydp_tpu_torch.train.step_graph`), ``remat``
+(:mod:`raydp_tpu_torch.parallel`), and ``partial_fit`` over the continuous
+pipelines of :mod:`raydp_tpu_torch.stream`.
 
     import raydp_tpu_torch
     session = raydp_tpu_torch.init("nyc", num_executors=2,

@@ -16,9 +16,12 @@ the host batches are byte-identical to the reference's.
   copy on a side CUDA stream (the ``h2d`` phase), ``prefetch_to_device``
   batches ahead; the consumer's stream waits on the copy's event, so batch
   ``k+1`` crosses the bus while batch ``k`` computes.
+  :meth:`DeviceFeed.chained` stacks ``k`` host batches and places the
+  stack with one copy: the inputs of one replay of a ``k``-step graph.
 - :class:`DeviceEpochCache` keeps the whole dataset resident in device
-  memory; an epoch is a loop over on-device slices (no shuffle) or gathers
-  of one per-epoch permutation.
+  memory; an epoch (:class:`ResidentEpoch`) gathers its batches on the
+  device through static index state (the epoch's row order and a step
+  cursor), so one captured step can be replayed for every batch.
 
 The reference draws the resident permutation with
 ``jax.random.permutation``, which torch cannot reproduce; the port draws it
@@ -39,7 +42,7 @@ import numpy as np
 import pyarrow as pa
 import torch
 
-from raydp_tpu_torch import knobs
+from raydp_tpu_torch import knobs, metrics
 from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.native.stage import stage_table
 
@@ -78,6 +81,7 @@ def pad_batch(batch: Dict[str, np.ndarray], batch_size: int
         batch = {n: np.concatenate(
             [a, np.zeros((pad,) + a.shape[1:], a.dtype)], axis=0)
             for n, a in batch.items()}
+        metrics.inc("train_padded_rows_total", pad)
     else:
         batch = dict(batch)
     batch[MASK_KEY] = mask
@@ -247,15 +251,57 @@ class HostBatchIterator:
         return batch, rest, buffered - self.batch_size
 
 
+class ResidentEpoch:
+    """The batches of one resident epoch, read through static index state.
+
+    ``order`` holds the epoch's row order (a permutation of all rows, or
+    ``arange`` unshuffled) and ``cursor`` the next step; :meth:`next_batch`
+    gathers rows ``order[cursor·b : (cursor+1)·b]`` of every resident array
+    and advances the cursor, all on the device, so a step that calls it
+    reads the same tensors at every call and can be captured into a CUDA
+    graph once and replayed for every batch. :meth:`begin` draws the
+    epoch's permutation eagerly, before the steps, from a
+    ``torch.Generator`` seeded with the epoch's seed, and rewinds the
+    cursor. ``steps`` whole batches an epoch; a ragged tail is dropped."""
+
+    def __init__(self, arrays: Dict[str, torch.Tensor], num_rows: int,
+                 batch_size: int, shuffle: bool, device: torch.device):
+        self.arrays = arrays
+        self.num_rows = num_rows
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.steps = num_rows // batch_size
+        self.order = torch.arange(num_rows, device=device)
+        self.cursor = torch.zeros((), dtype=torch.int64, device=device)
+        self._offsets = torch.arange(batch_size, device=device)
+
+    def begin(self, seed: int) -> None:
+        """Start an epoch: the permutation for ``seed`` (when shuffled) and
+        the cursor at step 0."""
+        if self.shuffle:
+            device = self.order.device
+            gen = torch.Generator(device=device).manual_seed(seed)
+            self.order.copy_(torch.randperm(self.num_rows, generator=gen,
+                                            device=device))
+        self.cursor.zero_()
+
+    def next_batch(self) -> Dict[str, torch.Tensor]:
+        idx = self.order.index_select(
+            0, self.cursor * self.batch_size + self._offsets)
+        self.cursor.add_(1)
+        return {n: a.index_select(0, idx) for n, a in self.arrays.items()}
+
+
 class DeviceEpochCache:
     """The whole dataset resident in device memory.
 
     Decode every block once, concatenate to contiguous host arrays and copy
-    them to the device. The train loop then runs an epoch as a loop whose
-    batches are *sliced (or gathered) on the device* — with per-epoch
-    shuffling as an on-device ``torch.randperm`` — so no host batch is built
-    and no host→device copy is made after the first epoch. The streaming
-    :class:`DeviceFeed` remains the path for datasets above the budget.
+    them to the device. The train loop then runs an epoch
+    (:meth:`make_epoch`) whose batches are *gathered on the device* — with
+    per-epoch shuffling as an on-device ``torch.randperm`` — so no host
+    batch is built and no host→device copy is made after the first epoch.
+    The streaming :class:`DeviceFeed` remains the path for datasets above
+    the budget.
     """
 
     def __init__(self, dataset, columns: Dict[str, Tuple[ColumnSpec, np.dtype]],
@@ -276,36 +322,12 @@ class DeviceEpochCache:
         self.arrays = {n: torch.tensor(a, device=self.device)
                        for n, a in joined.items()}
 
-    def make_epoch_fn(self, step, batch_size: int, shuffle: bool):
-        """Build THE resident epoch loop.
-
-        ``step(carry, batch) -> carry`` is the caller's train step. Returns
-        ``(epoch_fn, steps_per_epoch)`` with ``epoch_fn(carry, data, seed) ->
-        carry``: one whole epoch over ``data`` (the resident arrays) —
-        batches of ``batch_size`` consecutive rows, or, when ``shuffle``,
-        gathered by one permutation of all rows drawn on the device from a
-        ``torch.Generator`` seeded with ``seed``. A ragged tail is dropped.
-        """
-        n_rows, b = self.num_rows, batch_size
-        steps_per_epoch = n_rows // b
-        device = self.device
-
-        def epoch_fn(carry, data, seed: int):
-            perm = None
-            if shuffle:
-                gen = torch.Generator(device=device).manual_seed(seed)
-                perm = torch.randperm(n_rows, generator=gen, device=device)
-            for s in range(steps_per_epoch):
-                if perm is not None:
-                    idx = perm[s * b:(s + 1) * b]
-                    batch = {n: a.index_select(0, idx)
-                             for n, a in data.items()}
-                else:
-                    batch = {n: a[s * b:(s + 1) * b] for n, a in data.items()}
-                carry = step(carry, batch)
-            return carry
-
-        return epoch_fn, steps_per_epoch
+    def make_epoch(self, batch_size: int, shuffle: bool) -> ResidentEpoch:
+        """THE resident epoch over these arrays: batches of ``batch_size``
+        consecutive rows, or, when ``shuffle``, gathered by one permutation
+        of all rows per epoch (:class:`ResidentEpoch`)."""
+        return ResidentEpoch(self.arrays, self.num_rows, batch_size, shuffle,
+                             self.device)
 
     @staticmethod
     def cap_bytes() -> int:
@@ -365,6 +387,9 @@ class PipelineTimings:
     def add(self, key: str, dt: float) -> None:
         with self._lock:
             self._acc[key] += dt
+        # the registry twin: metrics_report() sees the feed's phases
+        # without the estimator re-publishing its epoch dicts
+        metrics.observe("feed_phase_seconds", dt, label=key)
 
     def take(self) -> Dict[str, float]:
         """Snapshot AND reset — each epoch reports its own split."""
@@ -556,6 +581,11 @@ class DeviceFeed:
         self.prefetch_to_device = max(0, int(prefetch_to_device))
         self.timings = PipelineTimings()
         self._copy_stream: Optional[torch.cuda.Stream] = None
+        #: held while a batch is placed on CUDA (pinned staging, the copy);
+        #: whoever holds it keeps the feed's threads from CUDA calls — the
+        #: capture of a CUDA graph does, since a call from another thread
+        #: can invalidate a capture in progress
+        self.placement_lock = threading.Lock()
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed per-epoch so shuffling differs across epochs deterministically."""
@@ -571,26 +601,29 @@ class DeviceFeed:
             out = {n: torch.tensor(a) for n, a in batch.items()}
             self.timings.add("h2d", time.perf_counter() - t0)
             return out, None
-        t0 = time.perf_counter()
-        pinned = {}
-        for n, a in batch.items():
-            host = torch.empty(a.shape, dtype=torch_dtype(a.dtype),
-                               pin_memory=True)
-            np.copyto(host.numpy(), a)
-            pinned[n] = host
-        t1 = time.perf_counter()
+        with self.placement_lock:
+            t0 = time.perf_counter()
+            pinned = {}
+            for n, a in batch.items():
+                host = torch.empty(a.shape, dtype=torch_dtype(a.dtype),
+                                   pin_memory=True)
+                np.copyto(host.numpy(), a)
+                pinned[n] = host
+            t1 = time.perf_counter()
+            with torch.cuda.device(self.device):
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream()
+                with torch.cuda.stream(self._copy_stream):
+                    # the caching host allocator keeps each pinned block
+                    # until the copy reading it has completed
+                    out = {n: h.to(self.device, non_blocking=True)
+                           for n, h in pinned.items()}
+                    ready = torch.cuda.Event()
+                    ready.record(self._copy_stream)
+            del pinned  # the host allocator's release, under the lock too
+            t2 = time.perf_counter()
         self.timings.add("stage", t1 - t0)
-        with torch.cuda.device(self.device):
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream()
-            with torch.cuda.stream(self._copy_stream):
-                # the caching host allocator keeps each pinned block until
-                # the copy reading it has completed
-                out = {n: h.to(self.device, non_blocking=True)
-                       for n, h in pinned.items()}
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-        self.timings.add("h2d", time.perf_counter() - t1)
+        self.timings.add("h2d", t2 - t1)
         return out, ready
 
     def _consume(self, item) -> Dict[str, torch.Tensor]:
@@ -612,19 +645,66 @@ class DeviceFeed:
             self.host_iter, depth=self.prefetch, timings=self.timings,
             pull_key="decode", name="devicefeed-host"))
 
-    def _placed(self, items):
-        """Run :meth:`_place` over ``items`` — through the async
+    def _placed(self, items, place_fn):
+        """Run ``place_fn`` over ``items`` — through the async
         :class:`DevicePrefetcher` stage when ``prefetch_to_device`` > 0,
         inline otherwise. Same values in the same order either way."""
         if self.prefetch_to_device <= 0:
             for item in items:
-                yield self._place(item)
+                yield place_fn(item)
             return
         yield from DevicePrefetcher(
-            items, fn=self._place, depth=self.prefetch_to_device,
+            items, fn=place_fn, depth=self.prefetch_to_device,
             name="devicefeed-device")
 
     def __iter__(self):
-        for item in self._placed(self._host_batches()):
+        for item in self._placed(self._host_batches(), self._place):
             yield self._consume(item)
+
+    def chained(self, k: int):
+        """Yield ``(stack, n)``: up to ``k`` host batches stacked on a new
+        leading dim and placed with ONE pinned host→device copy — the
+        inputs of one replay of a ``k``-step graph (the reference's
+        ``lax.scan``-chained dispatch). The epoch remainder (steps % k)
+        comes as a smaller stack; a ragged batch (the ``drop_remainder=
+        False`` epoch tail) cannot stack with full batches, so the stack
+        before it is flushed and it travels alone. ``k <= 1`` yields each
+        batch unstacked, as ``(batch, 1)``.
+
+        With ``prefetch_to_device`` > 0 the stacking (the ``stage`` phase)
+        AND the placement run on the device-prefetch thread, so both
+        overlap the consumer's steps."""
+        if k <= 1:
+            for batch in self:
+                yield batch, 1
+            return
+
+        def _rows(b: Dict[str, np.ndarray]) -> int:
+            return next(iter(b.values())).shape[0]
+
+        def _stack(buf):
+            t0 = time.perf_counter()
+            stacked = {n: np.stack([b[n] for b in buf]) for n in buf[0]}
+            self.timings.add("stage", time.perf_counter() - t0)
+            return stacked, len(buf)
+
+        def _stacks():
+            buf: List[Dict[str, np.ndarray]] = []
+            for batch in self._host_batches():
+                if buf and _rows(batch) != _rows(buf[0]):
+                    yield _stack(buf)
+                    buf = []
+                buf.append(batch)
+                if len(buf) == k:
+                    yield _stack(buf)
+                    buf = []
+            if buf:
+                yield _stack(buf)
+
+        def _place_stack(item):
+            stacked, n = item
+            return self._place(stacked), n
+
+        for placed, n in self._placed(_stacks(), _place_stack):
+            yield self._consume(placed), n
 

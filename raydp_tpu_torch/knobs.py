@@ -1,8 +1,9 @@
 """The ``RDT_*`` environment knobs the port reads — its copy of the entries
 of :mod:`raydp_tpu.knobs` on the ported paths (training, the runtime, the
-object store, the ETL engine, the fault plane), with the same names, types,
-defaults and read semantics, except ``RDT_WARM_IMPORTS``, whose default
-names ``torch`` where the reference's names ``jax``.
+object store, the ETL engine, the fault plane, continuous pipelines), with
+the same names, types, defaults and read semantics, except
+``RDT_WARM_IMPORTS``, whose default names ``torch`` where the reference's
+names ``jax``.
 
 :func:`get` reads the environment at the call, so tests and runs can flip a
 knob between actions; the runtime's process-start knobs are read once by
@@ -59,6 +60,39 @@ _ALL = [
          "Gradient-accumulation microbatches per optimizer step. Must "
          "divide batch_size; the estimator accum_steps= argument "
          "overrides."),
+    Knob("RDT_TRAIN_REMAT", "str", "none",
+         "Rematerialization policy for the train-step forward "
+         "(torch.utils.checkpoint placement by role, parallel/roles.py): a "
+         "global mode — 'dots' keeps matrix products (kernel/embedding "
+         "contractions) and recomputes elementwise glue; 'full' recomputes "
+         "everything; 'none' saves all residuals — or a per-role "
+         "'role=mode,...' map over the param roles "
+         "('embedding=none,kernel=dots,default=full'), chosen by the "
+         "model's dominant parameter role; a bare mode is the default "
+         "policy for every role. Validated eagerly, before any step. The "
+         "estimator remat= argument overrides."),
+    # ---- continuous pipelines ------------------------------------------------
+    Knob("RDT_STREAM_RETAIN", "int", 64,
+         "Epochs of replay state a continuous pipeline keeps: the source "
+         "journal and the published epoch blobs of the newest N epochs stay "
+         "available for exactly-once replay / late ranged-fetch; older "
+         "epochs are freed as the stream advances."),
+    Knob("RDT_STREAM_REPLAY_ROUNDS", "int", 4,
+         "Replay rounds a window merge (or epoch-stream fetch) attempts when "
+         "an epoch blob is lost (ObjectLostError): each round re-derives the "
+         "lost epochs from the source journal and re-seals them."),
+    Knob("RDT_STREAM_POLL_TIMEOUT_S", "float", 10.0,
+         "Longest a pipeline step blocks on its source before re-checking "
+         "for stop/close (idle tick; the source may return rows sooner)."),
+    Knob("RDT_STREAM_EXPORT_EVERY", "int", 0,
+         "Default epochs between partial_fit servable exports (and "
+         "hot-swaps when a serving session is attached). 0 disables the "
+         "cadence; the partial_fit export_every= argument overrides. The "
+         "port has no serving plane yet (ROADMAP item 9), so partial_fit "
+         "refuses a value above 0."),
+    Knob("RDT_STREAM_MAX_PARTITIONS", "int", 0,
+         "Partitions each micro-batch epoch is split into before its engine "
+         "action (0 = auto: min(executors, rows))."),
     # ---- ETL engine ----------------------------------------------------------
     Knob("RDT_ETL_OPTIMIZER", "bool", True,
          "Rule-based logical-plan optimizer (projection pruning + predicate "

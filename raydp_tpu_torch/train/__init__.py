@@ -1,12 +1,15 @@
 """raydp_tpu_torch.train — the estimator, its metrics and checkpoints.
 
 - :mod:`torch_estimator` — :class:`TorchEstimator` (fit / fit_on_frame
-  / predict / get_model, the port of ``FlaxEstimator``);
+  / predict / get_model / partial_fit, the port of ``FlaxEstimator``);
+- :mod:`step_graph` — the step runner that replays a captured train or
+  eval step as a CUDA graph (the reference's jitted scan and chain);
 - :mod:`metrics` — MSE / RMSE / MAE / Accuracy / BCE with the pad mask;
 - :mod:`checkpoint` — ``step_<n>`` dirs in the reference's one-process
   layout;
-- :mod:`estimator` — the estimator interfaces (``fit``, ``fit_on_frame``
-  with its frame conversion) and checkpoint cadence.
+- :mod:`estimator` — the estimator interfaces (``fit``, ``partial_fit``
+  over a continuous pipeline, ``fit_on_frame`` with its frame conversion)
+  and checkpoint cadence.
 """
 
 from raydp_tpu_torch.train.estimator import (

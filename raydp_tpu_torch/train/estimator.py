@@ -1,15 +1,41 @@
 """Estimator interface — the port's copy of the parts of
 :mod:`raydp_tpu.train.estimator` on the training path: ``fit`` over datasets
-plus ``get_model``, ``fit_on_frame`` over ETL DataFrames with the frame
-conversion every estimator shares, and the checkpoint cadence every
+plus ``get_model``, ``partial_fit`` over a continuous pipeline with
+:class:`OnlineTrainingResult`, ``fit_on_frame`` over ETL DataFrames with the
+frame conversion every estimator shares, and the checkpoint cadence every
 estimator loop shares.
+
+``partial_fit``'s export cadence (``export_every``, which exports a serving
+bundle and ships it into a live serving session) needs ``export_serving``
+and the serving plane, which are not ported yet (ROADMAP item 9): a cadence
+above 0 raises. The reference's default (``RDT_STREAM_EXPORT_EVERY=0``)
+never exports. The arguments and result fields that only matter with
+exports (``export_dir``, ``serving``, ``rollout``; ``exports``,
+``rollouts``) come with that item.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from abc import ABC, abstractmethod
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+
+@dataclass
+class OnlineTrainingResult:
+    """What one :meth:`EstimatorInterface.partial_fit` drive produced: the
+    per-epoch train metric reports and how many stream epochs it consumed.
+    The trained model itself lives on the estimator (``get_model``),
+    exactly as after ``fit``."""
+
+    history: List[Dict[str, float]] = field(default_factory=list)
+    epochs: int = 0
+
+    @property
+    def final_metrics(self) -> Dict[str, float]:
+        return self.history[-1] if self.history else {}
 
 
 class EstimatorInterface(ABC):
@@ -22,6 +48,128 @@ class EstimatorInterface(ABC):
     @abstractmethod
     def get_model(self):
         ...
+
+    # ---------------------------------------------------------- partial_fit
+    def partial_fit(self, stream, *, max_epochs: Optional[int] = None,
+                    export_every: Optional[int] = None,
+                    timeout_s: Optional[float] = None
+                    ) -> OnlineTrainingResult:
+        """Online training over a continuous pipeline.
+
+        Consumes stream epochs — each one micro-batch's transformed rows,
+        sealed in the object store — and updates the model incrementally:
+        parameters persist across epochs (one gradient pass per epoch here,
+        vs ``fit``'s many passes over one static dataset). Every epoch's
+        rows flow through the same feed plane ``fit`` uses, and every epoch
+        appends a train-metrics report to the returned history.
+
+        ``stream`` may be a
+        :class:`~raydp_tpu_torch.stream.pipeline.ContinuousPipeline` (driven
+        inline: each step runs one source epoch), an
+        :class:`~raydp_tpu_torch.stream.pipeline.EpochStream` (a decoupled
+        ledger consumer — e.g. of a pipeline running on its background
+        thread), or any iterable of ``EpochResult``. Stops after
+        ``max_epochs``, or when the stream ends.
+
+        ``export_every`` (default ``RDT_STREAM_EXPORT_EVERY``; 0 disables)
+        would export the model every N epochs and ship it into a serving
+        session: the port has no ``export_serving`` yet (ROADMAP item 9),
+        so a cadence above 0 raises ``NotImplementedError`` before any
+        epoch is consumed.
+        """
+        from raydp_tpu_torch import knobs, metrics
+
+        if export_every is None:
+            export_every = int(knobs.get("RDT_STREAM_EXPORT_EVERY"))
+        if export_every:
+            raise NotImplementedError(
+                f"partial_fit(export_every={export_every}) exports serving "
+                f"bundles through export_serving, which the port does not "
+                f"have yet (ROADMAP item 9, serving); pass export_every=0")
+        result = OnlineTrainingResult()
+        for epoch_id, ds in self._stream_epochs(stream, max_epochs,
+                                                timeout_s):
+            t0 = time.perf_counter()
+            report = self._partial_fit_epoch(ds, epoch_id)
+            report.setdefault("epoch", epoch_id)
+            report.setdefault("epoch_time_s", time.perf_counter() - t0)
+            metrics.observe("train_epoch_seconds", report["epoch_time_s"])
+            result.history.append(report)
+            result.epochs += 1
+        return result
+
+    @staticmethod
+    def _stream_epochs(stream, max_epochs: Optional[int],
+                       timeout_s: Optional[float]):
+        """Normalize the accepted stream shapes to ``(epoch id, dataset)``
+        pairs, each dataset a store-backed view of the epoch's rows."""
+        from raydp_tpu_torch.stream.pipeline import (
+            ContinuousPipeline, EpochStream,
+        )
+
+        if isinstance(stream, ContinuousPipeline):
+            for er in stream.epochs(max_epochs=max_epochs,
+                                    timeout_s=timeout_s):
+                yield er.epoch, er.dataset()
+            return
+        if isinstance(stream, EpochStream):
+            done = 0
+            while max_epochs is None or done < max_epochs:
+                item = stream.next(timeout_s if timeout_s is not None
+                                   else 30.0)
+                if item is None:
+                    if stream.exhausted:
+                        return
+                    continue
+                epoch, table = item
+                ds, ref = _table_dataset(table)
+                try:
+                    # the consumer trains through the dataset before
+                    # resuming this generator; the finally also covers a
+                    # training failure closing the generator mid-yield
+                    yield epoch, ds
+                finally:
+                    _free_refs([ref])
+                done += 1
+            return
+        it = iter(stream)
+        done = 0
+        while max_epochs is None or done < max_epochs:
+            # check the bound BEFORE pulling: a shared iterator must not
+            # have an epoch consumed and silently dropped past the cap
+            er = next(it, None)
+            if er is None:
+                return
+            yield er.epoch, er.dataset()
+            done += 1
+
+    def _partial_fit_epoch(self, ds, epoch: int) -> Dict[str, float]:
+        """One incremental update over one epoch's dataset; returns the
+        epoch's train-metrics report. Implemented by estimators that
+        support online training."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support partial_fit()")
+
+
+def _table_dataset(table):
+    """An already-fetched epoch table as a 1-block feed-plane dataset
+    (the EpochStream consumer path — its tables left the store already).
+    Returns ``(dataset, ref)``; the caller frees ``ref`` after training."""
+    from raydp_tpu_torch.data.dataset import BlockMeta, DistributedDataset
+    from raydp_tpu_torch.runtime.object_store import get_client
+
+    ref = get_client().put_arrow(table)
+    return DistributedDataset([BlockMeta(num_rows=table.num_rows, ref=ref)],
+                              table.schema), ref
+
+
+def _free_refs(refs) -> None:
+    from raydp_tpu_torch.runtime.object_store import get_client
+
+    try:
+        get_client().free(list(refs))
+    except Exception:  # noqa: BLE001 - a stopping runtime reads as freed
+        pass
 
 
 class FrameEstimatorInterface(ABC):

@@ -5,7 +5,7 @@ CUDA device (or, when asked, the CPU).
 interface of the reference's ``DistributedDataset`` (the port's
 :class:`~raydp_tpu_torch.data.TableDataset`, or the reference's own): the
 whole dataset resident on the device when it fits (:class:`DeviceEpochCache`,
-an epoch is a loop over on-device slices or gathers), else the streaming
+an epoch gathers its batches on the device), else the streaming
 :class:`DeviceFeed`. Per epoch it reports the same keys as the reference
 (``train_loss``, ``steps``, ``samples_per_s``, the epoch time split into
 feed/decode/stage/h2d/dispatch/sync, ``train_<metric>``, ``eval_loss``,
@@ -14,7 +14,17 @@ feed/decode/stage/h2d/dispatch/sync, ``train_<metric>``, ``eval_loss``,
 :mod:`raydp_tpu_torch.train.checkpoint`, and on a failure restores the last
 checkpoint this fit wrote, up to ``max_retries`` times. ``fit_on_frame``
 converts ETL DataFrames first (:class:`FrameEstimatorInterface`).
-``predict`` and ``get_model`` follow.
+``predict`` and ``get_model`` follow; ``partial_fit`` trains online over a
+continuous pipeline (:mod:`raydp_tpu_torch.stream`), one pass an epoch.
+
+How it dispatches (the reference's jitted scan and chain): on CUDA the
+resident epoch, the resident eval pass and, with ``steps_per_dispatch=k >
+1``, each ``k``-step chain of the streaming feed are CUDA graphs, captured
+after the fit's first (eager) step and replayed once a step or chain
+(:mod:`raydp_tpu_torch.train.step_graph`); streaming with ``k = 1``,
+streaming eval, ragged batches and ``partial_fit`` run eagerly, as the
+reference dispatches them one jitted step at a time. On the CPU the same
+runners call the step directly.
 
 How the reference's pieces map:
 
@@ -30,16 +40,28 @@ How the reference's pieces map:
   ``g / sqrt(acc + 1e-7)``) is ``torch.optim.Adagrad(params, lr=lr,
   initial_accumulator_value=0.1, eps=0.0)`` to within 5e-7 of the update
   (torch adds eps outside the root; with the accumulator ≥ 0.1 dropping
-  optax's 1e-7 inside it moves the root by at most that share);
+  optax's 1e-7 inside it moves the root by at most that share). On CUDA
+  the optimizer is made capturable before its first step
+  (:func:`~raydp_tpu_torch.train.step_graph.prepare_optimizer`);
 - ``compute_dtype`` casts the floating inputs (after
   ``batch_preprocessor``) to a torch dtype;
+- ``remat`` (or ``RDT_TRAIN_REMAT``) wraps the train forward in
+  ``torch.utils.checkpoint`` by the model's dominant parameter role
+  (:mod:`raydp_tpu_torch.parallel.roles`);
 - the loss and metric sums stay on the device; the host reads them once,
   at the end of the epoch.
 
+Telemetry (the reference's names): the ``estimator.epoch`` fault site at
+the top of every epoch, the ``train:place`` span around the state's
+placement, the ``train:accum`` span around a capture when accumulation or
+remat is engaged, the gauges ``train_param_bytes_per_process``,
+``train_accum_steps`` and ``train_activation_bytes_per_process``, and the
+``train_epoch_seconds`` histogram.
+
 Not ported yet (ROADMAP): ``mesh``/``mesh_spec``/``param_rules``,
-``steps_per_dispatch``, ``remat``, ``seq_sharded``, ``PipelineModel``,
-``fit_gang`` and resume (so ``fit_on_frame`` refuses ``num_workers > 1``),
-``partial_fit``, ``export_serving``.
+``seq_sharded``, ``PipelineModel``, ``fit_gang`` and resume (so
+``fit_on_frame`` refuses ``num_workers > 1``), ``export_serving`` (so
+``partial_fit`` refuses ``export_every > 0``).
 """
 
 from __future__ import annotations
@@ -56,17 +78,25 @@ import numpy as np
 import torch
 from torch import nn
 
-from raydp_tpu_torch import knobs
+from raydp_tpu_torch import faults, knobs, profiler
+from raydp_tpu_torch import metrics as rdt_metrics
 from raydp_tpu_torch.data.feed import (
     MASK_KEY, DeviceEpochCache, DeviceFeed, HostBatchIterator, epoch_seed,
 )
 from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.log import get_logger
+from raydp_tpu_torch.parallel.roles import (
+    addressable_nbytes, apply_remat, parse_remat_policy, remat_mode_for_role,
+    segment_role,
+)
 from raydp_tpu_torch.train import checkpoint as ckpt
 from raydp_tpu_torch.train.estimator import (
     EstimatorInterface, FrameEstimatorInterface, save_epoch_now,
 )
 from raydp_tpu_torch.train.metrics import Metric, build_metrics
+from raydp_tpu_torch.train.step_graph import (
+    Accumulators, StepRunner, prepare_optimizer,
+)
 
 logger = get_logger("train.torch_estimator")
 
@@ -92,6 +122,11 @@ class TrainingResult:
     state: TrainState
     history: List[Dict[str, float]] = field(default_factory=list)
     checkpoint_dir: Optional[str] = None
+    #: how each epoch that ran dispatched its steps (retried epochs
+    #: included): ``graph_replays`` and ``graph_steps`` (the train steps
+    #: those replays ran), ``eager_steps``, ``capture_s`` of a capture made
+    #: in the epoch, ``eval_replays``
+    dispatch: List[Dict[str, float]] = field(default_factory=list)
 
 
 def _default_optimizer(params) -> torch.optim.Optimizer:
@@ -182,17 +217,20 @@ def _host_stats(stats) -> Dict[str, np.ndarray]:
                 else np.asarray(v, np.float32)) for k, v in stats.items()}
 
 
-def _make_apply(split_batch, compute_dtype):
+def _make_apply(split_batch, compute_dtype, remat_mode: str = "none"):
     """Build THE forward of the train and eval steps — one source for the
-    split/cast/mode/squeeze policy.
+    split/cast/mode/squeeze policy; the train forward runs under
+    ``remat_mode`` (:func:`~raydp_tpu_torch.parallel.roles.apply_remat`).
 
     Returns ``apply_fn(model, batch, train) -> (preds_f32, labels)``."""
+    train_forward = apply_remat(lambda model, inputs: model(inputs),
+                                remat_mode)
 
     def apply_fn(model, batch, train: bool):
         inputs, labels = split_batch(batch)
         inputs = _cast_floating(inputs, compute_dtype)
         model.train(train)
-        preds = model(inputs)
+        preds = train_forward(model, inputs) if train else model(inputs)
         if preds.ndim == labels.ndim + 1 and preds.shape[-1] == 1:
             preds = preds.squeeze(-1)
         return preds.float(), labels
@@ -264,6 +302,82 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int):
     return train_step
 
 
+def _make_eval_step(apply_fn, loss_fn, metrics):
+    """Build the eval step. It threads BOTH accumulators (the row-weighted
+    loss sum AND the row count): under pad-and-mask the real row count is
+    mask.sum().
+
+    ``eval_step(state, batch, mstats, loss_sum, cnt_sum) -> (loss_sum,
+    cnt_sum, mstats)``."""
+
+    @torch.no_grad()
+    def eval_step(state, batch, mstats, loss_sum, cnt_sum):
+        batch, mask = _strip_mask(batch)
+        preds, labels = apply_fn(state.model, batch, train=False)
+        if mask is None:
+            rows = float(labels.shape[0])
+            loss_val = loss_fn(preds, labels).float()
+        else:
+            rows = torch.sum(mask)
+            loss_val = loss_fn(preds, labels, mask=mask).float()
+        new_mstats = tuple(
+            _update_metric(m, s, preds, labels, mask)
+            for m, s in zip(metrics, mstats))
+        return loss_sum + loss_val * rows, cnt_sum + rows, new_mstats
+
+    return eval_step
+
+
+def _in_place(train_step, state, acc: Accumulators):
+    """The train step as a body that updates ``acc`` in place."""
+
+    def body(batch):
+        acc.update(*train_step(state, batch, acc.stats, acc.loss))
+
+    return body
+
+
+def _in_place_eval(eval_step, state, acc: Accumulators):
+    """The eval step as a body that updates ``acc`` in place."""
+
+    def body(batch):
+        loss, count, stats = eval_step(state, batch, acc.stats, acc.loss,
+                                       acc.count)
+        acc.update(loss, stats, count)
+
+    return body
+
+
+def _counts(*runners) -> tuple:
+    """Each runner's counters (zeros for an absent one)."""
+    return tuple((0, 0, 0, 0.0) if r is None else
+                 (r.replays, r.replayed_steps, r.eager_steps, r.capture_s)
+                 for r in runners)
+
+
+def _dispatch_record(epoch: int, before: tuple, after: tuple,
+                     loop_eager_steps: int) -> Dict[str, float]:
+    """How one epoch dispatched: the train and eval runners' counters
+    after it less before it, plus the steps the loop ran eagerly itself."""
+    (r0, s0, e0, c0), (er0, *_) = before
+    (r1, s1, e1, c1), (er1, *_) = after
+    return {"epoch": epoch, "graph_replays": r1 - r0,
+            "graph_steps": s1 - s0,
+            "eager_steps": e1 - e0 + loop_eager_steps,
+            "capture_s": c1 - c0, "eval_replays": er1 - er0}
+
+
+def _chain(body):
+    """A body over a stack of ``k`` batches: ``k`` steps, one after the
+    other (the reference's ``lax.scan`` over a stacked batch)."""
+
+    def chain(stack):
+        for i in range(next(iter(stack.values())).shape[0]):
+            body({n: t[i] for n, t in stack.items()})
+
+    return chain
+
+
 class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
     def __init__(
         self,
@@ -291,6 +405,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         prefetch_to_device: Optional[int] = None,
         accum_steps: Optional[int] = None,
         device: DeviceLike = None,
+        steps_per_dispatch: int = 1,
+        remat: Optional[str] = None,
     ):
         if model is None and model_creator is None:
             raise ValueError("pass model or model_creator")
@@ -328,6 +444,16 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         #: gradient-accumulation microbatches per optimizer step (None = the
         #: RDT_TRAIN_ACCUM_STEPS knob, default 1). Must divide batch_size.
         self.accum_steps = accum_steps
+        #: chain this many train steps into ONE dispatch on the streaming
+        #: path: one CUDA graph of the k-step chain, replayed once per stack
+        #: of k batches (the reference's lax.scan over a stacked batch).
+        #: The same update sequence as dispatching each batch
+        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        #: rematerialization policy for the train-step forward: a mode
+        #: ('none' | 'dots' | 'full') or a per-role 'role=mode,...' map over
+        #: the parameter roles; None = the RDT_TRAIN_REMAT knob
+        #: (parallel/roles.py parse_remat_policy)
+        self.remat = remat
         self._result: Optional[TrainingResult] = None
 
     def _resolve_accum(self) -> int:
@@ -342,16 +468,43 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 f"accum_steps={k} must divide batch_size={self.batch_size}")
         return k
 
+    def _resolve_remat(self) -> Dict[str, str]:
+        """The effective remat POLICY for THIS fit, a role→mode map parsed
+        and validated before any step (the constructor argument wins over
+        the knob, read at call time)."""
+        spec = (self.remat if self.remat is not None
+                else str(knobs.get("RDT_TRAIN_REMAT"))).lower()
+        return parse_remat_policy(spec)
+
+    def _make_forward(self, model: nn.Module) -> Tuple[Callable, int, str]:
+        """THIS fit's forward and the step's knobs around it — one source
+        shared by ``fit`` and ``partial_fit``: ``(apply_fn, accum,
+        remat_mode)``. One device, one monolithic model: the mode is the
+        policy's for the model's dominant parameter role."""
+        accum = self._resolve_accum()
+        mode = remat_mode_for_role(self._resolve_remat(), segment_role(model))
+        return (_make_apply(self._split_batch, self.compute_dtype, mode),
+                accum, mode)
+
     # ------------------------------------------------------------------ build
-    def _init_state(self) -> TrainState:
-        """A fresh model (a copy of ``model``, or ``model_creator()``) on the
-        fit's device, and its optimizer from the factory."""
-        model = copy.deepcopy(self._model) if self._model is not None \
-            else self._model_creator()
-        model = model.to(self.device)
-        factory = self._optimizer or self._optimizer_creator \
-            or _default_optimizer
-        return TrainState(model, factory(model.parameters()))
+    def _init_state(self, graphed: bool = False) -> TrainState:
+        """A fresh model (a copy of ``model``, or ``model_creator()``) placed
+        on the fit's device under the ``train:place`` span, and its
+        optimizer from the factory, made capturable on CUDA (``graphed``:
+        the fit will capture its steps); the
+        ``train_param_bytes_per_process`` gauge is read after it."""
+        with profiler.trace("train:place", "training"):
+            model = copy.deepcopy(self._model) if self._model is not None \
+                else self._model_creator()
+            model = model.to(self.device)
+            factory = self._optimizer or self._optimizer_creator \
+                or _default_optimizer
+            optimizer = factory(model.parameters())
+            if self.device.type == "cuda":
+                prepare_optimizer(optimizer, graphed)
+        rdt_metrics.set_gauge("train_param_bytes_per_process",
+                              addressable_nbytes((model, optimizer)))
+        return TrainState(model, optimizer)
 
     def _columns(self) -> Dict:
         if self.columns_spec is not None:
@@ -405,11 +558,12 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                                        drop_remainder=False,
                                        prefetch_to_device=self.prefetch_to_device)
 
-        state, history = self._train_loop(
+        state, history, dispatch = self._train_loop(
             feed, eval_feed, ckpt_dir, max_retries=max_retries, cache=cache,
             eval_cache=eval_cache)
         self._result = TrainingResult(state=state, history=history,
-                                      checkpoint_dir=ckpt_dir)
+                                      checkpoint_dir=ckpt_dir,
+                                      dispatch=dispatch)
         return self._result
 
     def _train_loop(self, feed, eval_feed, ckpt_dir: str,
@@ -418,61 +572,58 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             ckpt.warn_if_reused_dir(ckpt_dir)
         loss_fn = _resolve_loss(self._loss)
         metrics = self._metrics
-        state = self._init_state()
-        apply_fn = _make_apply(self._split_batch, self.compute_dtype)
-        train_step = _make_train_step(apply_fn, loss_fn, metrics,
-                                      self._resolve_accum())
+        device = self.device
+        chain = self.steps_per_dispatch if cache is None else 1
+        # the optimizer steps in a graph on the resident and chained paths
+        graphed = device.type == "cuda" and (cache is not None or chain > 1)
+        state = self._init_state(graphed)
+        apply_fn, accum, mode = self._make_forward(state.model)
+        rdt_metrics.set_gauge("train_accum_steps", accum)
+        train_step = _make_train_step(apply_fn, loss_fn, metrics, accum)
+        eval_step = _make_eval_step(apply_fn, loss_fn, metrics)
+        # a capture is timed and its activation bytes published (the
+        # reference's compile span) only when accumulation or remat is
+        # engaged, as the reference reads its memory analysis
+        span = "train:accum" if accum > 1 or mode != "none" else None
 
-        # eval threads BOTH accumulators (row-weighted loss sum AND the row
-        # count): under pad-and-mask the real row count is mask.sum()
-        @torch.no_grad()
-        def eval_step(state, batch, mstats, loss_sum, cnt_sum):
-            batch, mask = _strip_mask(batch)
-            preds, labels = apply_fn(state.model, batch, train=False)
-            if mask is None:
-                rows = float(labels.shape[0])
-                loss_val = loss_fn(preds, labels).float()
-            else:
-                rows = torch.sum(mask)
-                loss_val = loss_fn(preds, labels, mask=mask).float()
-            new_mstats = tuple(
-                _update_metric(m, s, preds, labels, mask)
-                for m, s in zip(metrics, mstats))
-            return loss_sum + loss_val * rows, cnt_sum + rows, new_mstats
-
-        epoch_fn = None
-        cache_steps = 0
-        if cache is not None:
-            def _step(carry, batch):
-                state, loss_sum, mstats = carry
-                loss_sum, mstats = train_step(state, batch, mstats, loss_sum)
-                return state, loss_sum, mstats
-
-            epoch_fn, cache_steps = cache.make_epoch_fn(
-                _step, self.batch_size, self.shuffle)
-
-        eval_epoch_fn = None
-        eval_tail = None
+        acc = Accumulators(metrics, device)
+        eacc = Accumulators(metrics, device, count=True)
+        plan = cache.make_epoch(self.batch_size, self.shuffle) \
+            if cache is not None else None
+        eval_plan = eval_tail = None
         if eval_cache is not None:
             # the eval pass over the resident rows, then the ragged tail as
-            # one more (smaller) batch
-            def _eval_scan_step(carry, batch):
-                state, estats, esum, ecnt = carry
-                esum, ecnt, estats = eval_step(state, batch, estats, esum,
-                                               ecnt)
-                return state, estats, esum, ecnt
-
-            eval_epoch_fn, esteps = eval_cache.make_epoch_fn(
-                _eval_scan_step, self.batch_size, shuffle=False)
-            tail_off = esteps * self.batch_size
+            # one more (smaller) batch, eagerly
+            eval_plan = eval_cache.make_epoch(self.batch_size, shuffle=False)
+            tail_off = eval_plan.steps * self.batch_size
             if eval_cache.num_rows > tail_off:
                 eval_tail = {n: a[tail_off:]
                              for n, a in eval_cache.arrays.items()}
 
-        def zero() -> torch.Tensor:
-            return torch.zeros((), dtype=torch.float32, device=self.device)
+        def bind(state):
+            """The steps and runners over ``state``; built again after a
+            restore replaces the optimizer's tensors that a graph holds."""
+            step = _in_place(train_step, state, acc)
+            estep = _in_place_eval(eval_step, state, eacc)
+            train = None
+            if plan is not None:
+                train = StepRunner(lambda _: step(plan.next_batch()), device,
+                                   "resident train step",
+                                   optimizer=state.optimizer, span=span)
+            elif chain > 1:
+                train = StepRunner(_chain(step), device,
+                                   f"{chain}-step train chain",
+                                   optimizer=state.optimizer, span=span,
+                                   quiesce=feed.placement_lock)
+            evals = None
+            if eval_plan is not None:
+                evals = StepRunner(lambda _: estep(eval_plan.next_batch()),
+                                   device, "resident eval step")
+            return step, estep, train, evals
 
+        step, estep, run_train, run_eval = bind(state)
         history: List[Dict[str, float]] = []
+        dispatch: List[Dict[str, float]] = []
         epoch = 0
         retries = 0
         #: highest checkpoint step THIS run wrote — a retry may only restore
@@ -481,25 +632,28 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         last_written_step: Optional[int] = None
         while epoch < self.num_epochs:
             try:
+                rule = faults.check("estimator.epoch", key=str(epoch))
+                if rule is not None:  # chaos provokes the retry path here
+                    faults.apply(rule, "estimator.epoch")
                 t0 = time.perf_counter()
-                mstats = tuple(m.init() for m in metrics)
-                loss_sum = zero()
-                steps, samples = 0, 0
+                acc.reset()
+                before = _counts(run_train, run_eval)
+                steps, samples, eager_steps = 0, 0, 0
                 t_feed = t_disp = 0.0
-                if cache is not None:
+                if plan is not None:
                     td = time.perf_counter()
-                    _, loss_sum, mstats = epoch_fn(
-                        (state, loss_sum, mstats), cache.arrays,
-                        epoch_seed(self.seed, epoch))
+                    plan.begin(epoch_seed(self.seed, epoch))
+                    for _ in range(plan.steps):
+                        run_train({})
                     # the loss read INSIDE this window, so dispatch_time_s
                     # carries the epoch's device time
-                    loss_sum = loss_sum.item()
+                    acc.loss.item()
                     t_disp = time.perf_counter() - td
-                    steps = cache_steps
-                    samples = cache_steps * self.batch_size
+                    steps = plan.steps
+                    samples = plan.steps * self.batch_size
                 else:
                     feed.set_epoch(epoch)
-                    it = iter(feed)
+                    it = feed.chained(chain)
                     while True:
                         tf = time.perf_counter()
                         item = next(it, None)
@@ -507,17 +661,28 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                         if item is None:
                             break
                         td = time.perf_counter()
-                        loss_sum, mstats = train_step(state, item, mstats,
-                                                      loss_sum)
+                        stack, k = item
+                        if chain > 1:
+                            run_train(stack, n_steps=k)
+                        else:
+                            step(stack)
+                            eager_steps += 1
                         t_disp += time.perf_counter() - td
-                        steps += 1
-                        samples += self.batch_size
+                        steps += k
+                        samples += self.batch_size * k
+                if run_train is not None:
+                    run_train.flush()
                 # the one host read of the epoch's loss: it waits for the
                 # device, so the epoch wall includes the device work
                 ts = time.perf_counter()
-                train_loss = float(loss_sum) / steps if steps else math.nan
+                train_loss = float(acc.loss) / steps if steps else math.nan
                 t_sync = time.perf_counter() - ts
                 dt = time.perf_counter() - t0
+                rdt_metrics.observe("train_epoch_seconds", dt)
+                # the optimizer makes its state at its first step
+                rdt_metrics.set_gauge(
+                    "train_param_bytes_per_process",
+                    addressable_nbytes((state.model, state.optimizer)))
                 # the feed's thread-side phase split (decode/stage/h2d):
                 # these walls OVERLAP dispatch by design
                 pipe = feed.timings.take() if feed is not None else {}
@@ -534,29 +699,28 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                     "dispatch_time_s": t_disp,
                     "sync_time_s": t_sync,
                 }
-                for m, s in zip(metrics, mstats):
+                for m, s in zip(metrics, acc.stats):
                     report[f"train_{m.name}"] = m.compute(_host_stats(s))
 
-                if eval_feed is not None or eval_cache is not None:
-                    estats = tuple(m.init() for m in metrics)
-                    esum, ecnt = zero(), zero()
-                    if eval_cache is not None:
-                        _, estats, esum, ecnt = eval_epoch_fn(
-                            (state, estats, esum, ecnt), eval_cache.arrays,
-                            0)  # unused: shuffle=False
+                if eval_feed is not None or eval_plan is not None:
+                    eacc.reset()
+                    if eval_plan is not None:
+                        eval_plan.begin(0)  # unused: shuffle=False
+                        for _ in range(eval_plan.steps):
+                            run_eval({})
                         if eval_tail is not None:
-                            esum, ecnt, estats = eval_step(
-                                state, eval_tail, estats, esum, ecnt)
+                            estep(eval_tail)
                     else:
                         for batch in eval_feed:
-                            esum, ecnt, estats = eval_step(state, batch,
-                                                           estats, esum, ecnt)
-                    rows = float(ecnt)  # real rows only: pad rows mask to 0
-                    report["eval_loss"] = (float(esum) / rows) if rows \
+                            estep(batch)
+                    rows = float(eacc.count)  # real rows only
+                    report["eval_loss"] = (float(eacc.loss) / rows) if rows \
                         else math.nan
-                    for m, s in zip(metrics, estats):
+                    for m, s in zip(metrics, eacc.stats):
                         report[f"eval_{m.name}"] = m.compute(_host_stats(s))
 
+                dispatch.append(_dispatch_record(
+                    epoch, before, _counts(run_train, run_eval), eager_steps))
                 history.append(report)
                 for cb in self.callbacks:
                     cb(report)
@@ -597,11 +761,84 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                     # no checkpoint from this run (a failure before the
                     # first interval save): start over from fresh weights
                     # like a fresh fit
-                    state = self._init_state()
+                    state = self._init_state(graphed)
                     epoch = 0
                     history = []
+                # the optimizer's restored state is new tensors: warm up
+                # and capture again
+                step, estep, run_train, run_eval = bind(state)
 
-        return state, history
+        return state, history, dispatch
+
+    # ------------------------------------------------------------ partial_fit
+    def _partial_fit_epoch(self, ds, epoch: int) -> Dict[str, float]:
+        """One online update: a single gradient pass over the epoch's rows
+        through the streaming ``DeviceFeed``, eagerly (a stream epoch is
+        small: no chain, no resident variant, as in the reference). State
+        persists on the estimator across epochs; ``self._result`` tracks it
+        so ``get_model`` works mid-stream."""
+        o = getattr(self, "_online", None)
+        if o is None:
+            o = self._online_init(ds)
+            if o is None:
+                # an empty first epoch (a filter matching nothing is routine
+                # in streaming) has no rows to start from: report it and keep
+                # waiting for rows
+                return {"epoch": epoch, "train_loss": math.nan, "steps": 0,
+                        "samples_per_s": 0.0, "epoch_time_s": 0.0,
+                        "decode_time_s": 0.0, "h2d_time_s": 0.0}
+            self._online = o
+        # one device: the ragged tail of an epoch trains as it is (the
+        # reference pads or drops it only under a >1 data or stage extent)
+        feed = DeviceFeed(ds, self.batch_size, o["columns"],
+                          device=self.device, shuffle=False,
+                          drop_remainder=False,
+                          prefetch_to_device=self.prefetch_to_device)
+        t0 = time.perf_counter()
+        acc = o["acc"]
+        acc.reset()
+        steps = 0
+        for batch in feed:
+            o["step"](batch)
+            steps += 1
+        train_loss = float(acc.loss) / steps if steps else math.nan
+        dt = time.perf_counter() - t0
+        pipe = feed.timings.take()
+        report = {
+            "epoch": epoch,
+            "train_loss": train_loss,
+            "steps": steps,
+            "samples_per_s": (steps * self.batch_size / dt) if dt > 0
+            else 0.0,
+            "epoch_time_s": dt,
+            "decode_time_s": pipe.get("decode", 0.0),
+            "h2d_time_s": pipe.get("h2d", 0.0),
+        }
+        for m, s in zip(self._metrics, acc.stats):
+            report[f"train_{m.name}"] = m.compute(_host_stats(s))
+        o["history"].append(report)
+        self._result = TrainingResult(state=o["state"],
+                                      history=o["history"])
+        return report
+
+    def _online_init(self, ds) -> Optional[Dict[str, Any]]:
+        """The persistent online-training state, from the first epoch with
+        rows: the placed model and optimizer and the SAME step body as
+        ``fit``'s (accumulation and remat included). None when the epoch
+        holds no rows."""
+        columns = self._columns()
+        first = next(iter(HostBatchIterator(ds, 1, columns, shuffle=False,
+                                            drop_remainder=False)), None)
+        if first is None:
+            return None
+        state = self._init_state()
+        apply_fn, accum, _ = self._make_forward(state.model)
+        rdt_metrics.set_gauge("train_accum_steps", accum)
+        train_step = _make_train_step(apply_fn, _resolve_loss(self._loss),
+                                      self._metrics, accum)
+        acc = Accumulators(self._metrics, self.device)
+        return {"columns": columns, "state": state, "acc": acc,
+                "step": _in_place(train_step, state, acc), "history": []}
 
     # ----------------------------------------------------------- fit_on_frame
     def fit_on_frame(self, train_df, evaluate_df=None, *,

@@ -122,12 +122,10 @@ def test_residency_gate_decides_as_the_reference(runtime, monkeypatch, case):
 
 
 def _resident_epoch(cache, shuffle, seed, batch_size=32):
-    def step(carry, batch):
-        return carry + [batch]
-
-    epoch_fn, steps = cache.make_epoch_fn(step, batch_size, shuffle)
-    batches = epoch_fn([], cache.arrays, seed)
-    assert len(batches) == steps == cache.num_rows // batch_size
+    epoch = cache.make_epoch(batch_size, shuffle)
+    epoch.begin(seed)
+    batches = [epoch.next_batch() for _ in range(epoch.steps)]
+    assert len(batches) == epoch.steps == cache.num_rows // batch_size
     return {n: torch.cat([b[n] for b in batches]) for n in cache.arrays}
 
 

@@ -45,7 +45,8 @@ def test_imports_neither_jax_nor_the_reference():
         "'etl.tasks', 'etl.executor', 'etl.master', 'etl.engine', "
         "'etl.frame', 'etl.autoscale', 'etl.session', 'context', 'cluster', "
         "'examples.nyctaxi_features', 'examples.generate_nyctaxi', "
-        "'examples.dlrm_criteo'):\n"
+        "'examples.dlrm_criteo', 'parallel.roles', 'train.step_graph', "
+        "'stream.sources', 'stream.pipeline'):\n"
         "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
