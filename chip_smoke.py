@@ -60,9 +60,9 @@
    timed; a warm-forked actor allocates on the card; and no segment of
    the session is left after ``shutdown_runtime``;
 8. the main path end to end, CSV -> ETL -> train: the port's ETL session
-   (``raydp_tpu_torch.init``, two executors of 2 cores on the host, no card
-   visible to them) reads a seeded 400,000-row NYCTaxi CSV (the port's
-   ``generate``), runs ``nyc_taxi_preprocess`` and
+   (``raydp_tpu_torch.init``, two executors of 2 cores on the host, which
+   import no torch and hold no CUDA context) reads a seeded 400,000-row
+   NYCTaxi CSV (the port's ``generate``), runs ``nyc_taxi_preprocess`` and
    ``TorchEstimator.fit_on_frame`` (NYCTaxiModel f32, smooth L1, Adam 1e-3,
    batch 8192, 5 epochs, shuffled: the resident path); then a seeded
    120,000-row Criteo TSV through ``pre_process`` (26 groupBy collects) and
@@ -96,17 +96,45 @@
    uninterrupted one; ``partial_fit`` of 3 stream epochs of NYCTaxi rows
    through the port's ``ContinuousPipeline`` on its ETL session, equal to
    one fit over the same rows;
-10. prints one JSON line of kernel results, then the last line
+10. the serving plane: NYCTaxi f32 and DLRM bf16 at the widths of phases
+    5-6, trained 2 resident epochs here and exported with
+    ``export_serving``; ``load_servable`` in the driver, on the card,
+    bitwise equal to ``predict`` over the same batches (a ragged tail
+    included); a port ETL session of two executors, which hold no CUDA
+    context (``nvidia-smi --query-compute-apps`` and their maps) until a
+    ``ServingSession`` loads two replicas of each model into them (then
+    three processes on the card: the driver and the two executors, each
+    executor mapping ``libcuda``); ``benchmarks/serve_bench.py``'s open
+    loop (a request every 10 ms in bursts of 4, hedging on, the default
+    5 ms batch timeout), 400 NYCTaxi requests of 2 rows and 400 DLRM
+    requests of 64 after an unmeasured first pass of 100, then the same
+    unhedged: request p50/p99 (and the first pass's), requests vs
+    batches, hedges, each replica's apply seconds, one request's split
+    from the spans, zero dropped, served rows against ``predict`` (f32
+    within 1e-5, bf16 within two bf16 steps), hedged against unhedged, two
+    replicas given the same batch bitwise equal; a closed-loop ceiling (8
+    clients of 256-row NYCTaxi requests for 5 s, rows/s); ``partial_fit
+    (export_every=1, serving=...)`` over 2 stream epochs of the port's
+    ``ContinuousPipeline`` hot-swapping two exports under traffic, zero
+    dropped, then answers bitwise equal to the second export's own
+    servable; ``serve_bench.py --rollout``'s guarded rollouts
+    (``RDT_SERVE_ROLLOUT_STEP_S`` 5 s): a clean canary promoted, a canary
+    stalled 500 ms a batch by a seeded ``serve.predict:delay`` rule rolled
+    back with a blackbox bundle, both under open-loop load with zero
+    dropped; a seeded ``serve.predict`` crash once on one replica: zero
+    dropped, the restarted executor reloading its replica on the card; no
+    flash launch and no segment left after ``close()`` and ``stop()``;
+11. prints one JSON line of kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 7, 8, 9, 3, 4: phases 5-9 are
-bound by the host's kernel launches, so their timed fits come before any
-``torch.profiler`` session of the process, and the two profiled epochs of
-5-6 (one per model, in fits of their own, replaying graphs) after the
-timed fits. Every kernel launch counter is set to 0 just before each driven
-path (3, both modes of 4, 5, 6, 7, 8 and 9) and read just after; 5-9 run
-no attention and must launch none. Any failed check exits non-zero; so
-does a machine without CUDA.
+The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 3, 4: phases 5-10
+are bound by the host's kernel launches, so their timed fits and requests
+come before any ``torch.profiler`` session of the process, and the two
+profiled epochs of 5-6 (one per model, in fits of their own, replaying
+graphs) after them. Every kernel launch counter is set to 0 just before
+each driven path (3, both modes of 4, 5, 6, 7, 8, 9 and 10) and read just
+after; 5-10 run no attention and must launch none. Any failed check exits
+non-zero; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -1007,20 +1035,27 @@ class HostClock:
 
 
 @contextlib.contextmanager
-def device_cache(on: bool):
-    """``RDT_DEVICE_CACHE`` set to ``on`` (the residency gate forced) for
-    the block, and back to what it was after it."""
+def env_knobs(**values):
+    """Environment knobs set for the block (read by what starts in it: a
+    serving session, a rollout, spawned executors), then restored."""
     import os
 
-    old = os.environ.get("RDT_DEVICE_CACHE")
-    os.environ["RDT_DEVICE_CACHE"] = "1" if on else "0"
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["RDT_DEVICE_CACHE"]
-        else:
-            os.environ["RDT_DEVICE_CACHE"] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def device_cache(on: bool):
+    """``RDT_DEVICE_CACHE`` set to ``on`` (the residency gate forced) for
+    the block, and back to what it was after it."""
+    return env_knobs(RDT_DEVICE_CACHE="1" if on else "0")
 
 
 def fit_and_report(label: str, make_estimator, dataset, epochs: int,
@@ -2316,6 +2351,617 @@ def run_dispatch(fa, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving plane on the card. NYCTaxi f32 and DLRM bf16 at
+# phases 5-6's widths, trained in this process and exported; the servable in
+# the driver against predict; two executors of the port's ETL session host
+# the replicas, each executor taking its CUDA context at its first
+# serve_load; benchmarks/serve_bench.py's open-loop schedule, a closed-loop
+# ceiling, hot swaps from partial_fit, guarded rollouts and a replica crash.
+
+SERVE_EPOCHS = 2
+# benchmarks/serve_bench.py's open loop: a request every 10 ms, arriving in
+# bursts of 4 (the same mean rate); 2-row NYCTaxi requests there, and
+# 64-row DLRM requests (one RDT_SERVE_MAX_BATCH each)
+SERVE_REQUESTS, SERVE_INTERVAL_S, SERVE_BURST = 400, 0.010, 4
+SERVE_MAX_BATCH = 64  # RDT_SERVE_MAX_BATCH's default
+SERVE_ROWS = {"nyctaxi": 2, "dlrm": SERVE_MAX_BATCH}
+# the unmeasured first pass of each session's open loop: the processes'
+# first use of the coalesced batch shapes (serve_bench warms with 12
+# sequential requests, which leaves those shapes to the measured run)
+SERVE_WARMUP = 100
+# the closed-loop ceiling: client threads sending 256-row NYCTaxi requests
+# back to back
+CEILING_THREADS, CEILING_ROWS, CEILING_S = 8, 256, 5.0
+# serve_bench.py --rollout: the canary's seeded stall and the open-loop
+# load that runs through a rollout (800 requests at 10 ms there)
+ROLLOUT_DELAY_MS, ROLLOUT_REQUESTS, ROLLOUT_STEP_S = 500, 800, 5.0
+# coalesced vs predict (another row count M, so maybe another GEMM kernel):
+# f32 within 1e-5, bf16 logits within two bf16 steps of the reference value
+SERVE_F32_ATOL, SERVE_BF16_STEPS = 1e-5, 2
+# rows of the driver's servable-vs-predict check: a batch and a ragged tail
+SERVE_PREDICT_ROWS = {"nyctaxi": PREDICT_ROWS, "dlrm": DLRM_BATCH + 777}
+
+
+def gpu_processes() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` rows: one per
+    process holding a CUDA context on the card (in a container the pids
+    may be another namespace's: the driver of phase 8 read as pid 1)."""
+    got = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return [line.strip() for line in got.stdout.splitlines() if line.strip()]
+
+
+def maps_cuda(pid: int) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda" in f.read()
+
+
+def bf16_steps(got: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """|got - ref| in units of the bf16 step (8 significand bits) at each
+    reference value."""
+    exp = np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+    return np.abs(got - ref) / 2.0 ** (exp - 7)
+
+
+def against_reference(label: str, got: np.ndarray, ref: np.ndarray,
+                      bf16: bool) -> dict:
+    """Served rows against reference rows of another batch composition:
+    f32 within SERVE_F32_ATOL, bf16 within SERVE_BF16_STEPS steps. Prints
+    the largest difference and the share of rows that differ."""
+    require(got.shape == ref.shape and bool(np.isfinite(got).all()),
+            f"{label}: shape {got.shape} vs {ref.shape}, or not finite")
+    diff = np.abs(got - ref)
+    out = {"max_abs_diff": float(diff.max()),
+           "rows_differing": float(np.mean(diff > 0))}
+    if bf16:
+        out["max_bf16_steps"] = float(bf16_steps(got, ref).max())
+        ok = out["max_bf16_steps"] <= SERVE_BF16_STEPS
+    else:
+        ok = out["max_abs_diff"] <= SERVE_F32_ATOL
+    print(f"{label}: " + json.dumps(out))
+    require(ok, f"{label}: {out}")
+    return out
+
+
+def open_loop(srv, requests: list, interval_s: float):
+    """serve_bench.py's open loop: one predict_async per request on a fixed
+    arrival schedule (bursts of SERVE_BURST), never waiting on completions;
+    each latency stamped by the future's callback. Returns (predictions in
+    order, latencies in ms, dropped requests)."""
+    n = len(requests)
+    futs, lats = [None] * n, [None] * n
+
+    def stamp(i, t_issue):
+        def cb(_f):
+            lats[i] = (time.perf_counter() - t_issue) * 1000.0
+        return cb
+
+    t0 = time.perf_counter()
+    for i, rows in enumerate(requests):
+        due = t0 + (i // SERVE_BURST) * SERVE_BURST * interval_s
+        delay = due - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t = time.perf_counter()
+        try:
+            futs[i] = srv.predict_async(rows)
+        except Exception:  # noqa: BLE001 - shed at admission: a drop
+            continue
+        futs[i].add_done_callback(stamp(i, t))
+    preds, dropped = [], 0
+    for f in futs:
+        try:
+            preds.append(np.asarray(f.result(timeout=120.0)))
+        except Exception:  # noqa: BLE001 - None (shed) or failed: a drop
+            dropped += 1
+            preds.append(None)
+    return preds, [x for x in lats if x is not None], dropped
+
+
+def request_split(executors) -> dict:
+    """One request's path from the spans (the request of median wall): its
+    ``serve:predict`` in the driver, the ``serve:batch`` submit it rode and
+    the replica's ``serve:apply``, the replica's clock aligned to the
+    driver's. Coalescing wait + encode ends where the submit starts; the
+    RPC, the replica's queue and its decode + place lie between the submit
+    and the apply; the reply and the demux after the apply."""
+    from raydp_tpu_torch import profiler
+
+    spans = profiler.spans()
+    # a batch joins its first request's trace: requests that led a batch
+    batches = {s["par"]: s for s in spans if s["name"] == "serve:batch"
+               and "par" in s}
+    reqs = sorted((s for s in spans if s["name"] == "serve:predict"
+                   and "dur" in s and s["sid"] in batches),
+                  key=lambda s: s["dur"])
+    req = reqs[len(reqs) // 2]
+    batch = batches[req["sid"]]
+    apply = None
+    for h in executors:
+        offset = profiler.measure_clock_offset(
+            lambda h=h: h.call("__rdt_clock__", timeout=10.0))
+        for s in h.call("__rdt_spans__", timeout=10.0)["spans"]:
+            if s["name"] == "serve:apply" and s.get("par") == batch["sid"]:
+                apply = dict(s, ts=s["ts"] - offset)
+    require(apply is not None, "no serve:apply span under the request's "
+                               "serve:batch")
+    us = 1e-3
+    out = {"request_ms": req["dur"] * us,
+           "coalesce_and_encode_ms": (batch["ts"] - req["ts"]) * us,
+           "submit_ms": batch["dur"] * us,
+           "rpc_queue_decode_place_ms":
+               (apply["ts"] - batch["ts"] - batch["dur"]) * us,
+           "apply_ms": apply["dur"] * us,
+           "reply_and_demux_ms":
+               (req["ts"] + req["dur"] - apply["ts"] - apply["dur"]) * us}
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def serve_open_loop(label: str, srv, requests, ref, bf16: bool,
+                    executors=None, same_batches=None) -> tuple:
+    """Warm up, run the open loop, print its numbers, and hold every
+    response against ``ref`` (rows of predict over other batches) and,
+    where every request was a batch of its own, bitwise against
+    ``same_batches`` (predict over batches of a request's rows). Returns
+    (numbers, the predictions)."""
+    _, first, first_dropped = open_loop(srv, requests[:SERVE_WARMUP],
+                                        SERVE_INTERVAL_S)
+    first = {"p50_ms": float(np.percentile(first, 50)),
+             "p99_ms": float(np.percentile(first, 99))}
+    before = srv.serving_report()
+    t0 = time.perf_counter()
+    preds, lats, dropped = open_loop(srv, requests, SERVE_INTERVAL_S)
+    wall = time.perf_counter() - t0
+    rep = srv.serving_report()
+    delta = {k: rep[k] - before[k] for k in (
+        "requests", "batches", "rows", "hedged", "hedge_won", "hedge_lost",
+        "rerouted", "failed")}
+    out = {"p50_ms": float(np.percentile(lats, 50)),
+           "p99_ms": float(np.percentile(lats, 99)), "wall_s": wall,
+           "dropped": first_dropped + dropped + delta["failed"], **delta,
+           "mean_batch_rows": delta["rows"] / max(1, delta["batches"]),
+           "first_pass": first}
+    if executors is not None:
+        out["replica_apply_s"] = {
+            r["replica"]: r["apply_s"] for h in executors
+            for r in h.call("serve_stats")["replicas"]
+            if r["replica"].startswith(srv.name + "-")}
+        out["split"] = request_split(executors)
+    print(f"{label}: " + json.dumps(out))
+    require(out["dropped"] == 0, f"{label}: {out['dropped']} requests "
+                                 "dropped")
+    out["vs_predict"] = against_reference(
+        f"{label} vs predict", np.concatenate(preds), ref, bf16)
+    if same_batches is not None:
+        out["same_batches_bitwise"] = bool(np.array_equal(
+            np.concatenate(preds), same_batches))
+        print(f"{label} vs predict over the same batches: bitwise "
+              f"{out['same_batches_bitwise']}")
+        require(out["same_batches_bitwise"],
+                f"{label}: differs from predict over the same batches")
+    return out, preds
+
+
+def ceiling(srv, table) -> dict:
+    """Closed loop: CEILING_THREADS clients, each sending CEILING_ROWS-row
+    requests back to back for CEILING_S seconds; rows/s served."""
+    import threading
+
+    stop = time.perf_counter() + CEILING_S
+    done = [0] * CEILING_THREADS
+    errors = []
+
+    def client(k):
+        i = k
+        try:
+            while time.perf_counter() < stop:
+                off = (i * CEILING_ROWS) % (table.num_rows - CEILING_ROWS)
+                got = srv.predict(table.slice(off, CEILING_ROWS),
+                                  timeout=120.0)
+                require(got.shape == (CEILING_ROWS,), "ceiling shape")
+                done[k] += CEILING_ROWS
+                i += CEILING_THREADS
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    before = srv.serving_report()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(CEILING_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=180.0)
+    wall = time.perf_counter() - t0
+    rep = srv.serving_report()
+    require(not errors and not any(t.is_alive() for t in threads),
+            f"ceiling clients failed: {errors}")
+    out = {"threads": CEILING_THREADS, "rows_per_request": CEILING_ROWS,
+           "wall_s": wall, "rows": sum(done),
+           "rows_per_s": sum(done) / wall,
+           "requests": rep["requests"] - before["requests"],
+           "batches": rep["batches"] - before["batches"]}
+    print("serve nyctaxi closed-loop ceiling: " + json.dumps(out))
+    return out
+
+
+def run_hot_swap(srv, session, requests, tmp: str) -> dict:
+    """partial_fit(export_every=1, serving=srv) over 2 stream epochs of
+    NYCTaxi rows through the port's ContinuousPipeline, while 2-row
+    requests flow; then a request alone against v2's own servable."""
+    import os
+    import threading
+
+    from raydp_tpu_torch import stream
+    from raydp_tpu_torch.etl.expressions import col
+    from raydp_tpu_torch.models import NYCTaxiModel
+    from raydp_tpu_torch.serve import load_servable
+
+    def rows(epoch):
+        return nyctaxi_tables(ONLINE_ROWS, 1, SEED + 20 + epoch)[0]
+
+    model = NYCTaxiModel(NYCTAXI_FEATURES, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+    est = nyctaxi_estimator(model, None, 1, shuffle=False)
+    export_dir = os.path.join(tmp, "online")
+    swaps0 = srv.serving_report()["hot_swaps"]
+    stop, futs = threading.Event(), []
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            futs.append(srv.predict_async(requests[i % len(requests)]))
+            i += 1
+            time.sleep(SERVE_INTERVAL_S)
+
+    loader = threading.Thread(target=traffic)
+    t0 = time.perf_counter()
+    loader.start()
+    try:
+        pipe = stream.read_stream(
+            stream.SyntheticSource(rows, max_epochs=2), session).transform(
+            lambda df: df.filter(col(NYC_LABEL) > 0))
+        with pipe:
+            res = est.partial_fit(pipe, export_every=1, serving=srv,
+                                  export_dir=export_dir)
+    finally:
+        stop.set()
+        loader.join(timeout=120.0)
+    wall = time.perf_counter() - t0
+    dropped = 0
+    for f in futs:
+        try:
+            f.result(timeout=120.0)
+        except Exception:  # noqa: BLE001 - counted
+            dropped += 1
+    rep = srv.serving_report()
+    want = [(0, os.path.join(export_dir, "v1")),
+            (1, os.path.join(export_dir, "v2"))]
+    v2 = load_servable(os.path.join(export_dir, "v2"))
+    bitwise = {}
+    for n in (2, 48):
+        table = nyctaxi_tables(n, 1, SEED + 30)[0].drop([NYC_LABEL])
+        bitwise[n] = bool(np.array_equal(srv.predict(table, timeout=60.0),
+                                         v2.predict_table(table)))
+    out = {"exports": [e for e, _ in res.exports], "requests": len(futs),
+           "dropped": dropped + rep["failed"],
+           "hot_swaps": rep["hot_swaps"] - swaps0,
+           "servable": rep["servable"], "bitwise_v2": bitwise,
+           "wall_s": wall, "losses": [h["train_loss"] for h in res.history]}
+    print("serve hot swap: " + json.dumps(out))
+    require(res.exports == want and out["hot_swaps"] == 2
+            and rep["servable"]["export_dir"] == want[1][1],
+            f"hot swap: exports {res.exports}, report {rep['servable']}")
+    require(out["dropped"] == 0, f"hot swap dropped {out['dropped']}")
+    require(all(bitwise.values()), f"hot swap answers vs v2: {bitwise}")
+    return out
+
+
+def run_rollouts(session, base_dir: str, requests, tmp: str) -> dict:
+    """serve_bench.py --rollout's shape on the card: a canary that is a
+    copy of the serving bundle ramps (0.5 then 1.0, judged per step) and is
+    promoted; a canary whose replicas stall ROLLOUT_DELAY_MS on every batch
+    (the seeded serve.predict:delay rule on the v3 replica ids) rolls back
+    on the p99 arm and writes its blackbox bundle; open-loop load runs
+    through both, and neither drops a request."""
+    import os
+    import threading
+
+    from raydp_tpu_torch.runtime import get_runtime
+    from raydp_tpu_torch.serve import ServingSession
+
+    out = {}
+    blackbox = os.path.join(get_runtime().session_dir, "blackbox")
+    with env_knobs(RDT_SERVE_HEDGE="0"):  # serve_bench's rollout session
+        srv = ServingSession(base_dir, session=session, name="roll")
+    try:
+        for i in range(12):  # serve_bench.py's warm-up
+            srv.predict(requests[i], timeout=120.0)
+        for mode in ("clean", "regress"):
+            canary = os.path.join(tmp, f"canary-{mode}")
+            shutil.copytree(base_dir, canary)
+            load = {}
+
+            def run_load():
+                load["preds"], load["lats"], load["dropped"] = open_loop(
+                    srv, [requests[i % len(requests)]
+                          for i in range(ROLLOUT_REQUESTS)],
+                    SERVE_INTERVAL_S)
+
+            loader = threading.Thread(target=run_load)
+            failed0 = srv.serving_report()["failed"]
+            t0 = time.perf_counter()
+            loader.start()
+            outcome = srv.rollout(canary, tag=mode, initial_weight=0.5,
+                                  steps=[0.5, 1.0], min_samples=8,
+                                  p99_factor=2.0, timeout=120.0)
+            load["t_outcome"] = time.perf_counter() - t0
+            loader.join(timeout=240.0)
+            require(not loader.is_alive(), "rollout load hung")
+            rep = srv.serving_report()
+            out[mode] = {
+                "outcome": outcome["outcome"],
+                "reason": outcome.get("reason"),
+                "judgments": len(outcome["steps"]),
+                "wall_s": time.perf_counter() - t0,
+                "p50_ms": float(np.percentile(load["lats"], 50)),
+                "p99_ms": float(np.percentile(load["lats"], 99)),
+                "dropped": load["dropped"] + rep["failed"] - failed0,
+                "decided_after_s": load["t_outcome"],
+                "version": rep["servable"]["version"],
+                "judged": [{k: s.get(k) for k in (
+                    "weight", "verdict", "canary_requests", "base_requests",
+                    "canary_p99_ms", "base_p99_ms")}
+                    for s in outcome["steps"]]}
+            print(f"serve rollout {mode}: " + json.dumps(out[mode]))
+            require(out[mode]["dropped"] == 0,
+                    f"rollout {mode} dropped requests")
+        require(out["clean"]["outcome"] == "promoted"
+                and out["clean"]["version"] == 2,
+                f"the clean canary was not promoted: {out['clean']}")
+        require(out["regress"]["outcome"] == "rolled_back"
+                and "p99" in (out["regress"]["reason"] or "")
+                and out["regress"]["version"] == 2,
+                f"the slow canary was not rolled back: {out['regress']}")
+        bundles = sorted(f for f in os.listdir(blackbox)
+                         if f.startswith("blackbox-rollout-roll"))
+        out["blackbox"] = bundles
+        print(f"serve rollout: blackbox bundles {bundles}")
+        require(bundles, "the rollback wrote no blackbox bundle")
+    finally:
+        srv.close()
+    return out
+
+
+def run_crash(session, base_dir: str, requests, ref) -> dict:
+    """The seeded serve.predict crash rule fires once, on the 2nd batch
+    entering replica crash-r0's worker: its executor dies mid-request. A
+    concurrent burst and a sequential tail still complete with zero
+    dropped, and the restarted executor reloads the replica on the card."""
+    from raydp_tpu_torch.serve import ServingSession
+
+    srv = ServingSession(base_dir, session=session, name="crash")
+    try:
+        host = next(h for h in session.executors
+                    if h.name == srv.serving_report()["replicas"][0][
+                        "executor"])
+        old_pid = host.call("spawn_info")["pid"]
+        t0 = time.perf_counter()
+        futs = [srv.predict_async(r) for r in requests[:32]]
+        got = [f.result(timeout=120.0) for f in futs]
+        got += [srv.predict(r, timeout=120.0) for r in requests[32:48]]
+        wall = time.perf_counter() - t0
+
+        def back():
+            row = next(r for r in srv.serving_report()["replicas"]
+                       if r["replica"] == "crash-r0")
+            return row["ready"] and row["reloads"] >= 1
+
+        deadline = time.monotonic() + 120.0
+        while not back() and time.monotonic() < deadline:
+            srv.predict(requests[0], timeout=120.0)
+            time.sleep(0.2)
+        rep = srv.serving_report()
+        new_pid = host.call("spawn_info")["pid"]
+        # the killed process's context may linger in nvidia-smi a moment
+        deadline = time.monotonic() + 30.0
+        while len(apps := gpu_processes()) != 3 \
+                and time.monotonic() < deadline:
+            time.sleep(1.0)
+        out = {"wall_s": wall, "rerouted": rep["rerouted"],
+               "failed": rep["failed"], "requests": rep["requests"],
+               "reloaded": back(), "old_pid": old_pid, "new_pid": new_pid,
+               "new_pid_maps_cuda": maps_cuda(new_pid),
+               "gpu_processes": apps}
+        print("serve crash: " + json.dumps(out))
+        require(out["reloaded"] and new_pid != old_pid,
+                "the crashed replica did not come back in a new process")
+        require(out["failed"] == 0 and out["rerouted"] >= 1,
+                f"crash: {rep['failed']} failed, {rep['rerouted']} "
+                "rerouted")
+        require(out["new_pid_maps_cuda"] and len(apps) == 3,
+                f"the reloaded replica is not on the card: {apps}")
+        out["vs_predict"] = against_reference(
+            "serve crash vs predict", np.concatenate(got), ref, False)
+    finally:
+        srv.close()
+    return out
+
+
+def run_serving(fa, tmp: str) -> dict:
+    """Phase 10: export_serving -> load_servable -> ServingSession on
+    executor-resident replicas on the card."""
+    import os
+
+    import raydp_tpu_torch
+    from raydp_tpu_torch.data import TableDataset
+    from raydp_tpu_torch.models import NYCTaxiModel
+    from raydp_tpu_torch.runtime import get_runtime
+    from raydp_tpu_torch.serve import ServingSession, load_servable
+
+    t_phase = time.perf_counter()
+    zero_launches(fa)
+    out = {"card": torch.cuda.get_device_name(0)}
+    # the models, trained in this process and exported
+    nyc_model = NYCTaxiModel(NYCTAXI_FEATURES, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
+    models = {
+        "nyctaxi": fit_and_report(
+            "serve nyctaxi f32 resident", lambda cb: nyctaxi_estimator(
+                nyc_model, None, SERVE_EPOCHS, callbacks=cb,
+                checkpoint_interval=SERVE_EPOCHS),
+            TableDataset(nyctaxi_tables(NYC_ROWS, NYC_BLOCKS, SEED)),
+            SERVE_EPOCHS)[0],
+        "dlrm": fit_and_report(
+            "serve dlrm bf16 resident", lambda cb: dlrm_estimator(
+                dlrm_model(), SERVE_EPOCHS, cb),
+            TableDataset(criteo_tables(DLRM_ROWS, DLRM_BLOCKS, SEED)),
+            SERVE_EPOCHS)[0]}
+    label = {"nyctaxi": NYC_LABEL, "dlrm": "_c0"}
+    batch = {"nyctaxi": NYC_BATCH, "dlrm": DLRM_BATCH}
+    dirs, requests, refs, same_batches = {}, {}, {}, {}
+    for kind, est in models.items():
+        dirs[kind] = os.path.join(tmp, f"serve-{kind}")
+        t0 = time.perf_counter()
+        est.export_serving(dirs[kind])
+        export_s = time.perf_counter() - t0
+        # the servable in the driver, on the card, over predict's batches
+        make = nyctaxi_tables if kind == "nyctaxi" else criteo_tables
+        rows = make(SERVE_PREDICT_ROWS[kind], 1, SEED + 7)[0].drop(
+            [label[kind]])
+        t0 = time.perf_counter()
+        sv = load_servable(dirs[kind])
+        load_s = time.perf_counter() - t0
+        want = est.predict(TableDataset([rows]))
+        got = np.concatenate([
+            sv.predict_table(rows.slice(i, batch[kind]))
+            for i in range(0, rows.num_rows, batch[kind])])
+        same = bool(np.array_equal(got, want))
+        print(f"serve {kind}: exported in {export_s:.3f} s, "
+              f"{sv.nbytes} weight bytes, loaded in the driver in "
+              f"{load_s:.3f} s; servable vs predict over {rows.num_rows} "
+              f"rows in batches of {batch[kind]}: bitwise {same}")
+        require(sv.device.type == "cuda", f"{kind}: the servable is not "
+                                          "on the card")
+        require(same, f"{kind}: servable differs from predict")
+        out[kind] = {"export_s": export_s, "driver_load_s": load_s,
+                     "weight_bytes": sv.nbytes}
+        # the open loop's requests, and predict over all of their rows
+        n = SERVE_ROWS[kind]
+        table = make(SERVE_REQUESTS * n, 1, SEED + 8)[0].drop([label[kind]])
+        requests[kind] = [table.slice(i * n, n)
+                          for i in range(SERVE_REQUESTS)]
+        refs[kind] = est.predict(TableDataset([table]))
+        if n >= SERVE_MAX_BATCH:
+            # each request is a batch of its own: predict over the same
+            # batches is the bitwise reference
+            same_batches[kind] = est.predict(TableDataset([table]),
+                                             batch_size=n)
+        del sv
+    free_memory()
+
+    # the executors inherit the seeded rules at spawn (and a restarted one
+    # again: the once= sentinel keeps the crash from firing twice)
+    sentinel = os.path.join(tmp, "serve-crash.sentinel")
+    faults = (f"serve.predict:delay:ms={ROLLOUT_DELAY_MS}:match=|roll-v3-;"
+              f"serve.predict:crash:nth=2:match=|crash-r0:once={sentinel}")
+    with env_knobs(RDT_FAULTS=faults):
+        session = raydp_tpu_torch.init("smoke-serve", **ETL_SESSION)
+    prefix = f"rdt{get_runtime().session_id[:8]}"
+    try:
+        # executors hold no CUDA context before serve_load
+        pids = [h.call("spawn_info")["pid"] for h in session.executors]
+        apps0 = gpu_processes()
+        free0 = torch.cuda.mem_get_info()[0]
+        out["before_load"] = {"executor_pids": pids, "gpu_processes": apps0,
+                              "executors_map_cuda": [maps_cuda(p)
+                                                     for p in pids]}
+        print("serve: before serve_load " + json.dumps(out["before_load"]))
+        require(len(apps0) == 1 and not any(map(maps_cuda, pids)),
+                "an executor held a CUDA context before serve_load")
+        srvs = {}
+        for kind in ("nyctaxi", "dlrm"):
+            t0 = time.perf_counter()
+            srvs[kind] = ServingSession(dirs[kind], session=session,
+                                        name=kind)
+            out[kind]["serve_load_s"] = time.perf_counter() - t0
+        apps = gpu_processes()
+        # the card's memory the two executors took (contexts, four
+        # replicas' weights, their allocators), from the driver's view
+        taken = free0 - torch.cuda.mem_get_info()[0]
+        out["after_load"] = {
+            "gpu_processes": apps,
+            "executors_map_cuda": [maps_cuda(p) for p in pids],
+            "serve_load_s": {k: out[k]["serve_load_s"] for k in srvs},
+            # the load's one row through both threads: the first batch of
+            # a fresh executor (nyctaxi's), of a warm one (dlrm's)
+            "warm_up_s": {r["replica"]: r["warm_up_s"]
+                          for h in session.executors
+                          for r in h.call("serve_stats")["replicas"]},
+            "card_mib_per_executor": taken / len(pids) / 2 ** 20}
+        print("serve: after serve_load " + json.dumps(out["after_load"]))
+        require(len(apps) == 3 and all(map(maps_cuda, pids)),
+                f"the replicas hold no CUDA context of their own: {apps}")
+        # the open loop, hedged (the defaults) and not
+        for kind, srv in srvs.items():
+            out[kind]["open_loop"], hedged = serve_open_loop(
+                f"serve {kind} open loop", srv, requests[kind], refs[kind],
+                kind == "dlrm", session.executors, same_batches.get(kind))
+            with env_knobs(RDT_SERVE_HEDGE="0"):
+                plain = ServingSession(dirs[kind], session=session,
+                                       name=f"{kind}-unhedged")
+            try:
+                out[kind]["unhedged"], unhedged = serve_open_loop(
+                    f"serve {kind} open loop unhedged", plain,
+                    requests[kind], refs[kind], kind == "dlrm",
+                    same_batches=same_batches.get(kind))
+            finally:
+                plain.close()
+            out[kind]["hedged_vs_unhedged"] = against_reference(
+                f"serve {kind} hedged vs unhedged", np.concatenate(hedged),
+                np.concatenate(unhedged), kind == "dlrm")
+        # two replicas given the same batch answer the same bits
+        from raydp_tpu_torch.serve.session import _encode
+        for kind in srvs:
+            payload = _encode(requests[kind][0])
+            each = [h.call("serve_predict", f"{kind}-r{i}", payload)
+                    for i, h in enumerate(session.executors)]
+            require(np.array_equal(each[0], each[1]),
+                    f"{kind}: two replicas differ on the same batch")
+        print("serve: two replicas given the same batch agree bitwise")
+        out["nyctaxi"]["ceiling"] = ceiling(
+            srvs["nyctaxi"], nyctaxi_tables(64 * CEILING_ROWS, 1, SEED + 9)[
+                0].drop([NYC_LABEL]))
+        out["hot_swap"] = run_hot_swap(srvs["nyctaxi"], session,
+                                       requests["nyctaxi"], tmp)
+        for srv in srvs.values():
+            srv.close()
+        with env_knobs(RDT_SERVE_ROLLOUT_STEP_S=str(ROLLOUT_STEP_S)):
+            out["rollout"] = run_rollouts(session, dirs["nyctaxi"],
+                                          requests["nyctaxi"], tmp)
+        out["crash"] = run_crash(session, dirs["nyctaxi"],
+                                 requests["nyctaxi"],
+                                 refs["nyctaxi"][:48 * SERVE_ROWS[
+                                     "nyctaxi"]])
+        require(os.path.exists(sentinel), "the crash rule never fired")
+        counts = launches(fa)
+        print(f"serve launches of the flash kernels: {counts}")
+        require(not any(counts.values()), f"serve phase launched {counts}")
+    finally:
+        raydp_tpu_torch.stop()
+    left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+    print(f"serve: after close() and stop(), segments of the session left: "
+          f"{left}")
+    require(not left, f"segments left after stop: {left}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve phase: {out['phase_s']:.3f} s")
+    print("serve phase " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -2346,10 +2992,10 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = {"flash_attention_fwd": check_kernel(fa, device, gen, baseline),
             **check_bwd_kernels(fa, device, gen, baseline)}
-    # phases 5-9 are bound by the host's kernel launches: their timed fits
-    # run before any torch.profiler session of this process (phases 3-4
-    # profile, and so do 5-6 at their end), so no profiler hook is left in
-    # the launch path while they are timed
+    # phases 5-10 are bound by the host's kernel launches: their timed
+    # fits and requests run before any torch.profiler session of this
+    # process (phases 3-4 profile, and so do 5-6 at their end), so no
+    # profiler hook is left in the launch path while they are timed
     tmp = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
         free_memory()
@@ -2362,6 +3008,8 @@ def main() -> int:
         etl = run_etl(fa, nyctaxi, dlrm, tmp)
         free_memory()
         dispatch = run_dispatch(fa, tmp)
+        free_memory()
+        serving = run_serving(fa, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the profiled epochs replay graphs: the idle share of a graphed epoch
@@ -2369,7 +3017,8 @@ def main() -> int:
     dlrm["profile"] = profile_dlrm()
     print("main path " + json.dumps({"nyctaxi": nyctaxi, "dlrm": dlrm,
                                      "store": store, "etl": etl,
-                                     "dispatch": dispatch}))
+                                     "dispatch": dispatch,
+                                     "serving": serving}))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()

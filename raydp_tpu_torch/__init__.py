@@ -17,8 +17,10 @@ engine (:mod:`raydp_tpu_torch.etl`), whose session :func:`init` starts and
 ``TorchEstimator.fit_on_frame``; the estimator's dispatch plane (CUDA
 graphs of the resident epoch's step and of ``steps_per_dispatch`` chains,
 :mod:`raydp_tpu_torch.train.step_graph`), ``remat``
-(:mod:`raydp_tpu_torch.parallel`), and ``partial_fit`` over the continuous
-pipelines of :mod:`raydp_tpu_torch.stream`.
+(:mod:`raydp_tpu_torch.parallel`), ``partial_fit`` over the continuous
+pipelines of :mod:`raydp_tpu_torch.stream`, and the serving plane
+(:mod:`raydp_tpu_torch.serve`: ``export_serving`` bundles served from
+replicas in the ETL executors, on the card).
 
     import raydp_tpu_torch
     session = raydp_tpu_torch.init("nyc", num_executors=2,

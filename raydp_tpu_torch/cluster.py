@@ -168,8 +168,9 @@ class EtlCluster(Cluster):
             resources=dict(resources),
             max_restarts=kwargs.get("max_restarts", -1),
             max_concurrency=kwargs.get("max_concurrency", 2),
-            # the ETL never takes a card: no executor creates a CUDA context
-            env={"CUDA_VISIBLE_DEVICES": ""},
+            # the card stays visible: the ETL imports no torch, so an
+            # executor holds no CUDA context until a serving replica loads
+            # into it (serve_load), and that replica then serves on the card
             placement_group=kwargs.get("placement_group"),
             bundle_index=kwargs.get("bundle_index"),
             block=kwargs.get("block", True),

@@ -42,7 +42,7 @@ import numpy as np
 import pyarrow as pa
 import torch
 
-from raydp_tpu_torch import knobs, metrics
+from raydp_tpu_torch import knobs, metrics, profiler
 from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.native.stage import stage_table
 
@@ -410,6 +410,8 @@ class DevicePrefetcher:
     backpressure: the producer can run at most ``depth + 1`` items ahead.
     Producer exceptions re-raise in the consumer; closing (or abandoning)
     the iterator stops the thread. Single-use: one ``iter()`` per instance.
+    The producer runs under the trace context of the constructing thread,
+    so a span that ``fn`` opens has that thread's span as its parent.
 
     ``pull_key``/``work_key`` name the :class:`PipelineTimings` phases the
     ``next(src)`` pull and the ``fn`` call accumulate into.
@@ -428,11 +430,19 @@ class DevicePrefetcher:
         self._work_key = work_key
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
+        # the prefetch thread traces under the constructing context (a
+        # serving replica's staging pipeline, an estimator's feed): a plain
+        # Thread would drop the contextvar at the handoff
+        self._ctx = profiler.capture()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=name)
         self._started = False
 
     def _run(self):
+        with profiler.activate(self._ctx):
+            self._run_inner()
+
+    def _run_inner(self):
         try:
             src = iter(self._src)
             while not self._stop.is_set():

@@ -13,6 +13,7 @@ RayAppMaster.scala:192-209); our executor does the same through
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import uuid
 from typing import Any, Dict, List, Optional
@@ -424,6 +425,35 @@ class EtlExecutor:
             "schema": table.schema.serialize().to_pybytes(),
         })
 
+    # -- serving replicas (raydp_tpu_torch/serve/replica.py) -------------------
+    def serve_load(self, replica_id: str, export_dir: str,
+                   device: Optional[str] = None) -> Dict[str, Any]:
+        """(Re)load a serving replica in this process from an exported
+        bundle, on ``device`` (``None``: CUDA, raising without it);
+        idempotent per (id, dir). The first load imports torch and takes
+        this process's CUDA context. A restarted executor comes back with
+        an empty registry — the driver calls this again on the
+        ``ReplicaNotLoaded`` signal."""
+        from raydp_tpu_torch.serve import replica as serve_replica
+        return serve_replica.load(replica_id, export_dir, self._actor_name,
+                                  device)
+
+    def serve_predict(self, replica_id: str, payload: bytes):
+        """One encoded micro-batch → prediction array. Enqueues onto the
+        replica's worker (decode/stage/H2D overlap the apply there) and
+        returns a DeferredReply — a slow model never parks this bounded
+        dispatcher pool."""
+        from raydp_tpu_torch.serve import replica as serve_replica
+        return serve_replica.predict(replica_id, payload)
+
+    def serve_unload(self, replica_id: str) -> bool:
+        from raydp_tpu_torch.serve import replica as serve_replica
+        return serve_replica.unload(replica_id)
+
+    def serve_stats(self) -> Dict[str, Any]:
+        from raydp_tpu_torch.serve import replica as serve_replica
+        return serve_replica.stats()
+
     # -- data-plane server (parity: getRDDPartition) ---------------------------
     def get_block(self, cache_key: str, recover_bytes: Optional[bytes] = None,
                   owner: Optional[str] = None) -> Dict[str, Any]:
@@ -465,14 +495,17 @@ class EtlExecutor:
     def drain_info(self) -> Dict[str, Any]:
         """What this executor uniquely holds in process RAM — the drain
         protocol's inventory (cached blocks to re-home, serving replicas to
-        re-route) and the scale bench's audit surface. Serving is not
-        ported yet, so no replica is ever loaded here and ``replicas`` is
-        the empty list the reference returns for an executor without one."""
+        re-route) and the scale bench's audit surface. An executor that
+        never loaded a replica has not imported the serving plane (nor
+        torch), and reading its empty registry imports neither."""
+        serve_replica = sys.modules.get("raydp_tpu_torch.serve.replica")
+        replicas = [] if serve_replica is None else sorted(
+            r.get("replica", "") for r in serve_replica.stats()["replicas"])
         return {
             "executor": self._actor_name,
             "blocks": self.cache.keys(),
             "block_bytes": self.cache.total_bytes(),
-            "replicas": [],
+            "replicas": replicas,
         }
 
     def has_block(self, cache_key: str) -> bool:

@@ -1,9 +1,9 @@
 """The ``RDT_*`` environment knobs the port reads — its copy of the entries
 of :mod:`raydp_tpu.knobs` on the ported paths (training, the runtime, the
-object store, the ETL engine, the fault plane, continuous pipelines), with
-the same names, types, defaults and read semantics, except
-``RDT_WARM_IMPORTS``, whose default names ``torch`` where the reference's
-names ``jax``.
+object store, the ETL engine, the fault plane, continuous pipelines, the
+serving plane), with the same names, types, defaults and read semantics,
+except ``RDT_WARM_IMPORTS``, whose default names ``torch`` where the
+reference's names ``jax``.
 
 :func:`get` reads the environment at the call, so tests and runs can flip a
 knob between actions; the runtime's process-start knobs are read once by
@@ -71,6 +71,89 @@ _ALL = [
          "model's dominant parameter role; a bare mode is the default "
          "policy for every role. Validated eagerly, before any step. The "
          "estimator remat= argument overrides."),
+    # ---- serving plane -------------------------------------------------------
+    Knob("RDT_SERVE_MAX_BATCH", "int", 64,
+         "Micro-batch row cap: concurrent predict() requests coalesce into "
+         "one replica dispatch up to this many rows. Read at serving-session "
+         "construction."),
+    Knob("RDT_SERVE_BATCH_TIMEOUT_MS", "float", 5.0,
+         "Latency budget a partially-filled micro-batch waits for more rows "
+         "before dispatching anyway."),
+    Knob("RDT_SERVE_MAX_INFLIGHT", "int", 2,
+         "Per-replica in-flight dispatch cap; dispatches queue driver-side "
+         "once every ready replica is at its cap."),
+    Knob("RDT_SERVE_HEDGE", "bool", True,
+         "Hedged requests: a dispatch older than the hedge deadline is "
+         "duplicated onto a second replica; first responder wins, the "
+         "loser's result is discarded and counted."),
+    Knob("RDT_SERVE_HEDGE_QUANTILE", "float", 0.9,
+         "Completed-batch latency quantile the hedge deadline is computed "
+         "from."),
+    Knob("RDT_SERVE_HEDGE_MULTIPLIER", "float", 3.0,
+         "Hedge deadline = this multiple of the latency quantile."),
+    Knob("RDT_SERVE_HEDGE_MIN_MS", "float", 20.0,
+         "Floor under the hedge deadline: dispatches younger than this "
+         "never hedge."),
+    Knob("RDT_SERVE_REROUTE_GRACE_S", "float", 60.0,
+         "Wall-clock grace a failed/unroutable dispatch keeps re-routing "
+         "across replicas (sized for an executor restart + replica reload) "
+         "before failing the request."),
+    Knob("RDT_SERVE_PREFETCH", "int", 2,
+         "Staged batches a replica keeps decoded + device-placed ahead of "
+         "its apply (the DevicePrefetcher depth). Read at replica "
+         "load."),
+    Knob("RDT_SERVE_MAX_QUEUE", "int", 1024,
+         "Overload bound on outstanding (accepted, unfinished) requests: "
+         "past it predict_async sheds with the typed retriable "
+         "ServingOverloaded instead of growing the dispatcher queue, and "
+         "hedging is suppressed while saturated. 0 disables shedding. Read "
+         "at serving-session construction."),
+    Knob("RDT_SERVE_SWAP_DRAIN_S", "float", 30.0,
+         "How long a hot-swap's background retirement waits for the OLD "
+         "servable's in-flight dispatches to drain before unloading it "
+         "anyway (in-flight requests on it still complete; the registry "
+         "entry just goes away)."),
+    Knob("RDT_SERVE_CANARY_WEIGHT", "float", 0.1,
+         "Traffic share a guarded rollout gives the canary version the "
+         "moment it loads (the first ramp step). Read per rollout."),
+    Knob("RDT_SERVE_ROLLOUT_RAMP", "str", "0.25,0.5,1.0",
+         "Comma-separated non-decreasing weight schedule a rollout ramps "
+         "the canary through after the initial canary weight, each step "
+         "judged healthy before the next."),
+    Knob("RDT_SERVE_ROLLOUT_STEP_S", "float", 30.0,
+         "Longest a rollout holds one ramp step waiting for the judgment "
+         "window to fill; a step that times out without evidence either "
+         "way advances (insufficient traffic is not a regression)."),
+    Knob("RDT_SERVE_ROLLOUT_MIN_SAMPLES", "int", 32,
+         "Step-local requests BOTH the canary and the baseline must have "
+         "answered before a health verdict is allowed — a one-request "
+         "blip must not kill a deploy."),
+    Knob("RDT_SERVE_ROLLOUT_ERR_TOL", "float", 0.02,
+         "Absolute error-rate margin the canary may exceed the baseline "
+         "by within a ramp step before the rollout rolls back."),
+    Knob("RDT_SERVE_ROLLOUT_P99_FACTOR", "float", 2.0,
+         "Multiple of the baseline's per-version p99 the canary's p99 "
+         "must exceed (with full windows on both sides) before the "
+         "rollout rolls back on latency."),
+    Knob("RDT_SERVE_MIN_REPLICAS", "int", 1,
+         "Serving-autoscaler floor on per-version replica count."),
+    Knob("RDT_SERVE_MAX_REPLICAS", "int", 4,
+         "Serving-autoscaler ceiling on per-version replica count."),
+    Knob("RDT_SERVE_SCALE_INTERVAL_S", "float", 1.0,
+         "Seconds between serving-autoscaler ticks (each tick reads one "
+         "serving_report and decides at most one scale event)."),
+    Knob("RDT_SERVE_SCALE_UP_S", "float", 3.0,
+         "Sustained dispatch pressure (queue depth beyond replica "
+         "capacity, or the admission queue half full) required before the "
+         "serving autoscaler adds a replica — a momentary spike never "
+         "scales by itself."),
+    Knob("RDT_SERVE_SCALE_IDLE_S", "float", 30.0,
+         "Sustained full idleness (zero queued, zero outstanding) before "
+         "the serving autoscaler drains a replica back."),
+    Knob("RDT_SERVE_SCALE_COOLDOWN_S", "float", 10.0,
+         "Hysteresis after any serving scale event: no further scale "
+         "decisions until it passes (sustained windows keep accumulating "
+         "through it)."),
     # ---- continuous pipelines ------------------------------------------------
     Knob("RDT_STREAM_RETAIN", "int", 64,
          "Epochs of replay state a continuous pipeline keeps: the source "
@@ -87,12 +170,15 @@ _ALL = [
     Knob("RDT_STREAM_EXPORT_EVERY", "int", 0,
          "Default epochs between partial_fit servable exports (and "
          "hot-swaps when a serving session is attached). 0 disables the "
-         "cadence; the partial_fit export_every= argument overrides. The "
-         "port has no serving plane yet (ROADMAP item 9), so partial_fit "
-         "refuses a value above 0."),
+         "cadence; the partial_fit export_every= argument overrides."),
     Knob("RDT_STREAM_MAX_PARTITIONS", "int", 0,
          "Partitions each micro-batch epoch is split into before its engine "
          "action (0 = auto: min(executors, rows))."),
+    Knob("RDT_STREAM_ROLLOUT", "bool", False,
+         "Ship partial_fit exports through a guarded rollout (canary ramp "
+         "+ auto-rollback) instead of an immediate hot_swap. The "
+         "partial_fit rollout= argument overrides; rollouts block on "
+         "serving traffic, so the default stays the atomic swap."),
     # ---- ETL engine ----------------------------------------------------------
     Knob("RDT_ETL_OPTIMIZER", "bool", True,
          "Rule-based logical-plan optimizer (projection pruning + predicate "

@@ -1,37 +1,38 @@
-"""Estimator interface — the port's copy of the parts of
-:mod:`raydp_tpu.train.estimator` on the training path: ``fit`` over datasets
-plus ``get_model``, ``partial_fit`` over a continuous pipeline with
-:class:`OnlineTrainingResult`, ``fit_on_frame`` over ETL DataFrames with the
-frame conversion every estimator shares, and the checkpoint cadence every
-estimator loop shares.
-
-``partial_fit``'s export cadence (``export_every``, which exports a serving
-bundle and ships it into a live serving session) needs ``export_serving``
-and the serving plane, which are not ported yet (ROADMAP item 9): a cadence
-above 0 raises. The reference's default (``RDT_STREAM_EXPORT_EVERY=0``)
-never exports. The arguments and result fields that only matter with
-exports (``export_dir``, ``serving``, ``rollout``; ``exports``,
-``rollouts``) come with that item.
+"""Estimator interface — the port's copy of
+:mod:`raydp_tpu.train.estimator`: ``fit`` over datasets plus ``get_model``
+and ``export_serving``, ``partial_fit`` over a continuous pipeline with
+:class:`OnlineTrainingResult` (and its export cadence, which ships serving
+bundles into a live serving session), ``fit_on_frame`` over ETL DataFrames
+with the frame conversion every estimator shares, and the checkpoint
+cadence every estimator loop shares.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass
 class OnlineTrainingResult:
     """What one :meth:`EstimatorInterface.partial_fit` drive produced: the
-    per-epoch train metric reports and how many stream epochs it consumed.
-    The trained model itself lives on the estimator (``get_model``),
-    exactly as after ``fit``."""
+    per-epoch train metric reports, the serving bundles it exported on the
+    way (``(source epoch id, export dir)``), and how many stream epochs it
+    consumed. The trained model itself lives on the estimator
+    (``get_model`` / ``export_serving``), exactly as after ``fit``."""
 
     history: List[Dict[str, float]] = field(default_factory=list)
+    exports: List[Tuple[int, str]] = field(default_factory=list)
     epochs: int = 0
+    #: guarded-rollout outcome records, one per export shipped through
+    #: ``rollout=`` (empty when exports hot-swap unguarded); a
+    #: ``rolled_back`` entry means that epoch's model never took traffic —
+    #: training continued past it by design
+    rollouts: List[Dict] = field(default_factory=list)
 
     @property
     def final_metrics(self) -> Dict[str, float]:
@@ -49,9 +50,20 @@ class EstimatorInterface(ABC):
     def get_model(self):
         ...
 
+    def export_serving(self, export_dir: str) -> str:
+        """Write a self-contained serving bundle (weights through
+        ``train/checkpoint.py`` + the pickled inference recipe) that
+        :class:`raydp_tpu_torch.serve.ServingSession` loads onto executor
+        replicas. Implemented by ``TorchEstimator``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support export_serving()")
+
     # ---------------------------------------------------------- partial_fit
     def partial_fit(self, stream, *, max_epochs: Optional[int] = None,
                     export_every: Optional[int] = None,
+                    export_dir: Optional[str] = None,
+                    serving=None,
+                    rollout: Optional[bool] = None,
                     timeout_s: Optional[float] = None
                     ) -> OnlineTrainingResult:
         """Online training over a continuous pipeline.
@@ -71,21 +83,27 @@ class EstimatorInterface(ABC):
         thread), or any iterable of ``EpochResult``. Stops after
         ``max_epochs``, or when the stream ends.
 
-        ``export_every`` (default ``RDT_STREAM_EXPORT_EVERY``; 0 disables)
-        would export the model every N epochs and ship it into a serving
-        session: the port has no ``export_serving`` yet (ROADMAP item 9),
-        so a cadence above 0 raises ``NotImplementedError`` before any
-        epoch is consumed.
+        Every ``export_every`` epochs (default ``RDT_STREAM_EXPORT_EVERY``;
+        0 disables) the current model is ``export_serving``-ed under
+        ``export_dir/v<n>`` (a fresh temporary directory when none is
+        given) and — when ``serving`` (a live
+        :class:`~raydp_tpu_torch.serve.ServingSession`) is attached —
+        shipped into it under live traffic, tagged with the source epoch
+        id: either an immediate atomic ``hot_swap``, or, with
+        ``rollout=True`` (default ``RDT_STREAM_ROLLOUT``), a GUARDED
+        rollout — canary weight, ramp, per-version health judgment,
+        auto-promote or auto-rollback. A rolled-back export does NOT stop
+        training: the outcome lands in ``result.rollouts`` and the next
+        epoch trains on.
         """
         from raydp_tpu_torch import knobs, metrics
 
         if export_every is None:
             export_every = int(knobs.get("RDT_STREAM_EXPORT_EVERY"))
-        if export_every:
-            raise NotImplementedError(
-                f"partial_fit(export_every={export_every}) exports serving "
-                f"bundles through export_serving, which the port does not "
-                f"have yet (ROADMAP item 9, serving); pass export_every=0")
+        if rollout is None:
+            rollout = bool(knobs.get("RDT_STREAM_ROLLOUT"))
+        if export_every and export_dir is None:
+            export_dir = tempfile.mkdtemp(prefix="rdt-online-")
         result = OnlineTrainingResult()
         for epoch_id, ds in self._stream_epochs(stream, max_epochs,
                                                 timeout_s):
@@ -96,6 +114,18 @@ class EstimatorInterface(ABC):
             metrics.observe("train_epoch_seconds", report["epoch_time_s"])
             result.history.append(report)
             result.epochs += 1
+            if export_every and result.epochs % export_every == 0:
+                vdir = os.path.join(export_dir,
+                                    f"v{len(result.exports) + 1}")
+                self.export_serving(vdir)
+                result.exports.append((epoch_id, vdir))
+                if serving is not None:
+                    tag = f"epoch-{epoch_id}"
+                    if rollout:
+                        result.rollouts.append(
+                            serving.rollout(vdir, tag=tag))
+                    else:
+                        serving.hot_swap(vdir, tag=tag)
         return result
 
     @staticmethod

@@ -14,8 +14,11 @@ feed/decode/stage/h2d/dispatch/sync, ``train_<metric>``, ``eval_loss``,
 :mod:`raydp_tpu_torch.train.checkpoint`, and on a failure restores the last
 checkpoint this fit wrote, up to ``max_retries`` times. ``fit_on_frame``
 converts ETL DataFrames first (:class:`FrameEstimatorInterface`).
-``predict`` and ``get_model`` follow; ``partial_fit`` trains online over a
-continuous pipeline (:mod:`raydp_tpu_torch.stream`), one pass an epoch.
+``predict``, ``get_model`` and ``export_serving`` (a bundle that
+:mod:`raydp_tpu_torch.serve` loads onto serving replicas) follow;
+``partial_fit`` trains online over a continuous pipeline
+(:mod:`raydp_tpu_torch.stream`), one pass an epoch, and can export and
+hot-swap the model into a live serving session every few epochs.
 
 How it dispatches (the reference's jitted scan and chain): on CUDA the
 resident epoch, the resident eval pass and, with ``steps_per_dispatch=k >
@@ -60,8 +63,7 @@ remat is engaged, the gauges ``train_param_bytes_per_process``,
 
 Not ported yet (ROADMAP): ``mesh``/``mesh_spec``/``param_rules``,
 ``seq_sharded``, ``PipelineModel``, ``fit_gang`` and resume (so
-``fit_on_frame`` refuses ``num_workers > 1``), ``export_serving`` (so
-``partial_fit`` refuses ``export_every > 0``).
+``fit_on_frame`` refuses ``num_workers > 1``).
 """
 
 from __future__ import annotations
@@ -144,6 +146,21 @@ def _cast_floating(inputs, dtype: Optional[torch.dtype]):
     if isinstance(inputs, (list, tuple)):
         return type(inputs)(_cast_floating(v, dtype) for v in inputs)
     return inputs.to(dtype) if inputs.is_floating_point() else inputs
+
+
+@torch.inference_mode()
+def infer(model: nn.Module, batch: Dict[str, torch.Tensor],
+          preprocessor: Optional[Callable], compute_dtype) -> torch.Tensor:
+    """THE inference step, shared by ``predict`` and a loaded servable:
+    the model's inputs (the preprocessor's first output, else
+    ``features``), cast by the compute dtype, through the model; a
+    trailing output dim of 1 squeezed; float32."""
+    inputs = (preprocessor(batch)[0] if preprocessor is not None
+              else batch["features"])
+    preds = model(_cast_floating(inputs, compute_dtype))
+    if preds.ndim >= 2 and preds.shape[-1] == 1:
+        preds = preds.squeeze(-1)
+    return preds.float()
 
 
 def _masked_mean(x: torch.Tensor, mask) -> torch.Tensor:
@@ -880,22 +897,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         anyway.
         """
         model = self.get_model()   # raises if fit() has not run
-        compute_dtype = self.compute_dtype
-        custom = (self.batch_preprocessor is not None
-                  or self.columns_spec is not None)
-        split_batch = self._split_batch
-
-        @torch.no_grad()
-        def infer(batch):
-            inputs = split_batch(batch)[0] if custom else batch["features"]
-            inputs = _cast_floating(inputs, compute_dtype)
-            preds = model(inputs)
-            if preds.ndim >= 2 and preds.shape[-1] == 1:
-                preds = preds.squeeze(-1)
-            return preds.float()
-
-        cols = dict(self._columns()) if custom else {
-            "features": (self.feature_columns, self.feature_dtype)}
+        custom = self._custom()
+        cols = self._predict_columns()
         synth: Dict[str, Tuple[Tuple[str, ...], np.dtype]] = {}
         if custom:
             have = set(ds.schema.names)
@@ -930,10 +933,43 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 batch[name] = np.zeros(shape, dt)
             placed = {k: torch.tensor(v, device=self.device)
                       for k, v in batch.items()}
-            out.append(infer(placed).cpu().numpy())
+            out.append(infer(model, placed, self.batch_preprocessor,
+                             self.compute_dtype).cpu().numpy())
         if not out:
             return np.empty((0,), np.float32)
         return np.concatenate(out, axis=0)
+
+    def _custom(self) -> bool:
+        return (self.batch_preprocessor is not None
+                or self.columns_spec is not None)
+
+    def _predict_columns(self) -> Dict:
+        """The column spec inference decodes: the full spec for custom
+        models (an absent entry, the label, is synthesized as zeros), else
+        ``features`` only."""
+        if self._custom():
+            return dict(self._columns())
+        return {"features": (self.feature_columns, self.feature_dtype)}
+
+    # --------------------------------------------------------- export_serving
+    def export_serving(self, export_dir: str) -> str:
+        """Write a serving bundle for
+        :class:`raydp_tpu_torch.serve.ServingSession`: the trained weights
+        through ``train/checkpoint.py`` plus the pickled inference recipe
+        (the model on the meta device, column spec, preprocessor, cast
+        policy) — exactly what :meth:`predict` uses, through the same
+        :func:`infer`, so a replica's output is row-identical to a
+        driver-side ``predict()`` over the same batches."""
+        from raydp_tpu_torch.serve.servable import export_bundle
+
+        model = self.get_model()   # raises if fit() has not run
+        bundle = {
+            "columns": self._predict_columns(),
+            "custom": self._custom(),
+            "preprocessor": self.batch_preprocessor,
+            "compute_dtype": self.compute_dtype,
+        }
+        return export_bundle(export_dir, "torch", bundle, model)
 
     # -------------------------------------------------------------- get_model
     def get_model(self) -> nn.Module:

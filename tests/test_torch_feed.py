@@ -193,6 +193,32 @@ def test_device_prefetcher_order_errors_and_single_use():
         list(once)
 
 
+@pytest.mark.parametrize("side", ["reference", "port"])
+def test_device_prefetcher_spans_join_the_constructing_trace(side):
+    """A span that the prefetcher's ``fn`` opens on the producer thread has
+    the constructing thread's span as its parent, in both packages."""
+    if side == "reference":
+        from raydp_tpu import profiler
+        prefetcher = ref_feed.DevicePrefetcher
+    else:
+        from raydp_tpu_torch import profiler
+        prefetcher = DevicePrefetcher
+    tag = f"prefetch-trace-{side}"
+
+    def stage(x):
+        with profiler.trace("serve:apply", "serve", replica=tag, rows=x):
+            return x
+
+    with profiler.trace("serve:batch", "serve", replica=tag):
+        parent = profiler.capture()
+        staged = prefetcher(range(3), fn=stage, depth=1)
+    assert list(staged) == [0, 1, 2]
+    children = [s for s in profiler.spans() if s["name"] == "serve:apply"
+                and s.get("args", {}).get("replica") == tag]
+    assert len(children) == 3
+    assert all((s["tr"], s.get("par")) == parent for s in children)
+
+
 @pytest.mark.parametrize("shuffle", [False, True], ids=["ordered", "shuffled"])
 def test_shard_parts_are_byte_identical(runtime, shuffle):
     """A ShardSpec of partial and whole blocks (partial parts decode only

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+import pyarrow as pa
 import pytest
 import torch
 
@@ -46,7 +48,9 @@ def test_imports_neither_jax_nor_the_reference():
         "'etl.frame', 'etl.autoscale', 'etl.session', 'context', 'cluster', "
         "'examples.nyctaxi_features', 'examples.generate_nyctaxi', "
         "'examples.dlrm_criteo', 'parallel.roles', 'train.step_graph', "
-        "'stream.sources', 'stream.pipeline'):\n"
+        "'stream.sources', 'stream.pipeline', 'serve.servable', "
+        "'serve.replica', 'serve.session', 'serve.rollout', "
+        "'serve.autoscale'):\n"
         "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -157,9 +161,9 @@ def test_default_device_estimator_and_feeds_raise_without_cuda(no_cuda, make):
 
 
 def test_init_runs_the_etl_on_the_host_and_training_still_needs_cuda(no_cuda):
-    """``raydp_tpu_torch.init`` starts the ETL on host executors, which see
-    no card by design; what it feeds to training does not make training
-    quietly run on the CPU: ``fit_on_frame``'s estimator and the feeds of a
+    """``raydp_tpu_torch.init`` starts the ETL on host executors, which load
+    no torch; what it feeds to training does not make training quietly run
+    on the CPU: ``fit_on_frame``'s estimator and the feeds of a
     frame-converted dataset raise without CUDA unless asked for the CPU."""
     import raydp_tpu_torch
     from raydp_tpu_torch.data import from_frame
@@ -181,6 +185,56 @@ def test_init_runs_the_etl_on_the_host_and_training_still_needs_cuda(no_cuda):
     finally:
         raydp_tpu_torch.stop()
 
+
+
+class _InProcessExecutor:
+    """An executor handle that runs the replica registry's calls in this
+    process, as an executor runs them in its own."""
+
+    name = "ex0"
+
+    def submit(self, method, *args):
+        from concurrent.futures import Future
+
+        from raydp_tpu_torch.serve import replica
+
+        fut = Future()
+        try:
+            fut.set_result(replica.load(args[0], args[1], self.name,
+                                        *args[2:]))
+        except Exception as e:  # noqa: BLE001 - what the RPC would carry
+            fut.set_exception(e)
+        return fut
+
+    def call(self, method, *args, timeout=None):
+        from raydp_tpu_torch.serve import replica
+
+        assert method == "serve_unload"
+        return replica.unload(args[0])
+
+
+def test_serving_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
+    """``load_servable`` and each replica a ``ServingSession`` loads run on
+    CUDA unless asked for the CPU: without CUDA the load raises, and the
+    session fails at its start instead of serving on the CPU."""
+    from raydp_tpu_torch.data import TableDataset
+    from raydp_tpu_torch.serve import ServingSession, load_servable
+
+    table = pa.table({"x": np.arange(64, dtype=np.float32),
+                      "y": np.ones(64, np.float32)})
+    est = TorchEstimator(model=NYCTaxiModel(1, device="cpu"),
+                         feature_columns=["x"], label_column="y",
+                         batch_size=32, num_epochs=1, device="cpu")
+    est.fit(TableDataset([table]))
+    path = est.export_serving(str(tmp_path / "bundle"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_servable(path)
+    assert load_servable(path, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingSession(path, executors=[_InProcessExecutor()], name="nocuda")
+    srv = ServingSession(path, executors=[_InProcessExecutor()],
+                         name="oncpu", device="cpu")
+    srv.close()
 
 
 def test_torch_trace_defaults_to_cuda_and_writes_a_chrome_trace(no_cuda,

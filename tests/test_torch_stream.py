@@ -10,9 +10,13 @@ then the port's, and their epochs, windows, ledger consumers and reports
 must be equal. ``partial_fit`` starts both estimators from the Flax init
 and trains the same stream epochs; the per-epoch losses agree within
 ``EPOCH_RTOL`` (5e-4, ``test_torch_estimator.py``: f32 sums in another
-order, carried by Adam).
+order, carried by Adam); its export cadence writes the same servables, and
+on the port's session hot-swaps them into a live serving session.
 """
 
+import os
+import tempfile
+import threading
 import time
 
 import jax
@@ -265,9 +269,75 @@ def _run_side(side: str) -> dict:
             pipe.close()
         out["online_stream"] = {"epochs": res.epochs,
                                 "history": res.history}
+
+        # the export cadence: a servable every 2 epochs
+        est = _estimator(side)
+        export_dir = tempfile.mkdtemp(prefix=f"pytest-export-{side}-")
+        pipe = stream.read_stream(stream.SyntheticSource(
+            _reg_table, max_epochs=3))
+        res = est.partial_fit(pipe, export_every=2, export_dir=export_dir)
+        pipe.close()
+        out["export"] = {
+            "epochs": res.epochs,
+            "exports": [(e, os.path.relpath(d, export_dir))
+                        for e, d in res.exports],
+            "complete": [os.path.exists(os.path.join(d, "servable.json"))
+                         for _, d in res.exports],
+            "rollouts": res.rollouts}
+        if side == "port":
+            out["hot_swap"] = _hot_swap_case(session, stream)
     finally:
         root.stop()
     return out
+
+
+def _hot_swap_case(session, stream):
+    """partial_fit(export_every=1) hot-swapping each export into a live
+    CPU ServingSession on the session's executors while requests flow."""
+    from raydp_tpu_torch.data import TableDataset
+    from raydp_tpu_torch.serve import ServingSession, load_servable
+
+    est = _estimator("port")
+    est.fit(TableDataset([_reg_table(9)]))
+    export_dir = tempfile.mkdtemp(prefix="pytest-hot-swap-")
+    est.export_serving(os.path.join(export_dir, "v0"))
+    rows = _reg_table(7).select(["x1", "x2"])
+    srv = ServingSession(os.path.join(export_dir, "v0"), session=session,
+                         name="online", device="cpu")
+    try:
+        stop, futs = threading.Event(), []
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                futs.append(srv.predict_async(rows.slice(i % 60, 2)))
+                i += 1
+                time.sleep(0.005)
+
+        t = threading.Thread(target=traffic)
+        t.start()
+        try:
+            pipe = stream.read_stream(stream.SyntheticSource(
+                _reg_table, max_epochs=2))
+            res = est.partial_fit(pipe, export_every=1, serving=srv,
+                                  export_dir=export_dir)
+            pipe.close()
+        finally:
+            stop.set()
+            t.join(timeout=30)
+        answered = [f.result(timeout=60.0).shape for f in futs]
+        latest = srv.predict(rows, timeout=60.0)
+        rep = srv.serving_report()
+    finally:
+        srv.close()
+    v2 = load_servable(os.path.join(export_dir, "v2"), device="cpu")
+    return {"exports": [(e, os.path.relpath(d, export_dir))
+                        for e, d in res.exports],
+            "requests": len(futs), "answered": answered,
+            "report": {k: rep[k] for k in ("hot_swaps", "failed", "shed")},
+            "servable": rep["servable"],
+            "bitwise_v2": bool(np.array_equal(latest,
+                                              v2.predict_table(rows)))}
 
 
 @pytest.fixture(scope="module")
@@ -336,23 +406,28 @@ def test_partial_fit_matches_flax_estimator(sides, case):
         assert port["settled"] and ref["settled"]
 
 
-def test_partial_fit_refuses_an_export_cadence(monkeypatch):
-    """Exports need export_serving and the serving plane, which the port
-    does not have yet: a cadence above 0 raises before any epoch."""
-    est = _estimator("port")
-    consumed = []
+def test_partial_fit_exports_like_the_reference(sides):
+    """Every 2nd epoch exports a servable under ``export_dir/v<n>``: over 3
+    epochs one export, of epoch 1, complete (``servable.json`` written)."""
+    ref, port = (s["export"] for s in sides)
+    assert port == ref
+    assert port["exports"] == [(1, "v1")] and port["complete"] == [True]
+    assert port["epochs"] == 3 and port["rollouts"] == []
 
-    def epochs():
-        consumed.append(1)
-        yield from ()
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        est.partial_fit(epochs(), export_every=1)
-    monkeypatch.setenv("RDT_STREAM_EXPORT_EVERY", "2")
-    with pytest.raises(NotImplementedError, match="export_every=2"):
-        est.partial_fit(epochs())
-    assert consumed == []
-    assert est.partial_fit(epochs(), export_every=0).epochs == 0
+def test_partial_fit_hot_swaps_into_a_live_serving_session(sides):
+    """``export_every=1`` with a CPU ServingSession attached: two exports
+    hot-swap in under live 2-row traffic, no request is dropped, and
+    afterwards a request answers bitwise as ``v2``'s own servable does on
+    the same batch."""
+    got = sides[1]["hot_swap"]
+    assert got["exports"] == [(0, "v1"), (1, "v2")]
+    assert got["report"] == {"hot_swaps": 2, "failed": 0, "shed": 0}
+    assert got["servable"]["tag"] == "epoch-1"
+    assert got["servable"]["export_dir"].endswith("v2")
+    assert got["requests"] > 0
+    assert got["answered"] == [(2,)] * got["requests"]
+    assert got["bitwise_v2"]
 
 
 def test_partial_fit_state_persists_across_epochs():
