@@ -110,9 +110,10 @@
     requests of 64 after an unmeasured first pass of 100, then the same
     unhedged: request p50/p99 (and the first pass's), requests vs
     batches, hedges, each replica's apply seconds, one request's split
-    from the spans, zero dropped, served rows against ``predict`` (f32
-    within 1e-5, bf16 within two bf16 steps), hedged against unhedged, two
-    replicas given the same batch bitwise equal; a closed-loop ceiling (8
+    from the spans, zero dropped, served rows bitwise equal to
+    ``predict`` over other batches (every forward runs at the estimator's
+    batch size), hedged against unhedged, two replicas given the same
+    batch bitwise equal; a closed-loop ceiling (8
     clients of 256-row NYCTaxi requests for 5 s, rows/s); ``partial_fit
     (export_every=1, serving=...)`` over 2 stream epochs of the port's
     ``ContinuousPipeline`` hot-swapping two exports under traffic, zero
@@ -124,17 +125,40 @@
     dropped; a seeded ``serve.predict`` crash once on one replica: zero
     dropped, the restarted executor reloading its replica on the card; no
     flash launch and no segment left after ``close()`` and ``stop()``;
-11. prints one JSON line of kernel results, then the last line
+11. GBDT on the card at bench.py's GBDT configuration: a seeded
+    200,000-row NYCTaxi CSV through the port's ETL session (two executors
+    of 2 cores), ``random_split([0.9, 0.1], 0)`` and
+    ``GBDTEstimator(params={"tree_method": "hist", "max_depth": 6})``
+    ``fit_on_frame`` for 10 rounds of 256 bins with the per-round eval
+    (the fused path: one captured round replayed); prints train and eval
+    RMSE, rows x rounds / fit wall (bench.py's definition) and the wall's
+    split (materialize, binning, copy to the card, capture, rounds, table
+    fetch); ``predict`` on the eval frame equal to a plain numpy routing of
+    ``get_model()``'s tables; the same 10-round fit graphed and eager in
+    turns (all four bitwise equal, so two graphed fits are too); the port
+    on the CPU against the card (at most 5 % of split nodes differ,
+    margins within rtol 1e-3, atol 1e-4) for ``reg:squarederror``,
+    ``binary:logistic``, ``multi:softprob`` (K = 4, fare quantiles) and an
+    early-stopping fit (the same best iteration, a truncated forest);
+    ``examples/torch_loop_nyctaxi.py``'s loop for 2 epochs on the card from
+    ``to_torch_dataset`` (the loss falls); no flash launch, no segment left
+    after ``stop()``; then ``raydp_tpu_torch/examples/gbdt_nyctaxi.py``'s
+    100 rounds launched through ``python -m raydp_tpu_torch.cli.submit
+    --num-executors 2 --executor-cores 2`` as a child process (exit 0, the
+    child's session took the submitted values, its rows x rounds / s); one
+    replayed round profiled after the timed work of every phase;
+12. prints one JSON line of kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 3, 4: phases 5-10
+The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 3, 4: phases 5-11
 are bound by the host's kernel launches, so their timed fits and requests
-come before any ``torch.profiler`` session of the process, and the two
+come before any ``torch.profiler`` session of the process, and the
 profiled epochs of 5-6 (one per model, in fits of their own, replaying
-graphs) after them. Every kernel launch counter is set to 0 just before
-each driven path (3, both modes of 4, 5, 6, 7, 8, 9 and 10) and read just
-after; 5-10 run no attention and must launch none. Any failed check exits
-non-zero; so does a machine without CUDA.
+graphs) and phase 11's profiled round after them. Every kernel launch
+counter is set to 0 just before each driven path (3, both modes of 4, 5,
+6, 7, 8, 9, 10 and 11) and read just after; 5-11 run no attention and must
+launch none. Any failed check exits non-zero; so does a machine without
+CUDA.
 """
 
 from __future__ import annotations
@@ -2376,9 +2400,6 @@ CEILING_THREADS, CEILING_ROWS, CEILING_S = 8, 256, 5.0
 # serve_bench.py --rollout: the canary's seeded stall and the open-loop
 # load that runs through a rollout (800 requests at 10 ms there)
 ROLLOUT_DELAY_MS, ROLLOUT_REQUESTS, ROLLOUT_STEP_S = 500, 800, 5.0
-# coalesced vs predict (another row count M, so maybe another GEMM kernel):
-# f32 within 1e-5, bf16 logits within two bf16 steps of the reference value
-SERVE_F32_ATOL, SERVE_BF16_STEPS = 1e-5, 2
 # rows of the driver's servable-vs-predict check: a batch and a ragged tail
 SERVE_PREDICT_ROWS = {"nyctaxi": PREDICT_ROWS, "dlrm": DLRM_BATCH + 777}
 
@@ -2399,30 +2420,18 @@ def maps_cuda(pid: int) -> bool:
         return "libcuda" in f.read()
 
 
-def bf16_steps(got: np.ndarray, ref: np.ndarray) -> np.ndarray:
-    """|got - ref| in units of the bf16 step (8 significand bits) at each
-    reference value."""
-    exp = np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
-    return np.abs(got - ref) / 2.0 ** (exp - 7)
-
-
-def against_reference(label: str, got: np.ndarray, ref: np.ndarray,
-                      bf16: bool) -> dict:
+def against_reference(label: str, got: np.ndarray, ref: np.ndarray) -> dict:
     """Served rows against reference rows of another batch composition:
-    f32 within SERVE_F32_ATOL, bf16 within SERVE_BF16_STEPS steps. Prints
-    the largest difference and the share of rows that differ."""
+    bitwise equal. Prints the largest difference and the share of rows
+    that differ (both 0 when the check holds)."""
     require(got.shape == ref.shape and bool(np.isfinite(got).all()),
             f"{label}: shape {got.shape} vs {ref.shape}, or not finite")
     diff = np.abs(got - ref)
     out = {"max_abs_diff": float(diff.max()),
-           "rows_differing": float(np.mean(diff > 0))}
-    if bf16:
-        out["max_bf16_steps"] = float(bf16_steps(got, ref).max())
-        ok = out["max_bf16_steps"] <= SERVE_BF16_STEPS
-    else:
-        ok = out["max_abs_diff"] <= SERVE_F32_ATOL
+           "rows_differing": float(np.mean(diff > 0)),
+           "bitwise": bool(np.array_equal(got, ref))}
     print(f"{label}: " + json.dumps(out))
-    require(ok, f"{label}: {out}")
+    require(out["bitwise"], f"{label}: {out}")
     return out
 
 
@@ -2500,13 +2509,11 @@ def request_split(executors) -> dict:
     return {k: round(v, 4) for k, v in out.items()}
 
 
-def serve_open_loop(label: str, srv, requests, ref, bf16: bool,
-                    executors=None, same_batches=None) -> tuple:
+def serve_open_loop(label: str, srv, requests, ref,
+                    executors=None) -> tuple:
     """Warm up, run the open loop, print its numbers, and hold every
-    response against ``ref`` (rows of predict over other batches) and,
-    where every request was a batch of its own, bitwise against
-    ``same_batches`` (predict over batches of a request's rows). Returns
-    (numbers, the predictions)."""
+    response bitwise to ``ref`` (rows of predict over other batches).
+    Returns (numbers, the predictions)."""
     _, first, first_dropped = open_loop(srv, requests[:SERVE_WARMUP],
                                         SERVE_INTERVAL_S)
     first = {"p50_ms": float(np.percentile(first, 50)),
@@ -2534,14 +2541,7 @@ def serve_open_loop(label: str, srv, requests, ref, bf16: bool,
     require(out["dropped"] == 0, f"{label}: {out['dropped']} requests "
                                  "dropped")
     out["vs_predict"] = against_reference(
-        f"{label} vs predict", np.concatenate(preds), ref, bf16)
-    if same_batches is not None:
-        out["same_batches_bitwise"] = bool(np.array_equal(
-            np.concatenate(preds), same_batches))
-        print(f"{label} vs predict over the same batches: bitwise "
-              f"{out['same_batches_bitwise']}")
-        require(out["same_batches_bitwise"],
-                f"{label}: differs from predict over the same batches")
+        f"{label} vs predict", np.concatenate(preds), ref)
     return out, preds
 
 
@@ -2785,7 +2785,7 @@ def run_crash(session, base_dir: str, requests, ref) -> dict:
         require(out["new_pid_maps_cuda"] and len(apps) == 3,
                 f"the reloaded replica is not on the card: {apps}")
         out["vs_predict"] = against_reference(
-            "serve crash vs predict", np.concatenate(got), ref, False)
+            "serve crash vs predict", np.concatenate(got), ref)
     finally:
         srv.close()
     return out
@@ -2822,7 +2822,7 @@ def run_serving(fa, tmp: str) -> dict:
             SERVE_EPOCHS)[0]}
     label = {"nyctaxi": NYC_LABEL, "dlrm": "_c0"}
     batch = {"nyctaxi": NYC_BATCH, "dlrm": DLRM_BATCH}
-    dirs, requests, refs, same_batches = {}, {}, {}, {}
+    dirs, requests, refs = {}, {}, {}
     for kind, est in models.items():
         dirs[kind] = os.path.join(tmp, f"serve-{kind}")
         t0 = time.perf_counter()
@@ -2855,11 +2855,6 @@ def run_serving(fa, tmp: str) -> dict:
         requests[kind] = [table.slice(i * n, n)
                           for i in range(SERVE_REQUESTS)]
         refs[kind] = est.predict(TableDataset([table]))
-        if n >= SERVE_MAX_BATCH:
-            # each request is a batch of its own: predict over the same
-            # batches is the bitwise reference
-            same_batches[kind] = est.predict(TableDataset([table]),
-                                             batch_size=n)
         del sv
     free_memory()
 
@@ -2909,20 +2904,19 @@ def run_serving(fa, tmp: str) -> dict:
         for kind, srv in srvs.items():
             out[kind]["open_loop"], hedged = serve_open_loop(
                 f"serve {kind} open loop", srv, requests[kind], refs[kind],
-                kind == "dlrm", session.executors, same_batches.get(kind))
+                session.executors)
             with env_knobs(RDT_SERVE_HEDGE="0"):
                 plain = ServingSession(dirs[kind], session=session,
                                        name=f"{kind}-unhedged")
             try:
                 out[kind]["unhedged"], unhedged = serve_open_loop(
                     f"serve {kind} open loop unhedged", plain,
-                    requests[kind], refs[kind], kind == "dlrm",
-                    same_batches=same_batches.get(kind))
+                    requests[kind], refs[kind])
             finally:
                 plain.close()
             out[kind]["hedged_vs_unhedged"] = against_reference(
                 f"serve {kind} hedged vs unhedged", np.concatenate(hedged),
-                np.concatenate(unhedged), kind == "dlrm")
+                np.concatenate(unhedged))
         # two replicas given the same batch answer the same bits
         from raydp_tpu_torch.serve.session import _encode
         for kind in srvs:
@@ -2960,6 +2954,387 @@ def run_serving(fa, tmp: str) -> dict:
     print(f"serve phase: {out['phase_s']:.3f} s")
     print("serve phase " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: GBDT on the card at bench.py's GBDT configuration (bench.py:
+# 376-420): a seeded 200,000-row NYCTaxi CSV through the port's ETL (two
+# executors), random_split([0.9, 0.1], 0), GBDTEstimator (hist trees, depth
+# 6, 256 bins) fit_on_frame for 10 rounds with the per-round eval (the fused
+# path), predict; the example's 100 rounds launched through the port's
+# submit CLI; graphed against eager rounds in turns, two graphed fits, the
+# card against the CPU (three objectives and early stopping), the bridge's
+# torch loop; one graphed round profiled after the timed work
+
+GBDT_ROWS, GBDT_ROUNDS, GBDT_DEPTH = 200_000, 10, 6
+GBDT_EXAMPLE_ROUNDS = 100
+# binary:logistic and multi:softprob (labels from fare quantiles) on the
+# same features; the early-stopping fit stops at most after 30 rounds
+# (about 18 at this configuration on the CPU)
+GBDT_OBJECTIVE_ROUNDS, GBDT_CLASSES = 20, 4
+GBDT_EARLY_STOP, GBDT_EARLY_STOP_ROUNDS = 3, 30
+# card vs CPU: the reference's own rule for a different reduction order
+# (tests/test_gbdt.py's sharded fit): the card's histograms sum each
+# segment in a tree (sorted segment_reduce), the CPU's in row order
+GBDT_SPLIT_FRACTION, GBDT_MARGIN_RTOL, GBDT_MARGIN_ATOL = 0.05, 1e-3, 1e-4
+BRIDGE_EPOCHS, BRIDGE_BATCH = 2, 1024
+
+
+def plain_route(model, X: np.ndarray) -> np.ndarray:
+    """A GBDTModel's margins by a plain numpy walk of its tables: bins by
+    searchsorted, each tree's leaf value added in tree order to float32
+    zeros, then the base score."""
+    Xb = np.stack([np.searchsorted(model.bin_edges[j], X[:, j], side="left")
+                   for j in range(X.shape[1])], axis=1)
+    sf, sb, lv = model.split_feature, model.split_bin, model.leaf_value
+    multi = sf.ndim == 3
+    if not multi:
+        sf, sb, lv = sf[:, None], sb[:, None], lv[:, None]
+    rows = np.arange(len(X))
+    pred = np.zeros((len(X), sf.shape[1]), np.float32)
+    for t in range(sf.shape[0]):
+        for k in range(sf.shape[1]):
+            node = np.zeros(len(X), np.int64)
+            for d in range(model.max_depth):
+                at = 2 ** d - 1 + node
+                node = node * 2 + (Xb[rows, sf[t, k, at]] > sb[t, k, at])
+            pred[:, k] = pred[:, k] + lv[t, k, node]
+    margin = pred if multi else pred[:, 0]
+    return margin + model.base_score
+
+
+def forests_agree(label: str, card, cpu, card_margin, cpu_margin) -> dict:
+    """The card's forest against the CPU's under GBDT_SPLIT_FRACTION and
+    the margins' limits."""
+    frac = float(np.mean(card.split_feature != cpu.split_feature))
+    diff = np.abs(card_margin - cpu_margin)
+    out = {"split_nodes_differing": frac,
+           "max_margin_diff": float(diff.max()),
+           "margins_within": bool(np.allclose(
+               card_margin, cpu_margin, rtol=GBDT_MARGIN_RTOL,
+               atol=GBDT_MARGIN_ATOL))}
+    print(f"{label} card vs cpu: " + json.dumps(out))
+    require(card.split_feature.shape == cpu.split_feature.shape
+            and frac <= GBDT_SPLIT_FRACTION and out["margins_within"],
+            f"{label}: card vs cpu {out}")
+    return out
+
+
+def same_forest(a, b) -> bool:
+    return all(np.array_equal(getattr(a, n), getattr(b, n)) for n in (
+        "split_feature", "split_bin", "leaf_value", "base_score"))
+
+
+@contextlib.contextmanager
+def eager_step_runners():
+    """Every StepRunner made inside runs each call eagerly (on the card it
+    captures nothing): the rounds of a fit, launched one by one."""
+    from raydp_tpu_torch.train import step_graph
+
+    real = step_graph.StepRunner.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        self.graphed = False
+
+    step_graph.StepRunner.__init__ = init
+    try:
+        yield
+    finally:
+        step_graph.StepRunner.__init__ = real
+
+
+def gbdt_turns(X, y, evals, edges) -> dict:
+    """The 10-round fused fit graphed and eager, in turns (graphed, eager,
+    eager, graphed): every fit the same bits, and the time of each."""
+    from raydp_tpu_torch.models import fit_gbdt
+
+    out = {"graphed": [], "eager": []}
+    first = None
+    for graphed in (True, False, False, True):
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if graphed else eager_step_runners():
+            fitted = fit_gbdt(X, y, num_trees=GBDT_ROUNDS,
+                              max_depth=GBDT_DEPTH, evals=evals,
+                              bin_edges=edges, timings=timings)
+        timings["fit_s"] = time.perf_counter() - t0
+        timings["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        kind = "graphed" if graphed else "eager"
+        out[kind].append(timings)
+        print(f"gbdt {kind}: " + json.dumps(
+            {k: round(v, 6) for k, v in timings.items()}))
+        if first is None:
+            first = fitted
+            continue
+        same = (same_forest(fitted[0], first[0])
+                and np.array_equal(fitted[1], first[1])
+                and fitted[2] == first[2])
+        require(same, f"gbdt {kind} fit differs from the first graphed fit")
+    require(all(t["graph_replays"] == GBDT_ROUNDS - 1
+                for t in out["graphed"])
+            and all(t["graph_replays"] == 0 for t in out["eager"]),
+            f"gbdt dispatch: {out}")
+    print(f"gbdt graphed vs eager, in turns: rounds "
+          f"{[round(t['rounds_s'], 6) for t in out['graphed']]} s graphed "
+          f"(capture {[round(t['capture_s'], 6) for t in out['graphed']]}),"
+          f" {[round(t['rounds_s'], 6) for t in out['eager']]} s eager; "
+          f"all four fits bitwise equal, the two graphed fits included")
+    return out
+
+
+def gbdt_card_vs_cpu(X, y, eX, ey, edges) -> dict:
+    """The port on the CPU against the card, same data and bins: the bench
+    configuration's regression, binary:logistic and multi:softprob (labels
+    from fare quantiles) for GBDT_OBJECTIVE_ROUNDS rounds, and one
+    early-stopping fit."""
+    from raydp_tpu_torch.models import fit_gbdt
+
+    out = {}
+    cuts = np.quantile(y, np.linspace(0, 1, GBDT_CLASSES + 1)[1:-1])
+    median = np.median(y)
+    cases = {
+        "reg:squarederror": (y, ey, GBDT_ROUNDS, {}),
+        "binary:logistic": ((y > median).astype(np.float32),
+                            (ey > median).astype(np.float32),
+                            GBDT_OBJECTIVE_ROUNDS, {}),
+        "multi:softprob": (np.digitize(y, cuts).astype(np.float32),
+                           np.digitize(ey, cuts).astype(np.float32),
+                           GBDT_OBJECTIVE_ROUNDS, {}),
+        "early_stopping": (y, ey, GBDT_EARLY_STOP_ROUNDS,
+                           {"early_stopping_rounds": GBDT_EARLY_STOP}),
+    }
+    for name, (yy, eyy, rounds, kw) in cases.items():
+        objective = name if ":" in name else "reg:squarederror"
+        fits = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            fits[dev] = fit_gbdt(X, yy, num_trees=rounds,
+                                 max_depth=GBDT_DEPTH, objective=objective,
+                                 evals=(eX, eyy), bin_edges=edges,
+                                 device=dev, **kw)
+            fits[dev] += (time.perf_counter() - t0,)
+        (card, cm, ch, cs), (cpu, pm, ph, ps) = fits["cuda"], fits["cpu"]
+        history = next(iter(ch.values()))
+        row = forests_agree(f"gbdt {name}", card, cpu, cm, pm)
+        row.update({"rounds_run": len(history),
+                    "eval_first": history[0], "eval_last": history[-1],
+                    "card_s": cs, "cpu_s": ps})
+        require(min(history) < history[0], f"gbdt {name}: the eval loss "
+                f"did not fall: {history}")
+        if name == "early_stopping":
+            row.update({"best_iteration": card.best_iteration,
+                        "cpu_best_iteration": cpu.best_iteration,
+                        "trees": card.num_trees})
+            require(card.best_iteration == cpu.best_iteration
+                    and card.num_trees == card.best_iteration + 1
+                    < len(history), f"early stopping: best iteration "
+                    f"{card.best_iteration} on the card, "
+                    f"{cpu.best_iteration} on the cpu, {card.num_trees} "
+                    f"trees kept of {len(history)} rounds")
+        else:
+            require(history[-1] < history[0], f"gbdt {name}: the eval loss "
+                    f"did not fall: {history}")
+        print(f"gbdt {name}: " + json.dumps(row))
+        out[name] = row
+    return out
+
+
+def gbdt_example(tmp: str) -> dict:
+    """examples/gbdt_nyctaxi.py's 100 rounds through the port's submit CLI,
+    as a child process: it exits 0, its session took the submitted
+    executors, and it reports rows x rounds / s."""
+    import os
+    import re
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "raydp_tpu_torch.cli.submit",
+           "--num-executors", "2", "--executor-cores", "2",
+           os.path.join(repo, "raydp_tpu_torch", "examples",
+                        "gbdt_nyctaxi.py"),
+           "--rows", str(GBDT_ROWS), "--rounds", str(GBDT_EXAMPLE_ROUNDS)]
+    env = dict(os.environ, PYTHONPATH=repo, TMPDIR=tmp)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("gbdt_nyctaxi "):
+            print(f"  child: {line}")
+    require(proc.returncode == 0, f"the submitted example exited "
+            f"{proc.returncode}: {proc.stderr[-3000:]}")
+    took = re.search(r"session: (\d+) executors x (\d+) cores", proc.stdout)
+    report = json.loads(next(line for line in lines if line.startswith(
+        "gbdt_nyctaxi "))[len("gbdt_nyctaxi "):])
+    out = {"exit": proc.returncode, "child_wall_s": wall,
+           "session": [int(took.group(1)), int(took.group(2))] if took
+           else None, **report}
+    print("gbdt example through submit: " + json.dumps(out))
+    require(out["session"] == [2, 2], f"the child's session did not take "
+            f"the submitted values: {out['session']}")
+    return out
+
+
+def profile_gbdt_round(X, y, evals, edges, steady_round_s: float) -> dict:
+    """torch.profiler over one replayed round of a graphed fused fit (the
+    third call of its step runner: the first is eager, the second
+    captures)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raydp_tpu_torch.models import fit_gbdt
+    from raydp_tpu_torch.train import step_graph
+
+    window = EpochProfile(0)
+    real = step_graph.StepRunner.__call__
+    calls = []
+
+    def traced(self, inputs, n_steps=1):
+        calls.append(1)
+        if len(calls) != 3:
+            return real(self, inputs, n_steps)
+        torch.cuda.synchronize()
+        window.prof = profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA])
+        window.prof.start()
+        t0 = time.perf_counter()
+        real(self, inputs, n_steps)
+        torch.cuda.synchronize()
+        window.wall_s = time.perf_counter() - t0
+        window.prof.stop()
+
+    torch.cuda.reset_peak_memory_stats()
+    step_graph.StepRunner.__call__ = traced
+    try:
+        fit_gbdt(X, y, num_trees=4, max_depth=GBDT_DEPTH, evals=evals,
+                 bin_edges=edges)
+    finally:
+        step_graph.StepRunner.__call__ = real
+    out = window.summary("gbdt graphed round", steady_round_s)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"profile gbdt graphed round: peak memory {out['peak_mib']:.1f} "
+          "MiB")
+    return out
+
+
+def run_gbdt(fa, tmp: str):
+    """Phase 11: CSV -> the port's ETL -> GBDTEstimator.fit_on_frame ->
+    predict on the card, and the checks around it. Returns the numbers and
+    a function that profiles one graphed round (called after the timed
+    work of every phase)."""
+    import os
+
+    import raydp_tpu_torch
+    from raydp_tpu_torch.examples.generate_nyctaxi import generate
+    from raydp_tpu_torch.examples.nyctaxi_features import (
+        LABEL, feature_columns, nyc_taxi_preprocess,
+    )
+    from raydp_tpu_torch.examples.torch_loop_nyctaxi import train_loop
+    from raydp_tpu_torch.data import to_torch_dataset
+    from raydp_tpu_torch.runtime import get_runtime
+    from raydp_tpu_torch.train import GBDTEstimator
+    from raydp_tpu_torch.utils import random_split
+
+    t_phase = time.perf_counter()
+    zero_launches(fa)
+    out = {"card": torch.cuda.get_device_name(0)}
+    csv = os.path.join(tmp, "gbdt-nyctaxi.csv")
+    generate(GBDT_ROWS, seed=SEED).to_csv(csv, index=False)
+    clock = CallClock()
+    clock.wrap(GBDTEstimator, "fit", "fit")
+    session = raydp_tpu_torch.init("smoke-gbdt", **ETL_SESSION)
+    prefix = f"rdt{get_runtime().session_id[:8]}"
+    try:
+        frame = nyc_taxi_preprocess(
+            session.read.csv(csv, num_partitions=ETL_PARTITIONS))
+        features = feature_columns(frame)
+        train_df, test_df = random_split(frame, [0.9, 0.1], 0)
+        est = GBDTEstimator(
+            params={"tree_method": "hist", "max_depth": GBDT_DEPTH},
+            feature_columns=features, label_column=LABEL,
+            num_boost_round=GBDT_ROUNDS)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = est.fit_on_frame(train_df, test_df)
+        frame_s = time.perf_counter() - t0
+        fit_s = clock.take()["fit"]
+        _, train_ds, eval_ds = clock.last_args["fit"][:3]
+        report = result.history[-1]
+        split = dict(result.dispatch[0])
+        split["report_and_checkpoint_s"] = fit_s - sum(
+            split[k] for k in ("materialize_s", "binning_s", "h2d_s",
+                               "capture_s", "rounds_s", "fetch_s"))
+        n_train = train_ds.count()
+        out["bench"] = {
+            "train_rows": n_train, "eval_rows": eval_ds.count(),
+            "features": len(features), "rounds": GBDT_ROUNDS,
+            "train_rmse": report["train_rmse"],
+            "eval_rmse": report["eval_rmse"],
+            "fit_on_frame_s": frame_s, "fit_wall_s": fit_s,
+            # bench.py:412: int(rows * 0.9) x rounds / fit wall
+            "rows_rounds_per_s": int(GBDT_ROWS * 0.9) * GBDT_ROUNDS / fit_s,
+            "train_rows_rounds_per_s": n_train * GBDT_ROUNDS / fit_s,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "split": split}
+        print("gbdt bench configuration: " + json.dumps(out["bench"]))
+        require(len(features) == NYCTAXI_FEATURES and report["num_trees"]
+                == GBDT_ROUNDS and math.isfinite(report["eval_rmse"]),
+                f"gbdt fit: {report}")
+        history = est.evals_result["eval_rmse"]
+        require(history[-1] < history[0], f"eval rmse {history}")
+
+        # predict on the eval frame: a plain routing of get_model()'s tables
+        X_eval = est._feature_matrix(eval_ds.to_arrow())
+        got = est.predict(eval_ds)
+        want = plain_route(est.get_model(), X_eval)
+        require(got.shape == (eval_ds.count(),) and np.array_equal(
+            got, want), "gbdt predict differs from a plain routing")
+        print(f"gbdt predict: {len(got)} eval rows equal a plain routing "
+              f"of get_model()'s tables")
+
+        # the same binned data for the turns and the CPU comparisons
+        X, y, _ = est._materialize(train_ds, with_weight=True)
+        eX, ey = est._materialize(eval_ds)
+        edges = est.get_model().bin_edges
+        out["turns"] = gbdt_turns(X, y, (eX, ey), edges)
+        out["card_vs_cpu"] = gbdt_card_vs_cpu(X, y, eX, ey, edges)
+
+        # the bridge: the example's torch loop on the card
+        train = to_torch_dataset(train_ds, feature_columns=features,
+                                 label_column=LABEL, batch_size=BRIDGE_BATCH,
+                                 shuffle=True)
+        evaluate = to_torch_dataset(eval_ds, feature_columns=features,
+                                    label_column=LABEL,
+                                    batch_size=BRIDGE_BATCH)
+        t0 = time.perf_counter()
+        reports = train_loop(train, evaluate, len(features), BRIDGE_EPOCHS,
+                             1e-3, torch.device("cuda"), seed=SEED)
+        out["bridge"] = {"epochs": reports,
+                         "wall_s": time.perf_counter() - t0}
+        print("gbdt bridge torch loop: " + json.dumps(out["bridge"]))
+        require(reports[-1]["train_loss"] < reports[0]["train_loss"],
+                f"the bridge loop's loss did not fall: {reports}")
+        counts = launches(fa)
+        print(f"gbdt launches of the flash kernels: {counts}")
+        require(not any(counts.values()), f"gbdt phase launched {counts}")
+    finally:
+        clock.restore()
+        raydp_tpu_torch.stop()
+    left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+    print(f"gbdt: after stop(), segments of the session left: {left}")
+    require(not left, f"segments left after stop: {left}")
+    out["example"] = gbdt_example(tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"gbdt phase: {out['phase_s']:.3f} s")
+    print("gbdt phase " + json.dumps(out))
+    last = out["turns"]["graphed"][-1]
+    steady = last["rounds_s"] / last["rounds"]
+
+    def profile():
+        return profile_gbdt_round(X, y, (eX, ey), edges, steady)
+
+    return out, profile
 
 
 def main() -> int:
@@ -3010,15 +3385,18 @@ def main() -> int:
         dispatch = run_dispatch(fa, tmp)
         free_memory()
         serving = run_serving(fa, tmp)
+        free_memory()
+        gbdt, profile_gbdt = run_gbdt(fa, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the profiled epochs replay graphs: the idle share of a graphed epoch
     nyctaxi["profile"] = profile_nyctaxi()
     dlrm["profile"] = profile_dlrm()
+    gbdt["profile"] = profile_gbdt()
     print("main path " + json.dumps({"nyctaxi": nyctaxi, "dlrm": dlrm,
                                      "store": store, "etl": etl,
                                      "dispatch": dispatch,
-                                     "serving": serving}))
+                                     "serving": serving, "gbdt": gbdt}))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()

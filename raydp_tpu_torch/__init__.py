@@ -18,9 +18,13 @@ engine (:mod:`raydp_tpu_torch.etl`), whose session :func:`init` starts and
 graphs of the resident epoch's step and of ``steps_per_dispatch`` chains,
 :mod:`raydp_tpu_torch.train.step_graph`), ``remat``
 (:mod:`raydp_tpu_torch.parallel`), ``partial_fit`` over the continuous
-pipelines of :mod:`raydp_tpu_torch.stream`, and the serving plane
+pipelines of :mod:`raydp_tpu_torch.stream`, the serving plane
 (:mod:`raydp_tpu_torch.serve`: ``export_serving`` bundles served from
-replicas in the ETL executors, on the card).
+replicas in the ETL executors, on the card), gradient-boosted trees grown
+on the card (:mod:`raydp_tpu_torch.models.gbdt`,
+:class:`~raydp_tpu_torch.train.GBDTEstimator`), the data bridges to a
+training loop of the user's (``to_torch_dataset``, ``to_tf_dataset``) and
+``rdt-submit-torch`` (:mod:`raydp_tpu_torch.cli.submit`).
 
     import raydp_tpu_torch
     session = raydp_tpu_torch.init("nyc", num_executors=2,

@@ -6,9 +6,12 @@
   and :class:`TableDataset`, the same read interface over in-process
   blocks;
 - :mod:`feed` — host batches (byte-identical to the reference's), the
-  streaming :class:`DeviceFeed` and the resident :class:`DeviceEpochCache`.
+  streaming :class:`DeviceFeed` and the resident :class:`DeviceEpochCache`;
+- :mod:`bridges` — :func:`to_torch_dataset` and :func:`to_tf_dataset`,
+  host-side feeds for a training loop the user writes.
 """
 
+from raydp_tpu_torch.data.bridges import to_tf_dataset, to_torch_dataset
 from raydp_tpu_torch.data.dataset import (
     BlockMeta, DistributedDataset, TableDataset, from_frame,
     from_frame_recoverable, release, to_frame,
@@ -22,4 +25,4 @@ __all__ = ["MASK_KEY", "BlockMeta", "DeviceEpochCache", "DeviceFeed",
            "DevicePrefetcher", "DistributedDataset", "HostBatchIterator",
            "PipelineTimings", "ShardSpec", "TableDataset", "epoch_seed",
            "from_frame", "from_frame_recoverable", "pad_batch", "release",
-           "to_frame"]
+           "to_frame", "to_tf_dataset", "to_torch_dataset"]

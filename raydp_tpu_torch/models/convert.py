@@ -9,6 +9,9 @@ BatchNorm's running statistics ``batch_stats["BatchNorm_0"]["mean"]`` /
 (Flax keeps them in their own collection; torch keeps buffers in the same
 state_dict as parameters). Loading the result with ``load_state_dict``
 (strict, the default) rejects a missing or unexpected key or a wrong shape.
+
+A forest has no weights to load: :func:`gbdt_from_reference` builds the
+port's ``GBDTModel`` from the reference model's fields.
 """
 
 from __future__ import annotations
@@ -47,3 +50,30 @@ def mlp_variables_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
 def dlrm_params_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """Flax ``DLRM`` params → the port's ``DLRM`` state_dict."""
     return _flatten(params)
+
+
+def gbdt_from_reference(fields: Mapping):
+    """The reference ``GBDTModel``'s fields (a mapping of numpy arrays and
+    scalars, e.g. ``dataclasses.asdict`` of it) → the port's
+    :class:`~raydp_tpu_torch.models.gbdt.GBDTModel`, the same forest. A
+    missing or unknown field raises."""
+    import dataclasses
+
+    from raydp_tpu_torch.models.gbdt import GBDTModel
+
+    names = {f.name for f in dataclasses.fields(GBDTModel)}
+    missing = sorted(names - set(fields) - {"best_iteration"})
+    unknown = sorted(set(fields) - names)
+    if missing or unknown:
+        raise ValueError(f"not a GBDTModel's fields: missing {missing}, "
+                         f"unknown {unknown}")
+    best = fields.get("best_iteration")
+    return GBDTModel(
+        split_feature=np.asarray(fields["split_feature"], np.int32),
+        split_bin=np.asarray(fields["split_bin"], np.int32),
+        leaf_value=np.asarray(fields["leaf_value"], np.float32),
+        bin_edges=np.asarray(fields["bin_edges"], np.float32),
+        base_score=np.asarray(fields["base_score"], np.float32),
+        max_depth=int(fields["max_depth"]),
+        objective=str(fields["objective"]),
+        best_iteration=None if best is None else int(best))

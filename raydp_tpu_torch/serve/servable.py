@@ -9,7 +9,8 @@ port of :mod:`raydp_tpu.serve.servable`.
   moved to the ``meta`` device (an architecture without weights, the
   counterpart of the reference's weightless Flax module) and everything
   the estimator's own ``predict()`` uses (column spec, preprocessor, cast
-  policy);
+  policy, and ``infer_rows``: every forward runs at that many rows, so a
+  served row has ``predict()``'s bits whatever it was coalesced with);
 - ``ckpt/``        — the weights written through
   :mod:`raydp_tpu_torch.train.checkpoint` at step 0 (the module's
   ``state_dict`` and its non-persistent buffers), so a bundle restores with
@@ -47,7 +48,7 @@ logger = get_logger("serve.servable")
 META_FILE = "servable.json"
 BUNDLE_FILE = "predict.pkl"
 CKPT_SUBDIR = "ckpt"
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2
 
 #: a placed batch: the device tensors and the CUDA event their copy
 #: recorded (None on the CPU)
@@ -202,9 +203,10 @@ def _build_torch(bundle: Dict[str, Any], export_dir: str,
                  for part in weights.values() for t in part.values())
     preprocessor = bundle.get("preprocessor")
     compute_dtype = bundle.get("compute_dtype")
+    rows = bundle["infer_rows"]
 
     def apply_fn(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return infer(model, batch, preprocessor, compute_dtype)
+        return infer(model, batch, preprocessor, compute_dtype, rows)
 
     return Servable("torch", bundle["columns"], apply_fn, nbytes, device)
 

@@ -2,6 +2,8 @@
 
 - :mod:`torch_estimator` — :class:`TorchEstimator` (fit / fit_on_frame
   / predict / get_model / partial_fit, the port of ``FlaxEstimator``);
+- :mod:`gbdt_estimator` — :class:`GBDTEstimator` (histogram trees on the
+  card; fit / fit_on_frame / predict / get_model / load_model);
 - :mod:`step_graph` — the step runner that replays a captured train or
   eval step as a CUDA graph (the reference's jitted scan and chain);
 - :mod:`metrics` — MSE / RMSE / MAE / Accuracy / BCE with the pad mask;
@@ -15,10 +17,12 @@
 from raydp_tpu_torch.train.estimator import (
     EstimatorInterface, FrameEstimatorInterface,
 )
+from raydp_tpu_torch.train.gbdt_estimator import GBDTEstimator
 from raydp_tpu_torch.train.metrics import Metric, build_metrics
 from raydp_tpu_torch.train.torch_estimator import (
     TorchEstimator, TrainingResult, TrainState,
 )
 
-__all__ = ["EstimatorInterface", "FrameEstimatorInterface", "Metric",
-           "TorchEstimator", "TrainState", "TrainingResult", "build_metrics"]
+__all__ = ["EstimatorInterface", "FrameEstimatorInterface", "GBDTEstimator",
+           "Metric", "TorchEstimator", "TrainState", "TrainingResult",
+           "build_metrics"]

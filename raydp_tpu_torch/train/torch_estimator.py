@@ -150,17 +150,35 @@ def _cast_floating(inputs, dtype: Optional[torch.dtype]):
 
 @torch.inference_mode()
 def infer(model: nn.Module, batch: Dict[str, torch.Tensor],
-          preprocessor: Optional[Callable], compute_dtype) -> torch.Tensor:
+          preprocessor: Optional[Callable], compute_dtype,
+          rows: int) -> torch.Tensor:
     """THE inference step, shared by ``predict`` and a loaded servable:
     the model's inputs (the preprocessor's first output, else
     ``features``), cast by the compute dtype, through the model; a
-    trailing output dim of 1 squeezed; float32."""
-    inputs = (preprocessor(batch)[0] if preprocessor is not None
-              else batch["features"])
-    preds = model(_cast_floating(inputs, compute_dtype))
-    if preds.ndim >= 2 and preds.shape[-1] == 1:
-        preds = preds.squeeze(-1)
-    return preds.float()
+    trailing output dim of 1 squeezed; float32.
+
+    Every forward runs at ``rows`` rows, whatever the batch holds: a
+    shorter batch is padded with zero rows on its device (before the
+    preprocessor, which sees valid rows), a longer one is cut into
+    ``rows``-row pieces, and the padding is sliced off the output. The
+    GEMM kernels, and with them the order of each row's sums, are chosen by
+    the row count, so a fixed count gives a row the same bits whatever it
+    was batched with."""
+    n = len(next(iter(batch.values())))
+    padded = max(1, -(-n // rows)) * rows
+    if padded != n:
+        batch = {k: torch.cat([v, v.new_zeros((padded - n, *v.shape[1:]))])
+                 for k, v in batch.items()}
+    out = []
+    for start in range(0, padded, rows):
+        piece = {k: v[start:start + rows] for k, v in batch.items()}
+        inputs = (preprocessor(piece)[0] if preprocessor is not None
+                  else piece["features"])
+        preds = model(_cast_floating(inputs, compute_dtype))
+        if preds.ndim >= 2 and preds.shape[-1] == 1:
+            preds = preds.squeeze(-1)
+        out.append(preds.float())
+    return (out[0] if len(out) == 1 else torch.cat(out))[:n]
 
 
 def _masked_mean(x: torch.Tensor, mask) -> torch.Tensor:
@@ -886,7 +904,9 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
     def predict(self, ds, batch_size: Optional[int] = None) -> np.ndarray:
         """Run the trained model over a dataset and return predictions as
         one host array (row order = dataset block order; the ragged last
-        batch included).
+        batch included). ``batch_size`` sets the host batches only: every
+        forward runs at the estimator's ``batch_size`` rows (:func:`infer`),
+        so a row's prediction does not depend on it.
 
         Works for plain ``feature_columns`` models AND for
         ``batch_preprocessor`` / ``columns_spec`` models (e.g. DLRM): those
@@ -934,7 +954,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             placed = {k: torch.tensor(v, device=self.device)
                       for k, v in batch.items()}
             out.append(infer(model, placed, self.batch_preprocessor,
-                             self.compute_dtype).cpu().numpy())
+                             self.compute_dtype,
+                             self.batch_size).cpu().numpy())
         if not out:
             return np.empty((0,), np.float32)
         return np.concatenate(out, axis=0)
@@ -957,9 +978,10 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         :class:`raydp_tpu_torch.serve.ServingSession`: the trained weights
         through ``train/checkpoint.py`` plus the pickled inference recipe
         (the model on the meta device, column spec, preprocessor, cast
-        policy) — exactly what :meth:`predict` uses, through the same
-        :func:`infer`, so a replica's output is row-identical to a
-        driver-side ``predict()`` over the same batches."""
+        policy, and ``infer_rows``, the row count of every forward) —
+        exactly what :meth:`predict` uses, through the same :func:`infer`,
+        so a replica's output is bitwise a driver-side ``predict()``'s,
+        however the rows were batched."""
         from raydp_tpu_torch.serve.servable import export_bundle
 
         model = self.get_model()   # raises if fit() has not run
@@ -968,6 +990,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             "custom": self._custom(),
             "preprocessor": self.batch_preprocessor,
             "compute_dtype": self.compute_dtype,
+            "infer_rows": self.batch_size,
         }
         return export_bundle(export_dir, "torch", bundle, model)
 

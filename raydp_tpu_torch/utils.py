@@ -1,7 +1,8 @@
 """Shared utilities — the port's copy of the parts of :mod:`raydp_tpu.utils`
-it uses: memory-size parsing (reference utils.py:125-146) and the balanced
-block→rank sharding kernel ``divide_blocks`` (utils.py:149-222). Semantics
-match the reference's tests (python/raydp/tests/test_spark_utils.py).
+it uses: ``random_split`` (reference utils.py:67-90), memory-size parsing
+(utils.py:125-146) and the balanced block→rank sharding kernel
+``divide_blocks`` (utils.py:149-222). Semantics match the reference's tests
+(python/raydp/tests/test_spark_utils.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,13 @@ _MEMORY_UNITS = {
     "T": 2**40,
     "P": 2**50,
 }
+
+
+def random_split(df, weights: Sequence[float], seed: Optional[int] = None):
+    """Split a frame into frames by normalized weights (reference utils.py:67-90)."""
+    total = float(sum(weights))
+    fractions = [w / total for w in weights]
+    return df.random_split(fractions, seed=seed)
 
 
 def parse_memory_size(memory_size) -> int:

@@ -10,7 +10,11 @@ only the port is installed:
   for chaining (rtol 1e-5, atol 1e-6) hold;
 - Adagrad keeps its step counter on the host, where a replay does not run:
   after a graphed fit the live optimizer and its restored checkpoint record
-  every step the fit ran.
+  every step the fit ran;
+- GBDT replays one captured boosting round: a graphed fit equals one run
+  round by round without a capture and a second graphed fit, bit for bit,
+  and the CPU's fit under the reference's rule (at most 5 % of split nodes
+  differ; margins within rtol 1e-3, atol 1e-4).
 """
 
 import numpy as np
@@ -82,3 +86,44 @@ def test_adagrad_checkpoint_after_a_graphed_fit(tmp_path, cuda):
             for s in result.state.optimizer.state.values()}
     assert sum(d["graph_steps"] for d in result.dispatch) == 41
     assert recorded == live == {42.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["reg:squarederror", "multi:softprob"])
+def test_gbdt_graphed_rounds_equal_eager_ones(monkeypatch, cuda, objective):
+    from raydp_tpu_torch.models import fit_gbdt
+    from raydp_tpu_torch.train import step_graph
+
+    rng = np.random.RandomState(1)
+    X = rng.rand(4000, 6).astype(np.float32)
+    y = (2 * X[:, 0] - X[:, 1] ** 2 + 0.05 * rng.randn(4000)
+         ).astype(np.float32)
+    if objective.startswith("multi:"):
+        y = np.digitize(y, np.quantile(y, [0.25, 0.5, 0.75])
+                        ).astype(np.float32)
+    kw = dict(num_trees=8, max_depth=5, num_bins=64, objective=objective,
+              evals=(X[:500], y[:500]))
+
+    def fit(device=cuda):
+        timings = {}
+        return fit_gbdt(X, y, device=device, timings=timings, **kw), timings
+
+    (a, ma, ha), ta = fit()
+    (b, mb, hb), _ = fit()
+    real = step_graph.StepRunner.__init__
+
+    def eager(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        self.graphed = False
+
+    monkeypatch.setattr(step_graph.StepRunner, "__init__", eager)
+    (c, mc, hc), tc = fit()
+    monkeypatch.undo()
+    assert ta["graph_replays"] == 7 and tc["graph_replays"] == 0
+    for other, margins, hist in ((b, mb, hb), (c, mc, hc)):
+        for name in ("split_feature", "split_bin", "leaf_value"):
+            assert np.array_equal(getattr(a, name), getattr(other, name))
+        assert np.array_equal(ma, margins) and ha == hist
+    (cpu, mcpu, _), _ = fit("cpu")
+    assert np.mean(cpu.split_feature != a.split_feature) <= 0.05
+    np.testing.assert_allclose(ma, mcpu, rtol=1e-3, atol=1e-4)

@@ -50,7 +50,9 @@ def test_imports_neither_jax_nor_the_reference():
         "'examples.dlrm_criteo', 'parallel.roles', 'train.step_graph', "
         "'stream.sources', 'stream.pipeline', 'serve.servable', "
         "'serve.replica', 'serve.session', 'serve.rollout', "
-        "'serve.autoscale'):\n"
+        "'serve.autoscale', 'models.gbdt', 'train.gbdt_estimator', "
+        "'data.bridges', 'cli.submit', 'examples.gbdt_nyctaxi', "
+        "'examples.torch_loop_nyctaxi'):\n"
         "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -16,12 +16,12 @@ Three layers:
   or is structural;
 - **servables** — ``TorchEstimator.export_serving`` → ``load_servable`` is
   bitwise equal to ``predict`` over the same batches (NYCTaxi MLP and
-  DLRM), and within ``COALESCE_ATOL`` across batch compositions; with the
+  DLRM), and bitwise across batch compositions; with the
   reference's weights carried across, within 1e-5 of the reference's
   servable; a Flax bundle is refused by name;
 - **integration** — one port ETL session of 2 executors (module-scoped):
-  coalesced serving on executor-resident replicas on the CPU equal to
-  ``predict`` (bitwise where the batches match), ``serve_stats``/unload, the typed ``ReplicaNotLoaded``,
+  coalesced serving on executor-resident replicas on the CPU bitwise equal
+  to ``predict``, ``serve_stats``/unload, the typed ``ReplicaNotLoaded``,
   ``drain_info``'s replica list, and a session without ``device`` failing
   at its start because no replica finds CUDA.
 """
@@ -1212,18 +1212,12 @@ def test_servable_equals_predict_over_the_same_batches(exported, kind):
     assert np.array_equal(got, ref)
 
 
-#: coalescing on the CPU: torch's CPU GEMM picks its kernel by the row
-#: count, so a row's last bits can depend on the rows batched with it
-#: (measured: at most 3.0e-7 on these models, 2-3% of rows; ROADMAP
-#: queue 3). The f32 tolerance the card is held to.
-COALESCE_ATOL = 1e-5
-
-
 @pytest.mark.parametrize("kind", ["nyctaxi", "dlrm"])
 def test_servable_rows_across_batch_composition(exported, kind):
-    """Any split of the rows into batches gives each row within
-    ``COALESCE_ATOL`` of one whole-table predict; the whole table as one
-    batch is bitwise that predict."""
+    """Any split of the rows into batches gives each row the bits of one
+    whole-table predict (the reference's contract, ``tests/test_serve.py``:
+    coalesced serving is ``predict``): every forward runs at the bundle's
+    ``infer_rows``, whatever the batch holds."""
     est, path, rows = exported[kind]
     sv = load_servable(path, device="cpu")
     whole = est.predict(TableDataset([rows]), batch_size=rows.num_rows)
@@ -1232,8 +1226,27 @@ def test_servable_rows_across_batch_composition(exported, kind):
         offs = np.cumsum([0] + cuts)
         got = np.concatenate([sv.predict_table(rows.slice(a, b - a))
                               for a, b in zip(offs[:-1], offs[1:])])
-        np.testing.assert_allclose(got, whole, rtol=0, atol=COALESCE_ATOL,
-                                   err_msg=str(cuts))
+        assert np.array_equal(got, whole), cuts
+
+
+@pytest.mark.parametrize("kind", ["nyctaxi", "dlrm"])
+def test_one_row_has_the_same_bits_in_batches_of_1_13_and_203(exported,
+                                                              kind):
+    """Each of the first 13 rows served alone, among 13 and among 203 rows
+    (more than the estimator's 64-row batch) gets the same bits, and so
+    does predict over host batches of 1, 13 and 203: the GEMMs run at one
+    row count."""
+    est, path, rows = exported[kind]
+    sv = load_servable(path, device="cpu")
+    alone = np.concatenate([sv.predict_table(rows.slice(i, 1))
+                            for i in range(13)])
+    among = [sv.predict_table(rows.slice(0, 13)),
+             sv.predict_table(rows)[:13]]
+    for size in (1, 13, 203):
+        among.append(est.predict(TableDataset([rows]),
+                                 batch_size=size)[:13])
+    for got in among:
+        assert np.array_equal(got, alone), np.abs(got - alone).max()
 
 
 @pytest.mark.parametrize("kind", ["nyctaxi", "dlrm"])
@@ -1305,10 +1318,10 @@ def served(exported):
 @pytest.mark.parametrize("kind", ["nyctaxi", "dlrm"])
 def test_coalesced_serving_equals_predict(served, kind):
     """Concurrent 4-row requests coalesce on real RPCs to executor-resident
-    replicas; each request gets the rows a driver-side predict computes
-    (within ``COALESCE_ATOL``: the batches differ). A request served as a
-    batch of its own is bitwise that predict over the same batch, and two
-    replicas given the same batch answer the same bits."""
+    replicas; each request gets the bits a driver-side predict computes,
+    whatever it was coalesced with. A request dispatched alone is that
+    predict too, and two replicas given the same batch answer the same
+    bits."""
     from raydp_tpu_torch.serve import ServingSession
     from raydp_tpu_torch.serve.session import _encode
 
@@ -1323,7 +1336,7 @@ def test_coalesced_serving_equals_predict(served, kind):
         futs = [srv.predict_async(rows.slice(i, 4))
                 for i in range(0, rows.num_rows, 4)]
         got = np.concatenate([f.result(timeout=120.0) for f in futs])
-        np.testing.assert_allclose(got, ref, rtol=0, atol=COALESCE_ATOL)
+        assert np.array_equal(got, ref)
         rep = srv.serving_report()
         assert rep["requests"] == len(futs) and rep["failed"] == 0
         assert rep["batches"] < rep["requests"]
