@@ -141,23 +141,39 @@
     ``binary:logistic``, ``multi:softprob`` (K = 4, fare quantiles) and an
     early-stopping fit (the same best iteration, a truncated forest);
     ``examples/torch_loop_nyctaxi.py``'s loop for 2 epochs on the card from
-    ``to_torch_dataset`` (the loss falls); no flash launch, no segment left
-    after ``stop()``; then ``raydp_tpu_torch/examples/gbdt_nyctaxi.py``'s
+    ``to_torch_dataset`` (the loss falls), then on the CPU over the same
+    bridge batches from the same seed, both runs' per-epoch train and eval
+    losses printed side by side; no flash launch, no segment left after
+    ``stop()``; then ``raydp_tpu_torch/examples/gbdt_nyctaxi.py``'s
     100 rounds launched through ``python -m raydp_tpu_torch.cli.submit
     --num-executors 2 --executor-cores 2`` as a child process (exit 0, the
     child's session took the submitted values, its rows x rounds / s); one
     replayed round profiled after the timed work of every phase;
-12. prints one JSON line of kernel results, then the last line
+12. the headline examples on the card:
+    ``raydp_tpu_torch/examples/nyctaxi_mlp.py``'s ``main`` in this process
+    at its defaults (100,000 generated rows, 2 executors, the full-width
+    ``NYCTaxiModel``, batch 1024, 5 epochs) with ``--trace``: each epoch's
+    report, the steady samples/s beside phase 8's fit_on_frame, the wall
+    split (CSV, session start, the ETL inside fit_on_frame, the fit, trace,
+    dump, stop), the merged trace's flow events and actor lanes; the loss
+    falls and the trace and the metrics dump are written; then
+    ``stroke_pipeline.py`` at its defaults (6,000 rows, 6 epochs, batch
+    256) through ``python -m raydp_tpu_torch.cli.submit`` as a child
+    process on the card, then on the CPU: each exits 0, its last line shows
+    the train loss fell, its wall and final losses are printed, and the
+    card's losses are within 1e-3 of the CPU's (the example draws its
+    weights on the host);
+13. prints one JSON line of kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 3, 4: phases 5-11
-are bound by the host's kernel launches, so their timed fits and requests
-come before any ``torch.profiler`` session of the process, and the
-profiled epochs of 5-6 (one per model, in fits of their own, replaying
+The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 3, 4: phases
+5-12 are bound by the host's kernel launches, so their timed fits and
+requests come before any ``torch.profiler`` session of the process, and
+the profiled epochs of 5-6 (one per model, in fits of their own, replaying
 graphs) and phase 11's profiled round after them. Every kernel launch
 counter is set to 0 just before each driven path (3, both modes of 4, 5,
-6, 7, 8, 9, 10 and 11) and read just after; 5-11 run no attention and must
-launch none. Any failed check exits non-zero; so does a machine without
+6, 7, 8, 9, 10, 11 and 12) and read just after; 5-12 run no attention and
+must launch none. Any failed check exits non-zero; so does a machine without
 CUDA.
 """
 
@@ -1082,6 +1098,13 @@ def device_cache(on: bool):
     return env_knobs(RDT_DEVICE_CACHE="1" if on else "0")
 
 
+def steady_rate(epochs: list) -> float:
+    """Samples/s over the given epochs' reports, weighted by their
+    walls."""
+    return sum(r["samples_per_s"] * r["epoch_time_s"] for r in epochs) \
+        / sum(r["epoch_time_s"] for r in epochs)
+
+
 def fit_and_report(label: str, make_estimator, dataset, epochs: int,
                    *, cache: bool = True, profile_epoch=None,
                    steady_wall_s=None, max_retries: int = 0,
@@ -1117,8 +1140,7 @@ def fit_and_report(label: str, make_estimator, dataset, epochs: int,
     steady = [r for r in result.history[1:]
               if r["epoch"] != profile_epoch] or result.history
     walls = [r["epoch_time_s"] for r in steady]
-    samples = sum(r["samples_per_s"] * r["epoch_time_s"] for r in steady)
-    numbers = {"samples_per_s_steady": samples / sum(walls),
+    numbers = {"samples_per_s_steady": steady_rate(steady),
                "steady_epochs": [r["epoch"] for r in steady],
                "steady_epoch_s": statistics.median(walls),
                "fit_wall_s": wall, "peak_bytes": peak, "losses": losses,
@@ -3300,21 +3322,37 @@ def run_gbdt(fa, tmp: str):
         out["turns"] = gbdt_turns(X, y, (eX, ey), edges)
         out["card_vs_cpu"] = gbdt_card_vs_cpu(X, y, eX, ey, edges)
 
-        # the bridge: the example's torch loop on the card
-        train = to_torch_dataset(train_ds, feature_columns=features,
-                                 label_column=LABEL, batch_size=BRIDGE_BATCH,
-                                 shuffle=True)
-        evaluate = to_torch_dataset(eval_ds, feature_columns=features,
-                                    label_column=LABEL,
-                                    batch_size=BRIDGE_BATCH)
-        t0 = time.perf_counter()
-        reports = train_loop(train, evaluate, len(features), BRIDGE_EPOCHS,
-                             1e-3, torch.device("cuda"), seed=SEED)
-        out["bridge"] = {"epochs": reports,
-                         "wall_s": time.perf_counter() - t0}
-        print("gbdt bridge torch loop: " + json.dumps(out["bridge"]))
-        require(reports[-1]["train_loss"] < reports[0]["train_loss"],
-                f"the bridge loop's loss did not fall: {reports}")
+        # the bridge: the example's torch loop on the card, then on the
+        # CPU over the same batches (fresh bridges with the same seed
+        # shuffle each epoch as the first did) from the same initial
+        # weights, to tell the model's eval loss from the card's
+        out["bridge"] = {}
+        for where in ("cuda", "cpu"):
+            train = to_torch_dataset(
+                train_ds, feature_columns=features, label_column=LABEL,
+                batch_size=BRIDGE_BATCH, shuffle=True)
+            evaluate = to_torch_dataset(
+                eval_ds, feature_columns=features, label_column=LABEL,
+                batch_size=BRIDGE_BATCH)
+            t0 = time.perf_counter()
+            reports = train_loop(train, evaluate, len(features),
+                                 BRIDGE_EPOCHS, 1e-3, torch.device(where),
+                                 seed=SEED)
+            out["bridge"][where] = {"epochs": reports,
+                                    "wall_s": time.perf_counter() - t0}
+            print(f"gbdt bridge torch loop on {where}: "
+                  + json.dumps(out["bridge"][where]))
+            require(reports[-1]["train_loss"] < reports[0]["train_loss"],
+                    f"the bridge loop's loss did not fall on {where}: "
+                    f"{reports}")
+        bridge = {where: {k: [r[k] for r in out["bridge"][where]["epochs"]]
+                          for k in ("train_loss", "eval_loss")}
+                  for where in ("cuda", "cpu")}
+        out["bridge"]["eval_loss_rises"] = {
+            where: b["eval_loss"][-1] > b["eval_loss"][0]
+            for where, b in bridge.items()}
+        print(f"gbdt bridge card vs cpu, per epoch: {json.dumps(bridge)}; "
+              f"eval loss rises: {json.dumps(out['bridge']['eval_loss_rises'])}")
         counts = launches(fa)
         print(f"gbdt launches of the flash kernels: {counts}")
         require(not any(counts.values()), f"gbdt phase launched {counts}")
@@ -3335,6 +3373,157 @@ def run_gbdt(fa, tmp: str):
         return profile_gbdt_round(X, y, (eX, ey), edges, steady)
 
     return out, profile
+
+
+# ---- phase 12: the headline examples ---------------------------------------
+
+#: the stroke child's last line: its final losses and the first epoch's
+STROKE_FINAL = (r"final: train_loss=([0-9.]+) eval_loss=([0-9.]+) \(first "
+                r"epoch: train_loss=([0-9.]+)\)")
+#: the stroke example on the card against the CPU: the same weights, f32
+#: sums in other orders over 108 Adam steps; the child prints 4 decimals
+STROKE_CPU_ATOL = 1e-3
+
+
+def nyctaxi_example(phase8: dict) -> dict:
+    """raydp_tpu_torch/examples/nyctaxi_mlp.py's ``main`` in this process
+    at its defaults, with ``--trace``: each epoch's report, the steady rate
+    beside phase 8's fit_on_frame, the wall split (the CSV's generation,
+    the session's start, the ETL that fit_on_frame runs — read, preprocess,
+    conversion — the fit, the trace, the dump and the stop), and the
+    trace's flow events and actor lanes."""
+    import os
+
+    import raydp_tpu_torch
+    from raydp_tpu_torch import metrics, profiler
+    from raydp_tpu_torch.examples import generate_nyctaxi, nyctaxi_mlp
+    from raydp_tpu_torch.train import TorchEstimator
+
+    clock = CallClock()
+    clock.wrap(generate_nyctaxi, "generate", "generate")
+    clock.wrap(raydp_tpu_torch, "init", "init")
+    clock.wrap(TorchEstimator, "fit", "fit")
+    clock.wrap(TorchEstimator, "fit_on_frame", "fit_on_frame")
+    clock.wrap(profiler, "collect_chrome_trace", "trace")
+    clock.wrap(metrics, "dump", "dump")
+    clock.wrap(raydp_tpu_torch, "stop", "stop")
+    t0 = time.perf_counter()
+    try:
+        res = nyctaxi_mlp.main(["--trace"])
+    finally:
+        clock.restore()
+    wall = time.perf_counter() - t0
+    seconds = clock.take()
+    history = res["history"]
+    for r in history:
+        print(f"example nyctaxi epoch {r['epoch']}: " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in r.items() if k != "epoch"}))
+    trace = res["trace"]
+    split = {"generate_s": seconds["generate"], "init_s": seconds["init"],
+             "etl_s": seconds["fit_on_frame"] - seconds["fit"],
+             "fit_s": seconds["fit"], "trace_s": seconds["trace"],
+             "dump_s": seconds["dump"], "stop_s": seconds["stop"]}
+    # the rest: writing the CSV, planning the preprocess and the split,
+    # the schema read of feature_columns, the model, the prints
+    split["rest_s"] = wall - sum(split.values())
+    out = {"main_s": wall, "fit_on_frame_s": seconds["fit_on_frame"],
+           # the epochs after the first, as fit_and_report's
+           "split": split, "samples_per_s_steady": steady_rate(history[1:]),
+           "phase8_samples_per_s_steady":
+               phase8["nyctaxi"]["samples_per_s_steady"],
+           "losses": [r["train_loss"] for r in history],
+           "eval_losses": [r["eval_loss"] for r in history],
+           "features": len(res["features"]),
+           "trace": {"path": str(trace), "flow_events": trace.flow_events,
+                     "actor_lanes": trace.actors,
+                     "skipped_actors": trace.skipped_actors,
+                     "bytes": os.path.getsize(trace)},
+           "metrics_dump": {k: os.path.getsize(v)
+                            for k, v in res["metrics_dump"].items()}}
+    print(f"example nyctaxi: {out['samples_per_s_steady']:.1f} samples/s "
+          f"steady (batch 1024), phase 8's fit_on_frame (batch {NYC_BATCH}) "
+          f"in this call {out['phase8_samples_per_s_steady']:.1f}; wall "
+          f"{wall:.3f} s, split " + json.dumps(
+              {k: round(v, 4) for k, v in split.items()})
+          + f"; loss {out['losses'][0]:.6f} -> {out['losses'][-1]:.6f}")
+    print("example nyctaxi trace: " + json.dumps(out["trace"])
+          + "; metrics dump bytes " + json.dumps(out["metrics_dump"]))
+    require(len(history) == 5 and out["features"] == NYCTAXI_FEATURES,
+            f"example nyctaxi: {len(history)} epochs, {out['features']} "
+            "features")
+    require(out["losses"][-1] < out["losses"][0],
+            f"example nyctaxi: loss did not fall: {out['losses']}")
+    require(out["trace"]["bytes"] > 0 and all(out["metrics_dump"].values()),
+            "example nyctaxi: the trace or the metrics dump is empty")
+    return out
+
+
+def stroke_child(tmp: str, where: str) -> dict:
+    """raydp_tpu_torch/examples/stroke_pipeline.py at its defaults through
+    ``python -m raydp_tpu_torch.cli.submit``, as a child process training
+    on ``where``: it exits 0 and its last line shows the train loss
+    fell."""
+    import os
+    import re
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "raydp_tpu_torch.cli.submit",
+           "--name", "stroke-submitted",
+           os.path.join(repo, "raydp_tpu_torch", "examples",
+                        "stroke_pipeline.py"), "--device", where]
+    env = dict(os.environ, PYTHONPATH=repo, TMPDIR=tmp)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        print(f"  child on {where}: {line}")
+    require(proc.returncode == 0, f"the submitted stroke example on {where} "
+            f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+    final = re.fullmatch(STROKE_FINAL, lines[-1])
+    require(final is not None, f"the stroke child's last line: {lines[-1]}")
+    train, evaluate, first = (float(g) for g in final.groups())
+    out = {"exit": proc.returncode, "child_wall_s": wall,
+           "train_loss": train, "eval_loss": evaluate,
+           "first_train_loss": first}
+    print(f"example stroke through submit on {where}: " + json.dumps(out))
+    require(train < first, f"the stroke child's loss did not fall on "
+            f"{where}: {out}")
+    return out
+
+
+def stroke_example(tmp: str) -> dict:
+    """The stroke pipeline submitted twice, training on the card and on the
+    CPU: both start from the same host-drawn weights, so their final
+    losses agree within STROKE_CPU_ATOL."""
+    out = {where: stroke_child(tmp, where) for where in ("cuda", "cpu")}
+    diff = max(abs(out["cuda"][k] - out["cpu"][k])
+               for k in ("first_train_loss", "train_loss", "eval_loss"))
+    out["card_vs_cpu_max_abs_diff"] = diff
+    print(f"example stroke card vs cpu: losses differ by at most {diff:.4f} "
+          f"(limit {STROKE_CPU_ATOL})")
+    require(diff <= STROKE_CPU_ATOL, f"the stroke example's losses on the "
+            f"card and the CPU differ by {diff}")
+    return out
+
+
+def run_examples(fa, phase8: dict, tmp: str) -> dict:
+    """Phase 12: the port's two headline examples on the card, NYCTaxi in
+    this process and the stroke pipeline through rdt-submit-torch; neither
+    launches a flash kernel."""
+    t_phase = time.perf_counter()
+    zero_launches(fa)
+    out = {"nyctaxi": nyctaxi_example(phase8)}
+    counts = launches(fa)
+    print(f"example launches of the flash kernels: {counts}")
+    require(not any(counts.values()), f"the examples launched {counts}")
+    out["stroke"] = stroke_example(tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"examples phase: {out['phase_s']:.3f} s")
+    print("examples phase " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -3367,7 +3556,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = {"flash_attention_fwd": check_kernel(fa, device, gen, baseline),
             **check_bwd_kernels(fa, device, gen, baseline)}
-    # phases 5-10 are bound by the host's kernel launches: their timed
+    # phases 5-12 are bound by the host's kernel launches: their timed
     # fits and requests run before any torch.profiler session of this
     # process (phases 3-4 profile, and so do 5-6 at their end), so no
     # profiler hook is left in the launch path while they are timed
@@ -3387,6 +3576,8 @@ def main() -> int:
         serving = run_serving(fa, tmp)
         free_memory()
         gbdt, profile_gbdt = run_gbdt(fa, tmp)
+        free_memory()
+        examples = run_examples(fa, etl, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the profiled epochs replay graphs: the idle share of a graphed epoch
@@ -3396,7 +3587,8 @@ def main() -> int:
     print("main path " + json.dumps({"nyctaxi": nyctaxi, "dlrm": dlrm,
                                      "store": store, "etl": etl,
                                      "dispatch": dispatch,
-                                     "serving": serving, "gbdt": gbdt}))
+                                     "serving": serving, "gbdt": gbdt,
+                                     "examples": examples}))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()

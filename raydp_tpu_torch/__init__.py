@@ -23,8 +23,11 @@ pipelines of :mod:`raydp_tpu_torch.stream`, the serving plane
 replicas in the ETL executors, on the card), gradient-boosted trees grown
 on the card (:mod:`raydp_tpu_torch.models.gbdt`,
 :class:`~raydp_tpu_torch.train.GBDTEstimator`), the data bridges to a
-training loop of the user's (``to_torch_dataset``, ``to_tf_dataset``) and
-``rdt-submit-torch`` (:mod:`raydp_tpu_torch.cli.submit`).
+training loop of the user's (``to_torch_dataset``, ``to_tf_dataset``),
+``rdt-submit-torch`` (:mod:`raydp_tpu_torch.cli.submit`), the headline
+examples (``examples/nyctaxi_mlp.py``, ``examples/stroke_pipeline.py``)
+and the project's static analysis over the port
+(:mod:`raydp_tpu_torch.tools.rdtlint`).
 
     import raydp_tpu_torch
     session = raydp_tpu_torch.init("nyc", num_executors=2,
@@ -38,9 +41,11 @@ Importing the package does not import torch, so the runtime's actor
 processes (the ETL executors among them) start without it.
 """
 
+__version__ = "0.1.0"
+
 from raydp_tpu_torch.context import active_session, init, stop
 
-__all__ = ["active_session", "init", "resolve_device", "stop"]
+__all__ = ["__version__", "active_session", "init", "resolve_device", "stop"]
 
 
 def __getattr__(name):

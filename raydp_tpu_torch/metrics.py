@@ -16,9 +16,9 @@ the designed replacement — the ``knobs.py`` pattern applied to telemetry:
 - **Span registry** — every literal ``profiler.trace(...)`` span name is
   declared here too; dynamic families (``task:<Step>``) are declared as
   prefixes. The ``telemetry-registry`` rdtlint rule statically checks
-  literal span/metric/event names against these registries. (The port
-  keeps the reference's registries as they are; the reference generates
-  ``doc/observability.md`` from its own copy.)
+  literal span/metric/event names against these registries, and the tables
+  in ``raydp_tpu_torch/doc/observability.md`` are GENERATED from them
+  (``python -m raydp_tpu_torch.metrics --write-docs``).
 - **Flight recorder** — a bounded per-process ring of structured events
   (faults fired, object losses, recovery rounds, re-seals, executor
   down/up, hedges, aborts). When an action surfaces a ``StageError`` /
@@ -278,10 +278,6 @@ _ALL_METRICS = [
        "this process's devices, read off XLA's memory_analysis — the "
        "activation-residency measure accumulation/remat/seq-sharding "
        "drive down."),
-    _m("train_pipeline_stages", GAUGE, "1", "training",
-       "Pipeline stages the current fit's GPipe schedule runs over (the "
-       "mesh's stage extent; set only when training a PipelineModel — the "
-       "accum microbatches double as its pipeline microbatches)."),
 ]
 
 METRICS: Dict[str, Metric] = {m.name: m for m in _ALL_METRICS}
@@ -351,10 +347,6 @@ _ALL_SPANS = [
        "Compilation + activation-residency analysis of the accumulated "
        "train step (the lax.scan over microbatches; covers the "
        "memory_analysis read behind train_activation_bytes_per_process)."),
-    _s("train:pipeline", "training",
-       "Compilation + activation-residency analysis of the pipelined "
-       "(stage-stacked shard_map GPipe) train step — the train:accum twin "
-       "for stage>1 fits."),
 ]
 
 SPANS: Dict[str, Span] = {s.name: s for s in _ALL_SPANS}
@@ -760,3 +752,101 @@ def write_blackbox(action: str, error: Optional[BaseException] = None,
     with open(path, "w") as fh:
         json.dump(bundle, fh, indent=2, default=str)
     return path
+
+
+# ---- generated doc tables ----------------------------------------------------
+
+def generate_table(tag: str) -> str:
+    """Markdown table for one registry (``spans`` / ``metrics`` /
+    ``events``). The blocks between ``rdtlint:telemetry-table`` markers in
+    ``raydp_tpu_torch/doc/observability.md`` are exactly this output; rule
+    ``telemetry-registry`` fails on any drift."""
+    if tag == "metrics":
+        lines = ["| Metric | Kind | Unit | Label | Subsystem | Description |",
+                 "| --- | --- | --- | --- | --- | --- |"]
+        for m in _ALL_METRICS:
+            lines.append(
+                f"| `{m.name}` | {m.kind} | {m.unit} | "
+                f"{('`' + m.label + '`') if m.label else '—'} | "
+                f"{m.subsystem} | {m.doc} |")
+    elif tag == "spans":
+        lines = ["| Span | Subsystem | Description |",
+                 "| --- | --- | --- |"]
+        for s in _ALL_SPANS:
+            name = f"`{s.name}…` *(dynamic)*" if s.dynamic else f"`{s.name}`"
+            lines.append(f"| {name} | {s.subsystem} | {s.doc} |")
+    elif tag == "events":
+        lines = ["| Event | Subsystem | Description |",
+                 "| --- | --- | --- |"]
+        for e in _ALL_EVENTS:
+            lines.append(f"| `{e.kind}` | {e.subsystem} | {e.doc} |")
+    else:
+        raise ValueError(f"unknown telemetry table {tag!r}")
+    return "\n".join(lines)
+
+
+DOC_FILE = "raydp_tpu_torch/doc/observability.md"
+DOC_TAGS = ("spans", "metrics", "events")
+
+_BEGIN = "<!-- rdtlint:telemetry-table:begin {tag} -->"
+_END = "<!-- rdtlint:telemetry-table:end -->"
+
+
+def table_markers(tag: str) -> tuple:
+    return _BEGIN.format(tag=tag), _END
+
+
+def render_block(tag: str) -> str:
+    begin, end = table_markers(tag)
+    return f"{begin}\n{generate_table(tag)}\n{end}"
+
+
+def write_doc_tables(root: str) -> list:
+    """Rewrite the telemetry table blocks in :data:`DOC_FILE` from the
+    registries; returns the files changed."""
+    path = os.path.join(root, DOC_FILE)
+    if not os.path.exists(path):
+        return []
+    with open(path, "r", encoding="utf-8") as f:
+        text = f.read()
+    orig = text
+    for tag in DOC_TAGS:
+        begin, end = table_markers(tag)
+        if begin not in text or end not in text:
+            continue
+        head, rest = text.split(begin, 1)
+        _, tail = rest.split(end, 1)
+        text = head + render_block(tag) + tail
+    if text != orig:
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)
+        return [DOC_FILE]
+    return []
+
+
+def main(argv: Optional[list] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m raydp_tpu_torch.metrics",
+        description="print or regenerate the telemetry registry tables")
+    ap.add_argument("--write-docs", action="store_true",
+                    help="rewrite the generated doc tables in place")
+    ap.add_argument("--root", default=".",
+                    help="repo root holding raydp_tpu_torch/doc/ "
+                         "(default: cwd)")
+    args = ap.parse_args(argv)
+    if args.write_docs:
+        changed = write_doc_tables(args.root)
+        for rel in changed:
+            print(f"rewrote {rel}")
+        if not changed:
+            print("telemetry tables already fresh")
+        return 0
+    for tag in DOC_TAGS:
+        print(f"## {tag}\n{generate_table(tag)}\n")
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover - thin CLI shim
+    raise SystemExit(main())

@@ -1,0 +1,203 @@
+"""Rule ``telemetry-registry``: every literal span, metric, and
+flight-recorder event name is declared in ``raydp_tpu_torch/metrics.py``, used
+with the right kind, and the generated tables in
+``raydp_tpu_torch/doc/observability.md`` are fresh.
+
+Five checks:
+
+1. **Span names** — a literal first argument of ``profiler.trace(...)`` /
+   ``profiler.open_span(...)`` must be a registered span name (or fall
+   under a registered dynamic family prefix like ``task:``). F-string span
+   names are skipped — the registry documents their family via the prefix
+   rows.
+2. **Metric names + kinds** — ``metrics.inc`` / ``metrics.set_gauge`` /
+   ``metrics.observe`` with a literal name must name a registered metric of
+   the matching kind (counter / gauge / histogram).
+3. **Event kinds** — ``metrics.record_event`` with a literal kind must name
+   a registered flight-recorder event.
+4. **Registry drift** — a declared span/metric/event that no linted code
+   references as a string literal (outside the registry's own declaration
+   lists) is dead telemetry or a missed migration.
+5. **Docs are generated** — the three table blocks in
+   ``raydp_tpu_torch/doc/observability.md`` must equal the registry's
+   rendered output
+   (``python -m raydp_tpu_torch.metrics --write-docs`` regenerates).
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import List, Optional, Set, Tuple
+
+from raydp_tpu_torch.tools.rdtlint import config
+from raydp_tpu_torch.tools.rdtlint.core import (
+    Project, SourceFile, Violation, marker_block_violation)
+from raydp_tpu_torch.tools.rdtlint.rule_knobs import _load_registry
+
+RULE = "telemetry-registry"
+
+_METRIC_FUNCS = {"inc": "counter", "set_gauge": "gauge",
+                 "observe": "histogram"}
+_SPAN_FUNCS = ("trace", "open_span")
+_REGEN = "python -m raydp_tpu_torch.metrics --write-docs"
+
+
+def _find_registry(project: Project) -> Optional[SourceFile]:
+    """The telemetry registry module — identified by content, not just the
+    basename (``raydp_tpu_torch/train/metrics.py`` is the unrelated
+    train-metric classes)."""
+    for f in project.files:
+        if f.rel.replace("\\", "/").endswith("metrics.py") \
+                and "SPAN_NAMES" in f.text and "_ALL_METRICS" in f.text:
+            return f
+    return None
+
+
+def _module_aliases(src: SourceFile, modname: str) -> Set[str]:
+    """Local names bound to ``raydp_tpu_torch.<modname>`` in this file — the
+    package-qualified twin of rule_knobs' alias scan, narrowed so
+    ``from raydp_tpu_torch.train import metrics`` (a different module) never
+    aliases the telemetry registry."""
+    aliases: Set[str] = set()
+    for node in ast.walk(src.tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name == f"raydp_tpu_torch.{modname}":
+                    aliases.add(a.asname or "raydp_tpu_torch")
+        elif isinstance(node, ast.ImportFrom):
+            if node.module == "raydp_tpu_torch":
+                for a in node.names:
+                    if a.name == modname:
+                        aliases.add(a.asname or a.name)
+    return aliases
+
+
+def _declaration_lines(reg_src: SourceFile) -> Set[int]:
+    """Line numbers of the registry's own declaration lists — string
+    literals there are definitions, not references, for the drift check."""
+    lines: Set[int] = set()
+    for node in ast.walk(reg_src.tree):
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name) \
+                and node.targets[0].id in ("_ALL_METRICS", "_ALL_SPANS",
+                                           "_ALL_EVENTS"):
+            lines.update(range(node.lineno, (node.end_lineno or
+                                             node.lineno) + 1))
+    return lines
+
+
+def _literal_arg0(node: ast.Call) -> Optional[str]:
+    if node.args and isinstance(node.args[0], ast.Constant) \
+            and isinstance(node.args[0].value, str):
+        return node.args[0].value
+    return None
+
+
+def check(project: Project) -> List[Violation]:
+    reg_src = _find_registry(project)
+    if reg_src is None:
+        return []  # registry out of scope: nothing to check against
+    out: List[Violation] = []
+    try:
+        mod = _load_registry(reg_src.path)
+        span_names = set(mod.SPAN_NAMES)
+        span_prefixes = tuple(mod.SPAN_PREFIXES)
+        metrics_reg = mod.METRICS
+        events_reg = mod.EVENTS
+    except Exception as e:  # noqa: BLE001 - a broken registry IS a finding
+        return [Violation(rule=RULE, path=reg_src.rel, line=1,
+                          message=f"could not load telemetry registry: "
+                                  f"{e!r}")]
+
+    decl_lines = _declaration_lines(reg_src)
+    referenced: Set[str] = set()
+    all_names = (span_names | set(metrics_reg) | set(events_reg)
+                 | set(span_prefixes))
+
+    for src in project.files:
+        prof_aliases = _module_aliases(src, "profiler")
+        met_aliases = _module_aliases(src, "metrics")
+        for node in ast.walk(src.tree):
+            # ---- reference scan (for the drift check) -------------------
+            if isinstance(node, ast.Constant) \
+                    and isinstance(node.value, str) \
+                    and node.value in all_names:
+                if src.path == reg_src.path and node.lineno in decl_lines:
+                    pass  # a declaration is not a reference
+                elif not isinstance(src.parent(node), ast.Expr):
+                    referenced.add(node.value)
+            if not isinstance(node, ast.Call) \
+                    or not isinstance(node.func, ast.Attribute) \
+                    or not isinstance(node.func.value, ast.Name):
+                continue
+            recv, attr = node.func.value.id, node.func.attr
+            # ---- span names ---------------------------------------------
+            if recv in prof_aliases and attr in _SPAN_FUNCS:
+                name = _literal_arg0(node)
+                if name is None:
+                    continue  # f-string/variable: a declared dynamic family
+                if name not in span_names \
+                        and not name.startswith(span_prefixes):
+                    out.append(Violation(
+                        rule=RULE, path=src.rel, line=node.lineno,
+                        message=(f"span {name!r} is not declared in the "
+                                 "telemetry registry "
+                                 "(raydp_tpu_torch/metrics.py SPANS)")))
+            # ---- metric names + kinds -----------------------------------
+            elif recv in met_aliases and attr in _METRIC_FUNCS:
+                name = _literal_arg0(node)
+                if name is None:
+                    continue
+                want = _METRIC_FUNCS[attr]
+                m = metrics_reg.get(name)
+                if m is None:
+                    out.append(Violation(
+                        rule=RULE, path=src.rel, line=node.lineno,
+                        message=(f"metric {name!r} is not declared in the "
+                                 "telemetry registry "
+                                 "(raydp_tpu_torch/metrics.py METRICS)")))
+                elif m.kind != want:
+                    out.append(Violation(
+                        rule=RULE, path=src.rel, line=node.lineno,
+                        message=(f"metrics.{attr}({name!r}): declared as a "
+                                 f"{m.kind}, but {attr}() is the {want} "
+                                 "API")))
+            # ---- event kinds --------------------------------------------
+            elif recv in met_aliases and attr == "record_event":
+                name = _literal_arg0(node)
+                if name is not None and name not in events_reg:
+                    out.append(Violation(
+                        rule=RULE, path=src.rel, line=node.lineno,
+                        message=(f"flight-recorder event {name!r} is not "
+                                 "declared in the telemetry registry "
+                                 "(raydp_tpu_torch/metrics.py EVENTS)")))
+
+    # ---- registry drift: declared but never referenced -------------------
+    if any(f.path != reg_src.path for f in project.files):
+        for name in sorted((span_names | set(metrics_reg)
+                            | set(events_reg)) - referenced):
+            out.append(Violation(
+                rule=RULE, path=reg_src.rel, line=1,
+                message=(f"{name!r} is declared in the telemetry registry "
+                         "but no linted code references it — dead "
+                         "telemetry or missed migration")))
+
+    # ---- generated doc tables --------------------------------------------
+    import os
+    if os.path.isdir(os.path.join(project.root, config.DOC_DIR)):
+        path = os.path.join(project.root, mod.DOC_FILE)
+        if not os.path.exists(path):
+            out.append(Violation(
+                rule=RULE, path=mod.DOC_FILE, line=1,
+                message="telemetry-table doc file missing"))
+        else:
+            with open(path, "r", encoding="utf-8") as f:
+                text = f.read()
+            for tag in mod.DOC_TAGS:
+                begin, end = mod.table_markers(tag)
+                v = marker_block_violation(
+                    RULE, mod.DOC_FILE, text, begin, end,
+                    mod.render_block(tag), f"telemetry {tag}", _REGEN)
+                if v is not None:
+                    out.append(v)
+    return out

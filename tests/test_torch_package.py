@@ -52,7 +52,9 @@ def test_imports_neither_jax_nor_the_reference():
         "'serve.replica', 'serve.session', 'serve.rollout', "
         "'serve.autoscale', 'models.gbdt', 'train.gbdt_estimator', "
         "'data.bridges', 'cli.submit', 'examples.gbdt_nyctaxi', "
-        "'examples.torch_loop_nyctaxi'):\n"
+        "'examples.torch_loop_nyctaxi', 'examples.nyctaxi_mlp', "
+        "'examples.stroke_pipeline', 'tools.rdtlint', "
+        "'tools.rdtlint.rule_steps', 'tools.rdtlint.__main__'):\n"
         "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -85,6 +87,23 @@ def test_no_string_names_the_reference_package():
             if re.search(r"raydp_tpu(?!_torch)\b", node.value):
                 found.append(f"{path.relative_to(REPO)}:{node.lineno}")
     assert found == []
+
+
+def test_version_is_the_project_s_and_importing_does_not_import_torch():
+    """``__version__`` is ``pyproject.toml``'s version and in ``__all__``,
+    as in the reference; reading it imports no torch (the runtime's actor
+    processes import the package without it)."""
+    text = (REPO / "pyproject.toml").read_text()
+    version = re.search(r'^version = "([^"]+)"', text, re.M).group(1)
+    code = ("import sys, raydp_tpu_torch as p\n"
+            "print(p.__version__, '__version__' in p.__all__, "
+            "'torch' in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == [version, "True", "False"]
+    assert version == "0.1.0"
 
 
 @pytest.fixture
