@@ -163,17 +163,41 @@
     the train loss fell, its wall and final losses are printed, and the
     card's losses are within 1e-3 of the CPU's (the example draws its
     weights on the host);
-13. prints one JSON line of kernel results, then the last line
+13. the gang (``raydp_tpu_torch.spmd`` and ``TorchEstimator.fit_gang``):
+    (a) the runner: a 2-rank plain job runs, stops and restarts; a 1-rank
+    ``torch_distributed`` job with a card of its own (nccl) and a 2-rank
+    job whose ranks share the card (gloo) each all-reduce CUDA tensors
+    (``[1.0, 1.0]``, ``[3.0, 3.0]``), with each backend, start wall and the
+    card's free memory before, with the ranks and after; (c)
+    ``nyctaxi_mlp.py``'s ``main`` with ``--num-workers 2`` at its defaults
+    (two ranks on the card, gloo, eager) against phase 12's single-process
+    run on the same rows: every epoch of both, epoch 0's train loss within
+    ``GANG_EXAMPLE_RTOL`` (the two visit the rows in different orders; the
+    eval losses printed),
+    the steady rate, the wall split (gang start, the ranks' store reads,
+    epochs) and the share of a step in ``all_reduce``; then on a
+    100,000-row ETL session's frames: (b) ``fit_gang(num_workers=1)`` under
+    nccl with ``steps_per_dispatch=8``, unshuffled, its chains captured as
+    CUDA graphs (replays > 0), against the in-process streaming fit with
+    the same k (losses within 1e-6); (d) a 2-rank gang whose rank 1 exits
+    at epoch 1, once (``max_retries=1``, 4 epochs, unshuffled, with the
+    eval set): history ``[0, 1, 2, 3]``, the checkpoint's sidecar holds the
+    pre-crash epochs, the train losses equal an in-process fit's on the
+    same rows and order within ``GANG_RESUME_RTOL``, the last eval loss
+    equals the driver's ``predict`` with the returned state within
+    ``GANG_EVAL_RTOL``, and a shuffled in-process fit shows what the row
+    order alone does to the losses; no flash launch;
+14. prints one JSON line of kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 3, 4: phases
-5-12 are bound by the host's kernel launches, so their timed fits and
-requests come before any ``torch.profiler`` session of the process, and
-the profiled epochs of 5-6 (one per model, in fits of their own, replaying
-graphs) and phase 11's profiled round after them. Every kernel launch
-counter is set to 0 just before each driven path (3, both modes of 4, 5,
-6, 7, 8, 9, 10, 11 and 12) and read just after; 5-12 run no attention and
-must launch none. Any failed check exits non-zero; so does a machine without
+The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 13, 3, 4:
+phases 5-13 are bound by the host's kernel launches, so their timed fits
+and requests come before any ``torch.profiler`` session of the process,
+and the profiled epochs of 5-6 (one per model, in fits of their own,
+replaying graphs) and phase 11's profiled round after them. Every kernel
+launch counter is set to 0 just before each driven path (3, both modes of
+4, 5, 6, 7, 8, 9, 10, 11, 12 and 13) and read just after; 5-13 run no
+attention and must launch none. Any failed check exits non-zero; so does a machine without
 CUDA.
 """
 
@@ -3526,6 +3550,393 @@ def run_examples(fa, phase8: dict, tmp: str) -> dict:
     return out
 
 
+# ---- phase 13: the gang ------------------------------------------------------
+
+#: phase 13's rows, batch and epochs: the NYCTaxi example's defaults
+GANG_ROWS, GANG_BATCH = 100_000, 1024
+GANG_EPOCHS, GANG_RESUME_EPOCHS = 2, 4
+#: (c): the 2-rank example against phase 12's single-process one, epoch 0's
+#: train loss. The two visit the rows in different orders (phase 12's
+#: resident fit permutes them with torch.randperm on the card, the gang
+#: reads the engine's random_shuffle and permutes the batch order with
+#: numpy), which the card read as 7.3e-5 of the loss in two runs (every
+#: draw is seeded). Their eval losses are printed, not gated: the row order
+#: alone moves them by tens of percent ((d)'s shuffled in-process fit).
+GANG_EXAMPLE_RTOL = 1e-4
+#: (d): the resumed 2-rank gang's train losses against an in-process fit on
+#: the same rows in the same order, every epoch. Two ranks sum the gradient
+#: and BatchNorm's statistics in another order than one process, and Adam
+#: carries that: the card read 7.8e-5 over 4 epochs, the CPU 9.3e-4 by
+#: epoch 3; a gang without its gradient all-reduce read 5e-2 or more on the
+#: CPU. The eval losses are not held to the in-process fit: early in
+#: training BatchNorm's running mean still lags the features' (momentum
+#: 0.99 over 87 steps an epoch), so the eval loss is a difference of large
+#: terms and the same rounding moved it by 11-340 % on the CPU
+GANG_RESUME_RTOL = 2e-3
+#: (d): the gang's last eval loss (every test row once, the ragged tail
+#: padded and masked, summed across the ranks) against the smooth L1 of the
+#: driver's predict with the state the gang returned: the same model on the
+#: same rows (the CPU read 1.2e-8; a gang whose BatchNorm statistics stayed
+#: per rank read 0.12, one without its gradient all-reduce 0.31)
+GANG_EVAL_RTOL = 1e-4
+
+
+def gang_runner(device: str = "cuda") -> dict:
+    """(a) The runner: a 2-rank plain job runs, stops and restarts; a
+    1-rank torch_distributed job on the card (one card a rank: nccl)
+    all-reduces a CUDA tensor; a 2-rank job whose ranks share the card
+    (gloo) all-reduces CUDA tensors to [3.0, 3.0]. Each job's start wall,
+    each backend, and the card's free memory before, while the two ranks
+    hold their contexts, and after."""
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    def started(job) -> float:
+        t0 = time.perf_counter()
+        job.start()
+        return time.perf_counter() - t0
+
+    out = {}
+    job = create_spmd_job("smoke-plain", 2, timeout=120)
+    starts = []
+    for _ in range(2):
+        starts.append(started(job))
+        try:
+            got = job.run(lambda ctx: ctx.rank * 10, timeout=120)
+        finally:
+            job.stop()
+        require(got == [0, 10], f"gang plain job: {got}")
+    out["plain_start_s"] = starts
+
+    def all_reduce(ctx, device=device):
+        import torch
+        import torch.distributed as dist
+
+        x = torch.full((2,), float(ctx.rank + 1), device=device)
+        dist.all_reduce(x)
+        free, total = torch.cuda.mem_get_info()
+        return {"sum": x.tolist(), "backend": dist.get_backend(),
+                "card": torch.cuda.get_device_name(0),
+                "free_mib": free / 2 ** 20}
+
+    for label, world, gpus in (("nccl", 1, 1), ("gloo_shared", 2, 0)):
+        before = torch.cuda.mem_get_info()[0] / 2 ** 20
+        job = create_spmd_job(f"smoke-{label}", world, torch_distributed=True,
+                              gpus_per_process=gpus, timeout=180)
+        start_s = started(job)
+        try:
+            got = job.run(all_reduce, timeout=180)
+            during = torch.cuda.mem_get_info()[0] / 2 ** 20
+        finally:
+            job.stop()
+        time.sleep(1.0)  # the ranks' contexts go with their processes
+        after = torch.cuda.mem_get_info()[0] / 2 ** 20
+        want = float(world * (world + 1) // 2)
+        out[label] = {"start_s": start_s, "backend": job.backend,
+                      "ranks": got, "free_mib_before": before,
+                      "free_mib_during": during, "free_mib_after": after,
+                      "mib_per_rank_context": (before - during) / world}
+        print(f"gang runner {label}: {world} rank(s), backend "
+              f"{[g['backend'] for g in got]}, all_reduce "
+              f"{[g['sum'] for g in got]}, start {start_s:.3f} s; card free "
+              f"MiB before {before:.0f}, with the ranks {during:.0f}, after "
+              f"{after:.0f} ({out[label]['mib_per_rank_context']:.0f} MiB a "
+              f"rank)")
+        require(all(g["backend"] == job.backend and g["sum"] == [want] * 2
+                    for g in got), f"gang runner {label}: {got}")
+    require(out["nccl"]["backend"] == "nccl"
+            and out["gloo_shared"]["backend"] == "gloo",
+            f"gang runner backends: {out}")
+    print(f"gang runner plain: starts {[round(s, 3) for s in starts]} s")
+    return out
+
+
+def gang_report(label: str, history: list, dispatch=None) -> None:
+    for r in history:
+        print(f"{label} epoch {r['epoch']}: " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in r.items() if k != "epoch"}))
+    if dispatch is not None:
+        print(f"{label} dispatch: {dispatch}")
+
+
+def gang_nccl(train, test, features) -> dict:
+    """(b) NCCL, graphed: fit_gang(num_workers=1), the rank on its own card,
+    steps_per_dispatch=CHAIN, unshuffled, against the in-process streaming
+    fit with the same k and rows: per-epoch losses within SAME_PATH_RTOL."""
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+    from raydp_tpu_torch.spmd.job import SPMDJob
+
+    def estimator():
+        est = build_estimator(features, GANG_BATCH, GANG_EPOCHS, None)
+        est.shuffle, est.steps_per_dispatch = False, CHAIN
+        return est
+
+    with device_cache(False):
+        t0 = time.perf_counter()
+        single = estimator().fit(train, test)
+        single_s = time.perf_counter() - t0
+        clock = CallClock()
+        clock.wrap(SPMDJob, "start", "start")
+        t0 = time.perf_counter()
+        try:
+            gang = estimator().fit_gang(train, test, num_workers=1)
+        finally:
+            clock.restore()
+        gang_s = time.perf_counter() - t0
+    gang_report("gang nccl k=8", gang.history, gang.dispatch)
+    worst = max(abs(a[k] - b[k]) / abs(b[k])
+                for a, b in zip(gang.history, single.history)
+                for k in ("train_loss", "eval_loss"))
+    out = {"start_s": clock.take()["start"], "fit_gang_s": gang_s,
+           "fit_s": single_s,
+           "replays": [d["graph_replays"] for d in gang.dispatch],
+           "samples_per_s_steady": steady_rate(gang.history[1:]),
+           "single_samples_per_s_steady": steady_rate(single.history[1:]),
+           "losses": losses_of(gang), "single_losses": losses_of(single),
+           "max_rel_diff": worst}
+    print(f"gang nccl: 1 rank, graph replays {out['replays']} (the "
+          f"in-process fit {[d['graph_replays'] for d in single.dispatch]}); "
+          f"{out['samples_per_s_steady']:.1f} vs in-process "
+          f"{out['single_samples_per_s_steady']:.1f} samples/s steady; gang "
+          f"start {out['start_s']:.3f} s of fit_gang {gang_s:.3f} s (fit "
+          f"{single_s:.3f} s); train and eval losses differ by at most "
+          f"{worst:.3e} of themselves (limit {SAME_PATH_RTOL})")
+    require(all(r > 0 for r in out["replays"]),
+            f"gang nccl: no graph replayed: {gang.dispatch}")
+    require(worst <= SAME_PATH_RTOL, f"gang nccl: {gang.history} vs "
+            f"{single.history}")
+    return out
+
+
+def gang_example(phase12: dict) -> dict:
+    """(c) nyctaxi_mlp.main(["--num-workers", "2"]) at its defaults: two
+    ranks sharing the card under gloo, every step eager, against phase 12's
+    single-process run on the same rows (the same seeded CSV): every epoch
+    of both, the steady rate, the wall split and the share of a step spent
+    in all_reduce."""
+    from raydp_tpu_torch.examples import nyctaxi_mlp
+    from raydp_tpu_torch.spmd.job import SPMDJob
+
+    clock = CallClock()
+    clock.wrap(SPMDJob, "start", "start")
+    clock.wrap(SPMDJob, "run", "run")
+    clock.wrap(SPMDJob, "stop", "stop")
+    t0 = time.perf_counter()
+    try:
+        res = nyctaxi_mlp.main(["--num-workers", "2"])
+    finally:
+        clock.restore()
+    wall = time.perf_counter() - t0
+    seconds = clock.take()
+    history = res["history"]
+    gang_report("gang example", history)
+    single = {"losses": phase12["nyctaxi"]["losses"],
+              "eval_losses": phase12["nyctaxi"]["eval_losses"]}
+    for r, a, e in zip(history, single["losses"], single["eval_losses"]):
+        print(f"gang example epoch {r['epoch']}: 2 ranks train "
+              f"{r['train_loss']:.6f} eval {r['eval_loss']:.6f}; phase 12's "
+              f"single process train {a:.6f} eval {e:.6f}")
+    steady = history[1:]
+    epochs_s = sum(r["epoch_time_s"] for r in history)
+    out = {"main_s": wall, "start_s": seconds["start"],
+           "run_s": seconds["run"], "stop_s": seconds["stop"],
+           "store_read_s": history[0]["decode_time_s"],
+           "epochs_s": epochs_s,
+           "samples_per_s_steady": steady_rate(steady),
+           "single_samples_per_s_steady":
+               phase12["nyctaxi"]["samples_per_s_steady"],
+           "allreduce_share": sum(r["allreduce_time_s"] for r in steady)
+           / sum(r["dispatch_time_s"] for r in steady),
+           "losses": [r["train_loss"] for r in history],
+           "eval_losses": [r["eval_loss"] for r in history],
+           "epoch0_train_rel_diff": abs(history[0]["train_loss"]
+                                        - single["losses"][0])
+           / abs(single["losses"][0]),
+           "epoch0_eval_rel_diff": abs(history[0]["eval_loss"]
+                                       - single["eval_losses"][0])
+           / abs(single["eval_losses"][0])}
+    print(f"gang example: 2 ranks on one card (gloo, eager) "
+          f"{out['samples_per_s_steady']:.1f} samples/s steady vs phase 12's "
+          f"single process {out['single_samples_per_s_steady']:.1f}; wall "
+          f"{wall:.3f} s: gang start {out['start_s']:.3f} s, ranks' store "
+          f"reads (epoch 0's decode) {out['store_read_s']:.3f} s, epochs "
+          f"{epochs_s:.3f} s, the ranks' whole run {out['run_s']:.3f} s, stop "
+          f"{out['stop_s']:.3f} s; all_reduce {out['allreduce_share']:.1%} "
+          f"of a steady step; epoch 0 train loss differs by "
+          f"{out['epoch0_train_rel_diff']:.3e} (limit {GANG_EXAMPLE_RTOL}), "
+          f"eval by {out['epoch0_eval_rel_diff']:.3e} (not gated)")
+    require(len(history) == 5 and out["losses"][-1] < out["losses"][0],
+            f"gang example: {out['losses']}")
+    require(all(math.isfinite(v) for v in out["eval_losses"]),
+            f"gang example eval: {out['eval_losses']}")
+    require(out["epoch0_train_rel_diff"] <= GANG_EXAMPLE_RTOL,
+            f"gang example epoch 0 vs phase 12: {out}")
+    return out
+
+
+def gang_resume(train, test, features, tmp: str, device: str = "cuda"
+                ) -> dict:
+    """(d) Crash and resume, held against one process: rank 1 exits at
+    epoch 1, once; the gang (two ranks on the card, gloo) restarts with
+    max_retries=1 and resumes from rank 0's checkpoint. The history is
+    [0, 1, 2, 3], the checkpoint's sidecar holds the pre-crash epochs, and
+    the gang's unshuffled train losses equal an in-process fit's on the
+    same rows in the same order within GANG_RESUME_RTOL (the global batch's
+    gradient and BatchNorm statistics, the model and the optimizer's
+    moments restored). The eval losses of the two are printed: they drift
+    apart far faster (GANG_RESUME_RTOL's note), as a shuffled in-process
+    fit's do, which shows what the row order alone does to the losses (the
+    spread between (c)'s two runs). The gang's last eval loss, over every
+    test row once, equals the smooth L1 of the driver's ``predict`` with
+    the state the gang returned within GANG_EVAL_RTOL."""
+    import os
+
+    import numpy as np
+
+    from raydp_tpu_torch.examples.nyctaxi_features import LABEL
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+    from raydp_tpu_torch.spmd.job import SPMDJob
+    from raydp_tpu_torch.train import checkpoint as ckpt
+
+    flag = os.path.join(tmp, "gang-crashed-once")
+    ckpt_dir = os.path.join(tmp, "gang-resume")
+
+    def crash_once(report):
+        import torch.distributed as dist
+
+        if (report["epoch"] == 1 and dist.get_rank() == 1
+                and not os.path.exists(flag)):
+            open(flag, "w").close()
+            os._exit(1)
+
+    def estimator(callbacks=(), ckpt_dir=None, shuffle=False):
+        est = build_estimator(features, GANG_BATCH, GANG_RESUME_EPOCHS,
+                              device)
+        est.shuffle, est.callbacks, est.checkpoint_dir = \
+            shuffle, list(callbacks), ckpt_dir
+        return est
+
+    def rel_diffs(a, b) -> dict:
+        return {k: [abs(x[k] - y[k]) / abs(y[k])
+                    for x, y in zip(a.history, b.history)]
+                for k in ("train_loss", "eval_loss")}
+
+    with device_cache(False):
+        single = estimator().fit(train, test)
+        reordered = estimator(shuffle=True).fit(train, test)
+        clock = CallClock()
+        clock.wrap(SPMDJob, "start", "start")
+        t0 = time.perf_counter()
+        est = estimator([crash_once], ckpt_dir)
+        try:
+            gang = est.fit_gang(train, test, num_workers=2, max_retries=1)
+        finally:
+            clock.restore()
+        wall = time.perf_counter() - t0
+    gang_report("gang resume", gang.history, gang.dispatch)
+    epochs = [r["epoch"] for r in gang.history]
+    extra = ckpt.restore_extra(ckpt_dir)
+    diffs, order = rel_diffs(gang, single), rel_diffs(reordered, single)
+    worst = max(diffs["train_loss"])
+    d = np.abs(est.predict(test).astype(np.float64)
+               - test.to_pandas()[LABEL].to_numpy(np.float64))
+    predicted = float(np.mean(np.where(d < 1.0, 0.5 * d * d, d - 0.5)))
+    eval_vs_predict = abs(gang.history[-1]["eval_loss"] - predicted) \
+        / predicted
+    out = {"history_epochs": epochs, "crashed": os.path.exists(flag),
+           "restored_epochs": [r["epoch"] for r in extra["history"]]
+           if extra else [],
+           "second_gang_epochs": [d["epoch"] for d in gang.dispatch],
+           "fit_gang_s": wall, "starts_s": clock.take()["start"],
+           "losses": losses_of(gang),
+           "eval_losses": [r["eval_loss"] for r in gang.history],
+           "single_losses": losses_of(single),
+           "single_eval_losses": [r["eval_loss"] for r in single.history],
+           "reordered_eval_losses": [r["eval_loss"]
+                                     for r in reordered.history],
+           "rel_diffs": diffs, "max_rel_diff": worst,
+           "order_rel_diffs": order, "predict_eval_loss": predicted,
+           "eval_vs_predict_rel_diff": eval_vs_predict}
+    print(f"gang resume: history {epochs}, the second gang ran epochs "
+          f"{out['second_gang_epochs']}, checkpoint sidecar epochs "
+          f"{out['restored_epochs']}; fit_gang {wall:.3f} s with two gang "
+          f"starts {out['starts_s']:.3f} s; against the in-process fit "
+          f"(same rows, same order) the train losses differ by "
+          f"{[f'{v:.3e}' for v in diffs['train_loss']]}, the eval losses by "
+          f"{[f'{v:.3e}' for v in diffs['eval_loss']]} of themselves (train "
+          f"limit {GANG_RESUME_RTOL}, eval printed); a shuffled in-process "
+          f"fit's differ by {[f'{v:.3e}' for v in order['train_loss']]} and "
+          f"{[f'{v:.3e}' for v in order['eval_loss']]} (the row order "
+          f"alone, printed); the last eval loss "
+          f"{gang.history[-1]['eval_loss']:.6f} vs the driver's predict "
+          f"{predicted:.6f}: {eval_vs_predict:.3e} of it (limit "
+          f"{GANG_EVAL_RTOL})")
+    require(out["crashed"], "gang resume: the injected crash never fired")
+    require(epochs == list(range(GANG_RESUME_EPOCHS)) and out["restored_epochs"],
+            f"gang resume: {out}")
+    require(worst <= GANG_RESUME_RTOL, f"gang resume: {out}")
+    require(eval_vs_predict <= GANG_EVAL_RTOL, f"gang resume eval: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def gang_frames(tmp: str):
+    """(b) and (d)'s rows: GANG_ROWS NYCTaxi rows through a session's ETL,
+    split 0.9/0.1; yields ``(train, test, features)`` and stops the
+    session after the block."""
+    import os
+
+    import raydp_tpu_torch
+    from raydp_tpu_torch.data import from_frame
+    from raydp_tpu_torch.examples.generate_nyctaxi import generate
+    from raydp_tpu_torch.examples.nyctaxi_features import (
+        feature_columns, nyc_taxi_preprocess,
+    )
+
+    csv = os.path.join(tmp, "gang-nyctaxi.csv")
+    generate(GANG_ROWS).to_csv(csv, index=False)
+    session = raydp_tpu_torch.init("smoke-gang", **ETL_SESSION)
+    try:
+        frame = nyc_taxi_preprocess(
+            session.read.csv(csv, num_partitions=ETL_PARTITIONS))
+        train_df, test_df = frame.randomSplit([0.9, 0.1], seed=0)
+        yield from_frame(train_df), from_frame(test_df), \
+            feature_columns(frame)
+    finally:
+        raydp_tpu_torch.stop()
+
+
+def gang_resume_on_cpu() -> dict:
+    """(d) on the host's CPU, two ranks under gloo, with every limit
+    lifted: the readings GANG_RESUME_RTOL and GANG_EVAL_RTOL were set
+    from. Not part of a chip run; run it as ``python3 -c "import
+    chip_smoke; chip_smoke.gang_resume_on_cpu()"``."""
+    global GANG_RESUME_RTOL, GANG_EVAL_RTOL
+
+    GANG_RESUME_RTOL = GANG_EVAL_RTOL = math.inf
+    with tempfile.TemporaryDirectory(prefix="gang-cpu-") as tmp, \
+            gang_frames(tmp) as (train, test, features):
+        return gang_resume(train, test, features, tmp, device="cpu")
+
+
+def run_gang(fa, phase12: dict, tmp: str) -> dict:
+    """Phase 13: the gang runner and gang training on the card; no flash
+    launch."""
+    t_phase = time.perf_counter()
+    zero_launches(fa)
+    out = {"runner": gang_runner(), "example": gang_example(phase12)}
+    with gang_frames(tmp) as (train, test, features):
+        out["nccl"] = gang_nccl(train, test, features)
+        out["resume"] = gang_resume(train, test, features, tmp)
+    counts = launches(fa)
+    print(f"gang launches of the flash kernels: {counts}")
+    require(not any(counts.values()), f"the gang launched {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"gang phase: {out['phase_s']:.3f} s")
+    print("gang " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -3556,7 +3967,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = {"flash_attention_fwd": check_kernel(fa, device, gen, baseline),
             **check_bwd_kernels(fa, device, gen, baseline)}
-    # phases 5-12 are bound by the host's kernel launches: their timed
+    # phases 5-13 are bound by the host's kernel launches: their timed
     # fits and requests run before any torch.profiler session of this
     # process (phases 3-4 profile, and so do 5-6 at their end), so no
     # profiler hook is left in the launch path while they are timed
@@ -3578,6 +3989,8 @@ def main() -> int:
         gbdt, profile_gbdt = run_gbdt(fa, tmp)
         free_memory()
         examples = run_examples(fa, etl, tmp)
+        free_memory()
+        gang = run_gang(fa, examples, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the profiled epochs replay graphs: the idle share of a graphed epoch
@@ -3588,7 +4001,7 @@ def main() -> int:
                                      "store": store, "etl": etl,
                                      "dispatch": dispatch,
                                      "serving": serving, "gbdt": gbdt,
-                                     "examples": examples}))
+                                     "examples": examples, "gang": gang}))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()

@@ -25,9 +25,12 @@ on the card (:mod:`raydp_tpu_torch.models.gbdt`,
 :class:`~raydp_tpu_torch.train.GBDTEstimator`), the data bridges to a
 training loop of the user's (``to_torch_dataset``, ``to_tf_dataset``),
 ``rdt-submit-torch`` (:mod:`raydp_tpu_torch.cli.submit`), the headline
-examples (``examples/nyctaxi_mlp.py``, ``examples/stroke_pipeline.py``)
-and the project's static analysis over the port
-(:mod:`raydp_tpu_torch.tools.rdtlint`).
+examples (``examples/nyctaxi_mlp.py``, ``examples/stroke_pipeline.py``),
+the project's static analysis over the port
+(:mod:`raydp_tpu_torch.tools.rdtlint`), and the gang runner
+(:mod:`raydp_tpu_torch.spmd`, rank processes under one
+``torch.distributed`` process group) with gang training on it
+(``TorchEstimator.fit_gang``).
 
     import raydp_tpu_torch
     session = raydp_tpu_torch.init("nyc", num_executors=2,

@@ -4,9 +4,12 @@
 **Host half** (copied from the reference; same names and behaviour):
 :class:`ShardSpec`, :func:`pad_batch`, :func:`epoch_seed`, :func:`_as_numpy`
 (through the native staging kernel, :mod:`raydp_tpu_torch.native.stage`),
-:class:`HostBatchIterator`, :class:`PipelineTimings` and
+:class:`HostBatchIterator`, :class:`GangShardIterator` (a gang rank's slice
+of every global batch), :class:`PipelineTimings` and
 :class:`DevicePrefetcher`. With the same seed, shuffle and remainder flags
-the host batches are byte-identical to the reference's.
+the host batches are byte-identical to the reference's. One addition:
+:class:`GangShardIterator` pads and masks the ragged final global batch
+when asked (``pad_remainder``), where the reference's drops it.
 
 **Device half** (the counterpart of ``jax.device_put``):
 
@@ -249,6 +252,148 @@ class HostBatchIterator:
         batch = {n: a[: self.batch_size] for n, a in joined.items()}
         rest = {n: [a[self.batch_size:]] for n, a in joined.items()}
         return batch, rest, buffered - self.batch_size
+
+
+class GangShardIterator:
+    """Per-rank host batches that compose into globally-consistent batches.
+
+    Global batch ``k`` covers dataset rows ``[k*B, (k+1)*B)`` in block order —
+    exactly the batches a single-process :class:`HostBatchIterator` with
+    ``shuffle=False`` cuts — and rank ``r`` of ``w`` yields its slice of
+    each, the equal split ``[r*B/w, (r+1)*B/w)`` (the reference derives the
+    range from the batch sharding of its mesh, ``process_local_batch_rows``;
+    under the port's replicated gang it is the equal split). All ranks
+    permute the *batch order* with the same seed (numpy's
+    ``RandomState``, as the reference; no within-block shuffling), so every
+    rank walks the same global batch sequence, and a shuffled gang visits
+    the reference's batches in the reference's order.
+
+    ``pad_remainder``: the ragged final global batch (``total % B`` rows) is
+    padded with zero rows to ``B`` and every batch carries :data:`MASK_KEY`,
+    so the ranks' slices of the final batch cover every row once and the
+    pad rows count zero — the rule the reference states for a >1 data
+    extent (``RDT_TRAIN_PAD_TAIL``), which its own gang iterator breaks by
+    dropping the tail. Without it the tail drops (``total // B`` batches),
+    as the reference's iterator does.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        global_batch: int,
+        world_size: int,
+        rank: int,
+        columns: Dict[str, Tuple[ColumnSpec, np.dtype]],
+        shuffle: bool = False,
+        seed: int = 0,
+        pad_remainder: bool = False,
+    ):
+        if not (0 <= rank < world_size):
+            raise ValueError(f"rank {rank} out of range for world {world_size}")
+        if global_batch % world_size != 0:
+            raise ValueError(
+                f"global batch {global_batch} not divisible by world size "
+                f"{world_size}")
+        self.dataset = dataset
+        self.global_batch = global_batch
+        self.world_size = world_size
+        self.rank = rank
+        self.columns = _normalize_columns(columns)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.per_rank = global_batch // world_size
+        self.pad_remainder = pad_remainder
+        self._starts = np.cumsum([0] + list(dataset.block_sizes()))
+        self.total = int(self._starts[-1])
+        # decoded-block cache across epochs (HostBatchIterator's trick):
+        # without it every rank re-runs Arrow→numpy decode for every batch
+        # of every epoch — the dominant per-epoch host cost of a gang rank
+        self._decoded: Dict[int, Dict[str, np.ndarray]] = {}
+        self._cache_bytes = 0
+        self._cache_cap = int(float(knobs.get("RDT_FEED_CACHE_MB"))
+                              * (1 << 20))
+
+    def __len__(self) -> int:
+        if self.pad_remainder:
+            return -(-self.total // self.global_batch)
+        return self.total // self.global_batch
+
+    def _runs(self, start: int, stop: int) -> List[Tuple[int, int, int]]:
+        """Global row range → list of (block_index, offset, length) runs."""
+        runs: List[Tuple[int, int, int]] = []
+        b = int(np.searchsorted(self._starts, start, side="right")) - 1
+        row = start
+        while row < stop:
+            blk_end = int(self._starts[b + 1])
+            take = min(stop, blk_end) - row
+            runs.append((b, row - int(self._starts[b]), take))
+            row += take
+            b += 1
+        return runs
+
+    def _decoded_nbytes(self, rows: int) -> int:
+        """Exact decoded size of ``rows`` rows under this iterator's fixed-
+        width column specs — lets cache eligibility be decided WITHOUT
+        decoding the block first."""
+        return rows * sum(len(cols) * dt.itemsize
+                          for cols, dt in self.columns.values())
+
+    def _decode_run(self, b: int, off: int,
+                    length: int) -> Dict[str, np.ndarray]:
+        """Rows ``[off, off+length)`` of block ``b``: served from the decoded
+        cache when the block fits the ``RDT_FEED_CACHE_MB`` budget; otherwise
+        only the requested slice is decoded (``table.slice`` is zero-copy),
+        so an over-cap gang feed pays O(batch) — not O(block) — Arrow→numpy
+        work per batch (mirrors ``HostBatchIterator._decode_slice``)."""
+        cached = self._decoded.get(b)
+        if cached is None and (self._cache_bytes
+                               + self._decoded_nbytes(self._block_rows(b))
+                               <= self._cache_cap):
+            table = self.dataset.get_block(b, zero_copy=True)
+            arrays = {name: _as_numpy(table, cols, dt)
+                      for name, (cols, dt) in self.columns.items()}
+            # own the bytes (a zero-copy view into the store must not be
+            # cached past this iteration) and freeze them so an in-place
+            # consumer mutation fails loudly instead of poisoning epochs
+            arrays = {n: (a if a.flags["OWNDATA"] else a.copy())
+                      for n, a in arrays.items()}
+            for a in arrays.values():
+                a.setflags(write=False)
+            cached = self._decoded[b] = arrays
+            self._cache_bytes += sum(a.nbytes for a in arrays.values())
+        if cached is not None:
+            return {n: a[off:off + length] for n, a in cached.items()}
+        table = self.dataset.get_block(b, zero_copy=True).slice(off, length)
+        return {name: _as_numpy(table, cols, dt)
+                for name, (cols, dt) in self.columns.items()}
+
+    def _block_rows(self, b: int) -> int:
+        return int(self._starts[b + 1] - self._starts[b])
+
+    def _slice(self, k: int) -> Dict[str, np.ndarray]:
+        """This rank's rows of global batch ``k``: the real ones only (the
+        final batch's slice may be short, or empty)."""
+        start = k * self.global_batch + self.rank * self.per_rank
+        stop = min(start + self.per_rank, self.total)
+        parts = [self._decode_run(b, off, length)
+                 for b, off, length in self._runs(start, stop)]
+        if len(parts) == 1:
+            return parts[0]
+        if not parts:  # a slice wholly past the last row
+            return {n: np.zeros((0,) + (() if len(cols) == 1
+                                        else (len(cols),)), dt)
+                    for n, (cols, dt) in self.columns.items()}
+        return {n: np.concatenate([p[n] for p in parts], axis=0)
+                for n in self.columns}
+
+    def __iter__(self):
+        order = np.arange(len(self))
+        if self.shuffle:
+            np.random.RandomState(self.seed).shuffle(order)
+        for k in order:
+            batch = self._slice(int(k))
+            yield pad_batch(batch, self.per_rank) \
+                if self.pad_remainder else batch
 
 
 class ResidentEpoch:
@@ -577,12 +722,16 @@ class DeviceFeed:
         drop_remainder: bool = True,
         prefetch_to_device: Optional[int] = None,
         pad_remainder: bool = False,
+        host_iter=None,
     ):
         self.device = resolve_device(device)
         _require_torch_dtypes(columns)
-        self.host_iter = HostBatchIterator(
-            dataset, batch_size, columns, shuffle=shuffle, seed=seed,
-            drop_remainder=drop_remainder, pad_remainder=pad_remainder)
+        #: the host batches: ``host_iter`` when given (a gang rank's
+        #: :class:`GangShardIterator`), else a :class:`HostBatchIterator`
+        self.host_iter = host_iter if host_iter is not None \
+            else HostBatchIterator(
+                dataset, batch_size, columns, shuffle=shuffle, seed=seed,
+                drop_remainder=drop_remainder, pad_remainder=pad_remainder)
         self.prefetch = max(1, prefetch)
         if prefetch_to_device is None:
             prefetch_to_device = int(knobs.get("RDT_PREFETCH_TO_DEVICE"))

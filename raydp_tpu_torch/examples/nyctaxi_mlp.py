@@ -4,10 +4,12 @@
 ``NYCTaxiModel`` on the CUDA card (``--device cpu`` trains on the CPU).
 
 Run: python raydp_tpu_torch/examples/nyctaxi_mlp.py [--rows 100000]
-     [--epochs 5]
+     [--epochs 5] [--num-workers N]
 
-``--num-workers N`` (N > 1) is gang training, which the port does not have
-yet (ROADMAP.md item 12b): it raises before any work.
+``--num-workers N`` (N > 1) trains as a gang of N rank processes under one
+``torch.distributed`` process group (``TorchEstimator.fit_gang``): one card
+a rank under NCCL when the node has a card for each, else the ranks share
+the card (or the CPU) under gloo.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch-size", type=int, default=1024)
     ap.add_argument("--num-executors", type=int, default=2)
     ap.add_argument("--num-workers", type=int, default=1,
-                    help=">1 trains as a process gang (not in the port yet)")
+                    help=">1 trains as a gang of rank processes")
     ap.add_argument("--csv", default=None)
     ap.add_argument("--trace", action="store_true",
                     help="collect a merged causal chrome trace + metrics "
@@ -66,11 +68,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="the training device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.num_workers > 1:
-        raise NotImplementedError(
-            f"--num-workers {args.num_workers} trains as a gang of "
-            "processes, which the port does not have yet (ROADMAP.md item "
-            "12b, gang training)")
 
     import raydp_tpu_torch
     from raydp_tpu_torch.examples.nyctaxi_features import (

@@ -1,9 +1,11 @@
 """The ``RDT_*`` environment knobs the port reads — its copy of the entries
 of :mod:`raydp_tpu.knobs` on the ported paths (training, the runtime, the
 object store, the ETL engine, the fault plane, continuous pipelines, the
-serving plane). Every entry is the reference's entry of the same name, field
-for field, except ``RDT_WARM_IMPORTS``, whose default names ``torch`` where
-the reference's names ``jax``.
+serving plane, the SPMD gang). Every entry is the reference's entry of the
+same name, field for field, except ``RDT_WARM_IMPORTS``, whose default names
+``torch`` where the reference's names ``jax``, and ``RDT_SPMD_COORDINATOR``
+and ``RDT_SPMD_JAX_DISTRIBUTED``, whose docs name ``torch.distributed``'s
+``init_process_group`` where the reference's name ``jax.distributed``.
 
 Every runtime read goes through :func:`get`, and the knob tables under
 ``raydp_tpu_torch/doc/`` are GENERATED from this registry
@@ -46,7 +48,7 @@ class Knob:
     default: object    # typed default; None = unset (or computed at the site)
     scope: str         # PER_ACTION | PROCESS_START
     category: str      # "etl" | "training" | "serving" | "stream"
-                       # | "runtime" | "faults"
+                       # | "runtime" | "faults" | "spmd"
     doc: str           # one-line description for the generated doc tables
     #: framework-injected IPC value (set by the head/agent/submit wrapper for
     #: child processes), not a user-facing tuning knob
@@ -86,6 +88,11 @@ _ALL = [
        "device residency."),
     _k("RDT_STAGE_THREADS", "int", 1, PER_ACTION, "training",
        "Column fan-out threads of the native staging core (host decode)."),
+    _k("RDT_TRAIN_PAD_TAIL", "bool", True, PER_ACTION, "training",
+       "Pad-and-mask the ragged final batch under a >1 data extent (or a "
+       ">1 stage extent — the pipelined forward reshapes every batch into "
+       "microbatches): zero rows square the batch and a mask drops them "
+       "from losses/metrics. 0 restores the silent tail drop."),
     _k("RDT_TRAIN_ACCUM_STEPS", "int", 1, PER_ACTION, "training",
        "Gradient-accumulation microbatches per optimizer step: each global "
        "batch splits into this many slices scanned through the forward/"
@@ -406,6 +413,22 @@ _ALL = [
        "once per process, re-armed by raydp_tpu_torch.init()."),
     _k("RDT_FAULTS_SEED", "int", 0, PROCESS_START, "faults",
        "Global default PRNG seed for probability-scheduled fault rules."),
+    # ---- SPMD gang plumbing --------------------------------------------------
+    _k("RDT_SPMD_JOB_ID", "str", None, PROCESS_START, "spmd",
+       "Gang job id of an SPMD rank worker.", internal=True),
+    _k("RDT_SPMD_DRIVER", "str", None, PROCESS_START, "spmd",
+       "RPC url of the gang driver a rank worker reports to.",
+       internal=True),
+    _k("RDT_SPMD_RANK", "int", None, PROCESS_START, "spmd",
+       "This worker's rank in the gang.", internal=True),
+    _k("RDT_SPMD_WORLD_SIZE", "int", None, PROCESS_START, "spmd",
+       "Gang world size.", internal=True),
+    _k("RDT_SPMD_COORDINATOR", "str", None, PROCESS_START, "spmd",
+       "torch.distributed rendezvous address override (the host:port of "
+       "init_process_group's tcp:// store).", internal=True),
+    _k("RDT_SPMD_JAX_DISTRIBUTED", "bool", False, PROCESS_START, "spmd",
+       "Whether a rank worker calls "
+       "torch.distributed.init_process_group().", internal=True),
 ]
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}
@@ -421,6 +444,19 @@ def get(name: str):
     raw = os.environ.get(name)
     if raw is None or raw.strip() == "":
         return knob.default
+    return knob.parse(raw)
+
+
+def require(name: str):
+    """Like :func:`get` but raises when the var is unset — for
+    framework-injected values (SPMD rank plumbing) whose absence means the
+    process was launched outside its harness."""
+    knob = KNOBS[name]
+    raw = os.environ.get(name)
+    if raw is None:
+        raise KeyError(
+            f"{name} is not set — this process expects it injected by its "
+            f"launcher ({knob.doc})")
     return knob.parse(raw)
 
 
@@ -464,6 +500,7 @@ DOC_TABLES = (
     ("raydp_tpu_torch/doc/streaming.md", "stream"),
     ("raydp_tpu_torch/doc/runtime.md", "runtime"),
     ("raydp_tpu_torch/doc/fault_tolerance.md", "faults"),
+    ("raydp_tpu_torch/doc/spmd.md", "spmd"),
     ("raydp_tpu_torch/doc/dev_lint.md", None),
 )
 

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from raydp_tpu_torch.parallel import gang
+
 # std of a standard normal truncated to [-2, 2] (Flax's truncated_normal)
 _TRUNC_STD = 0.87962566103423978
 
@@ -105,7 +107,20 @@ class BatchNorm(nn.Module):
     variance). In eval mode the running buffers are used. Either way the
     output is ``(x − mean) · (rsqrt(var + ε) · scale) + bias`` in f32, cast
     to ``dtype`` once at the end. Parameters ``scale``/``bias`` and buffers
-    ``mean``/``var`` are f32 and named as Flax names them."""
+    ``mean``/``var`` are f32 and named as Flax names them.
+
+    With ``global_stats`` (set on a gang rank's model by
+    :func:`~raydp_tpu_torch.parallel.gang.sync_batchnorm`) the statistics
+    are the GLOBAL batch's, as the reference's gang takes them over its
+    sharded batch: each rank sums ``Σx``, ``Σx²`` and its row count, one
+    differentiable all-reduce sums them across the ranks (its backward sums
+    the gradients too), and Flax's formula follows; the running buffers
+    then move alike on every rank. A gang's training batches are never
+    padded (its train feed drops the ragged tail, as the reference's does),
+    so every row of a rank's slice counts."""
+
+    #: take the statistics across the process group's ranks
+    global_stats = False
 
     def __init__(self, features: int, dtype: Optional[torch.dtype],
                  device: torch.device, momentum: float = 0.99,
@@ -129,8 +144,12 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            if self.global_stats:
+                mean, var = self._gang_statistics(xf, axes)
+            else:
+                mean = xf.mean(axes)
+                var = torch.clamp_min((xf * xf).mean(axes) - mean * mean,
+                                      0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -140,3 +159,16 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (x - mean) * mul + self.bias
         return y.to(self.dtype or x.dtype)
+
+    @staticmethod
+    def _gang_statistics(xf: torch.Tensor, axes: tuple):
+        """The global batch's ``(mean, var)`` across the gang's ranks."""
+        # a fill, not a host copy: a CUDA graph can capture it
+        rows = xf.new_full((1,), float(xf[..., 0].numel()))
+        sums = gang.all_reduce_grad(torch.cat(
+            [xf.sum(axes), (xf * xf).sum(axes), rows]))
+        f = xf.shape[-1]
+        count = sums[2 * f]
+        mean = sums[:f] / count
+        var = torch.clamp_min(sums[f:2 * f] / count - mean * mean, 0.0)
+        return mean, var

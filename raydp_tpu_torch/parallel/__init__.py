@@ -1,7 +1,8 @@
 """raydp_tpu_torch.parallel — the one-device half of
 :mod:`raydp_tpu.parallel`: the parameter-role classification and the
-rematerialization policy over it (:mod:`roles`). Meshes, shardings and the
-pipeline schedule are not ported yet (ROADMAP item 12).
+rematerialization policy over it (:mod:`roles`), and the collectives of a
+replicated training gang (:mod:`gang`). Meshes, shardings and the pipeline
+schedule are not ported yet (ROADMAP items 12c and 12d).
 """
 
 from raydp_tpu_torch.parallel.roles import (

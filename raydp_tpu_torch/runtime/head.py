@@ -372,7 +372,8 @@ def _group_to_dict(group: PlacementGroup) -> Dict[str, Any]:
         "group_id": group.group_id,
         "strategy": group.strategy.value,
         "bundles": [
-            {"index": b.index, "resources": b.resources, "node_id": b.node_id}
+            {"index": b.index, "resources": b.resources, "node_id": b.node_id,
+             "gpu_ids": list(b.gpu_ids)}
             for b in group.bundles
         ],
     }
@@ -410,7 +411,9 @@ class RuntimeContext:
             for res in virtual_nodes:
                 self.resource_manager.add_node("127.0.0.1", res)
         else:
-            self.resource_manager.add_node("127.0.0.1", _default_node_resources())
+            self.resource_manager.add_node(
+                "127.0.0.1", {**_default_node_resources(),
+                              "GPU": float(visible_cards())})
 
         self.records: Dict[str, ActorRecord] = {}
         self.names: Dict[str, str] = {}
@@ -1031,6 +1034,14 @@ def _default_node_resources() -> Dict[str, float]:
         mem = 8 << 30
     cpus = float(os.cpu_count() or 1)
     return {"CPU": max(cpus, 4.0), "memory": float(mem)}
+
+
+def visible_cards() -> int:
+    """The CUDA cards this process sees (0 without CUDA): the head node's
+    ``GPU`` resource, which gang ranks with ``gpus_per_process`` take."""
+    import torch
+
+    return torch.cuda.device_count()
 
 
 # -- module-global singleton --------------------------------------------------------

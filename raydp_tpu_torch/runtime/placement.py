@@ -8,6 +8,13 @@ one peer per node (mpi/mpi_job.py:192-222). TPU specifics: chips are host-granul
 a bundle that requests the ``TPU`` resource must land on a whole host (one JAX
 process owns all chips of a host), so fractional TPU bundles are rejected.
 
+CUDA cards: a node's ``GPU`` resource counts its cards, and a bundle that
+asks for ``GPU`` takes whole cards — a fractional ``GPU`` bundle is refused
+as a fractional ``TPU`` one is. Placing the group hands each such bundle the
+ids of the cards it holds on its node (``Bundle.gpu_ids``, indexes into the
+node's visible cards), which the SPMD gang turns into each rank's
+``CUDA_VISIBLE_DEVICES``; removing the group gives them back.
+
 Nodes here are *logical*: a single machine can register several virtual nodes to
 simulate multi-host topologies in tests, the same trick the reference's test suite
 plays with ``ray.cluster_utils.Cluster`` (test_spark_cluster.py:90-110).
@@ -52,6 +59,8 @@ class Bundle:
     index: int
     resources: Dict[str, float]
     node_id: Optional[str] = None  # assigned at group creation
+    #: the node's card ids this bundle holds (one per unit of ``GPU``)
+    gpu_ids: List[int] = field(default_factory=list)
 
 
 @dataclass
@@ -72,7 +81,8 @@ def group_from_dict(d: Dict) -> PlacementGroup:
     return PlacementGroup(
         group_id=d["group_id"],
         strategy=PlacementStrategy(d["strategy"]),
-        bundles=[Bundle(b["index"], dict(b["resources"]), b.get("node_id"))
+        bundles=[Bundle(b["index"], dict(b["resources"]), b.get("node_id"),
+                        list(b.get("gpu_ids", ())))
                  for b in d["bundles"]],
         created=True,
     )
@@ -86,12 +96,16 @@ class ResourceManager:
         self._nodes: Dict[str, NodeInfo] = {}
         self._groups: Dict[str, PlacementGroup] = {}
         self._rr = itertools.count()
+        #: node id -> the ids of its cards no placed bundle holds
+        self._free_cards: Dict[str, List[int]] = {}
 
     # -- nodes ---------------------------------------------------------------
     def add_node(self, address: str, resources: Dict[str, float]) -> str:
         with self._lock:
             node_id = f"node-{len(self._nodes)}-{uuid.uuid4().hex[:6]}"
             self._nodes[node_id] = NodeInfo(node_id, address, dict(resources))
+            self._free_cards[node_id] = list(
+                range(int(resources.get("GPU", 0))))
             return node_id
 
     def remove_node(self, node_id: str) -> None:
@@ -170,6 +184,11 @@ class ResourceManager:
                     raise ValueError(
                         "fractional TPU bundles are not placeable: TPU chips are "
                         "host-granular (one JAX process per host)")
+                gpus = b.get("GPU", 0)
+                if gpus and gpus != int(gpus):
+                    raise ValueError(
+                        f"fractional GPU bundles are not placeable ({gpus}): "
+                        "a bundle holds whole CUDA cards")
             group = PlacementGroup(
                 group_id=f"pg-{uuid.uuid4().hex[:8]}",
                 strategy=PlacementStrategy(strategy),
@@ -215,6 +234,11 @@ class ResourceManager:
                 for b in placed:
                     self.release(b.node_id, b.resources)
                 raise
+            for b in group.bundles:
+                n = int(b.resources.get("GPU", 0))
+                if n:
+                    free = self._free_cards[b.node_id]
+                    b.gpu_ids, free[:] = free[:n], free[n:]
             group.created = True
             self._groups[group.group_id] = group
             return group
@@ -226,6 +250,11 @@ class ResourceManager:
     def remove_group(self, group_id: str) -> None:
         with self._lock:
             group = self._groups.pop(group_id, None)
+            for b in group.bundles if group is not None else ():
+                if b.gpu_ids:
+                    self._free_cards[b.node_id] = sorted(
+                        self._free_cards[b.node_id] + b.gpu_ids)
+                    b.gpu_ids = []
         if group is not None:
             if group.strategy == PlacementStrategy.STRICT_PACK:
                 total: Dict[str, float] = {}

@@ -4,9 +4,7 @@ rdtlint is not a generic linter: these names encode *this* package's runtime
 architecture. Keep them in sync with the modules they describe (the
 ``fault-site-sync`` and ``knob-registry`` rules are self-syncing; this file
 covers what cannot be derived from the AST alone). Every class named here
-exists in ``raydp_tpu_torch``; the gang runner's ``_DriverService`` and
-``_WorkerService`` (``spmd/``, with their ``"driver"`` and ``"worker"``
-surfaces) are not ported yet and are added back with it.
+exists in ``raydp_tpu_torch``.
 """
 
 # ---- where the port's docs and tests are -----------------------------------
@@ -37,6 +35,8 @@ ENTRY_CLASS_NAMES = frozenset({
     "EtlMaster",          # etl/master.py — actor dispatch target; its
                           # executors also host the serving replicas
                           # (serve_* methods, serve/replica.py)
+    "_DriverService",     # spmd/job.py
+    "_WorkerService",     # spmd/worker.py
 })
 
 #: attribute names whose *call* is treated as a blocking primitive by the
@@ -63,8 +63,8 @@ STORE_GET_SUFFIXES = ("_client", "_store", "_queue")
 
 #: the RPC server surfaces, keyed by the short surface tag the receiver map
 #: below points into. Every ``*.call("name", ...)`` site with a literal method
-#: name resolves against one of these (or their union). ``_ActorServer``
-#: dispatches through a ``__call__(method, ...)`` if-chain
+#: name resolves against one of these (or their union). ``_WorkerService`` /
+#: ``_ActorServer`` dispatch through a ``__call__(method, ...)`` if-chain
 #: rather than a MethodDispatcher — the surface builder extracts their
 #: ``method == "literal"`` branches.
 RPC_SURFACE_CLASSES = {
@@ -74,6 +74,8 @@ RPC_SURFACE_CLASSES = {
                                          # ObjectStoreClient._peer dials
     "store": ("ObjectStoreServer",),     # runtime/object_store.py — reached
                                          # through the head's store_* proxies
+    "driver": ("_DriverService",),       # spmd/job.py
+    "worker": ("_WorkerService",),       # spmd/worker.py (if-chain handler)
     "actor": ("_ActorServer", "EtlExecutor", "EtlMaster"),
 }
 
@@ -97,6 +99,8 @@ RPC_RECEIVER_SURFACES = {
     # actors: serve_* call sites resolve strictly against the actor surface
     "replica": "actor",
     "_replica": "actor",
+    "driver": "driver",
+    "stub": "worker",
 }
 
 #: actor-runtime intrinsics served by ``_ActorServer.__call__`` BEFORE the

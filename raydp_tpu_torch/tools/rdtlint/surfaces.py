@@ -262,6 +262,8 @@ _TABLE_SURFACES = (
     ("head", "head (`HeadService`)"),
     ("agent", "node agent (`NodeAgentService`)"),
     ("store", "store table (`ObjectStoreServer`)"),
+    ("driver", "SPMD driver (`_DriverService`)"),
+    ("worker", "SPMD worker (`_WorkerService`)"),
     ("actor", "actor dispatch"),
 )
 

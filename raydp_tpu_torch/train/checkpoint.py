@@ -1,5 +1,4 @@
-"""Checkpoint save/restore — port of :mod:`raydp_tpu.train.checkpoint` for
-one process.
+"""Checkpoint save/restore — port of :mod:`raydp_tpu.train.checkpoint`.
 
 The on-disk layout is the reference's own non-orbax format as one process
 writes it: ``<ckpt_dir>/step_<n>/shard_0.npz`` holds each tensor's raw bytes
@@ -14,6 +13,15 @@ The state is any nesting of dicts, lists and tuples (the estimator saves
 Tensors are saved; every other leaf (an optimizer's hyperparameters) comes
 from the template at restore time, as the reference takes the tree's
 structure from its template.
+
+Under a training gang (a ``torch.distributed`` process group) every rank
+holds the whole replicated state: :func:`save` with ``gang`` writes on rank
+0 only — the
+reference's multi-writer format with one writer — and every rank waits at a
+barrier until the step is complete, so each rank can then restore it from
+the shared directory (:func:`ensure_shared_dir` checks at the gang's start
+that every rank sees it). The sharded multi-writer format waits for sharded
+state (ROADMAP item 12c).
 """
 
 from __future__ import annotations
@@ -85,6 +93,28 @@ def warn_if_reused_dir(ckpt_dir: str) -> None:
             ckpt_dir, len(steps), steps[-1][0])
 
 
+def ensure_shared_dir(ckpt_dir: str, tag: str) -> None:
+    """Gang-startup probe: the chief creates ``ckpt_dir``; every other rank
+    must see it after a barrier, else the gang runs on per-host paths and a
+    later save/resume deadlocks collectives. Fail fast with a shared-storage
+    message instead. Single-process it only creates the dir. ``tag`` names
+    the probe in the error (the reference's barrier key)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        os.makedirs(ckpt_dir, exist_ok=True)
+        return
+    if dist.get_rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    dist.barrier()
+    if not os.path.isdir(ckpt_dir):
+        raise RuntimeError(
+            f"checkpoint_dir {ckpt_dir!r} is not visible on rank "
+            f"{dist.get_rank()}'s machine ({tag}): multi-process gangs need "
+            "shared storage for checkpoints — pass a checkpoint_dir on a "
+            "filesystem mounted on every rank's host")
+
+
 def _write_extra(path: str, ckpt_dir: str, step: int, extra: dict) -> None:
     tmp = os.path.join(ckpt_dir, f".extra_{step}.tmp")
     with open(tmp, "w") as f:
@@ -110,12 +140,12 @@ def _tensor_leaves(tree: Any, path: tuple = ()
         yield _keystr(path), tree
 
 
-def _map_tensors(fn, tree: Any, path: tuple = ()) -> Any:
+def map_tensors(fn, tree: Any, path: tuple = ()) -> Any:
     """``tree`` with each tensor leaf replaced by ``fn(keystr, leaf)``."""
     if isinstance(tree, Mapping):
-        return {k: _map_tensors(fn, v, path + (k,)) for k, v in tree.items()}
+        return {k: map_tensors(fn, v, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(fn, v, path + (i,))
+        return type(tree)(map_tensors(fn, v, path + (i,))
                           for i, v in enumerate(tree))
     if isinstance(tree, torch.Tensor):
         return fn(_keystr(path), tree)
@@ -151,10 +181,26 @@ def _prune(ckpt_dir: str, written_step: int) -> None:
 
 
 def save(ckpt_dir: str, state: Any, step: int,
-         extra: Optional[dict] = None) -> str:
+         extra: Optional[dict] = None, gang: bool = False) -> str:
     """Write ``state``'s tensors as ``step_<step>`` (replacing a dir of that
     step), then ``extra`` (a JSON-serializable sidecar, e.g. the epoch
-    history) and ``COMPLETE``; then prune. Returns the step dir."""
+    history) and ``COMPLETE``; then prune. Returns the step dir. ``gang``
+    (every rank of the process group calls it with the same replicated
+    state): rank 0 writes and every rank returns after the barrier that
+    follows."""
+    import torch.distributed as dist
+
+    if gang:
+        path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, state, step, extra)
+        dist.barrier()
+        return path
+    return _write(ckpt_dir, state, step, extra)
+
+
+def _write(ckpt_dir: str, state: Any, step: int,
+           extra: Optional[dict]) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
     if os.path.exists(path):
@@ -197,7 +243,13 @@ def restore(ckpt_dir: str, template: Any, max_step: Optional[int] = None
                 raise KeyError(f"checkpoint at {path} is missing leaf {key}")
             return _entry_tensor(npz, e).to(leaf.device)
 
-        return _map_tensors(load, template), step
+        return map_tensors(load, template), step
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The step of the latest complete checkpoint, or None."""
+    latest = _latest_agreed(ckpt_dir)
+    return None if latest is None else latest[0]
 
 
 def restore_extra(ckpt_dir: str, max_step: Optional[int] = None

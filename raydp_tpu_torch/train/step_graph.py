@@ -26,6 +26,15 @@ refused; nothing falls back to eager.
 The body updates its state in place: the model and optimizer, and the
 pass's sums in :class:`Accumulators`. An optimizer whose state a graph
 would freeze is made capturable, or refused, by :func:`prepare_optimizer`.
+
+In a training gang the step holds collectives (the gradient's all-reduce,
+BatchNorm's statistics). Under ``nccl`` they are captured with the rest:
+the fit's first step is eager, and the rank's process group made its
+communicator when it joined, so both exist before the capture. Under
+``gloo`` no collective can be captured (gloo runs them on the host), so
+:func:`graphs_allowed` is false and the estimator calls the step or chain
+directly, every step eager — decided from the backend before the fit's
+first step, never by a capture that failed.
 """
 
 from __future__ import annotations
@@ -39,6 +48,14 @@ import torch
 
 from raydp_tpu_torch import metrics as rdt_metrics
 from raydp_tpu_torch import profiler
+
+
+def graphs_allowed(in_gang: bool) -> bool:
+    """Whether a fit's steps may be captured: not a gang's under ``gloo``,
+    whose collectives run on the host."""
+    import torch.distributed as dist
+
+    return not (in_gang and dist.get_backend() == "gloo")
 
 
 def prepare_optimizer(optimizer: torch.optim.Optimizer, graphed: bool) -> None:

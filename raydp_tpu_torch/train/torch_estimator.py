@@ -20,6 +20,22 @@ converts ETL DataFrames first (:class:`FrameEstimatorInterface`).
 (:mod:`raydp_tpu_torch.stream`), one pass an epoch, and can export and
 hot-swap the model into a live serving session every few epochs.
 
+``fit_gang`` (and ``fit_on_frame(num_workers > 1)``) trains as a gang of
+rank processes under one ``torch.distributed`` process group
+(:mod:`raydp_tpu_torch.spmd`): each rank feeds its slice of every global
+batch (:class:`~raydp_tpu_torch.data.feed.GangShardIterator`) through the
+streaming feed and runs the same step on a replicated model. The step's
+loss is the rank's masked sum over the GLOBAL row count, its gradient is
+summed across the ranks with one all-reduce of a flat buffer before the
+optimizer steps (the gradient XLA's inserted collective gives the
+reference), BatchNorm takes the global batch's statistics
+(:class:`~raydp_tpu_torch.models.layers.BatchNorm`), and the epoch's sums
+are summed across the ranks before the host reads them, so every rank's
+history is the global one. The eval tail pads and masks
+(``RDT_TRAIN_PAD_TAIL``), so every eval row counts once. Rank 0 writes the
+checkpoints, a failed rank fails the gang, and the driver restarts it,
+resuming from the last checkpoint, up to ``max_retries`` times.
+
 How it dispatches (the reference's jitted scan and chain): on CUDA the
 resident epoch, the resident eval pass and, with ``steps_per_dispatch=k >
 1``, each ``k``-step chain of the streaming feed are CUDA graphs, captured
@@ -27,7 +43,9 @@ after the fit's first (eager) step and replayed once a step or chain
 (:mod:`raydp_tpu_torch.train.step_graph`); streaming with ``k = 1``,
 streaming eval, ragged batches and ``partial_fit`` run eagerly, as the
 reference dispatches them one jitted step at a time. On the CPU the same
-runners call the step directly.
+runners call the step directly. A gang under ``nccl`` captures its chains
+with the collectives inside; under ``gloo`` every step runs eagerly
+(:func:`~raydp_tpu_torch.train.step_graph.graphs_allowed`).
 
 How the reference's pieces map:
 
@@ -62,14 +80,15 @@ remat is engaged, the gauges ``train_param_bytes_per_process``,
 ``train_epoch_seconds`` histogram.
 
 Not ported yet (ROADMAP): ``mesh``/``mesh_spec``/``param_rules``,
-``seq_sharded``, ``PipelineModel``, ``fit_gang`` and resume (so
-``fit_on_frame`` refuses ``num_workers > 1``).
+``seq_sharded`` and ``PipelineModel``.
 """
 
 from __future__ import annotations
 
 import copy
+import inspect
 import math
+import os
 import tempfile
 import time
 from collections.abc import Mapping
@@ -83,10 +102,12 @@ from torch import nn
 from raydp_tpu_torch import faults, knobs, profiler
 from raydp_tpu_torch import metrics as rdt_metrics
 from raydp_tpu_torch.data.feed import (
-    MASK_KEY, DeviceEpochCache, DeviceFeed, HostBatchIterator, epoch_seed,
+    MASK_KEY, DeviceEpochCache, DeviceFeed, GangShardIterator,
+    HostBatchIterator, epoch_seed,
 )
 from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.log import get_logger
+from raydp_tpu_torch.parallel import gang
 from raydp_tpu_torch.parallel.roles import (
     addressable_nbytes, apply_remat, parse_remat_policy, remat_mode_for_role,
     segment_role,
@@ -97,7 +118,7 @@ from raydp_tpu_torch.train.estimator import (
 )
 from raydp_tpu_torch.train.metrics import Metric, build_metrics
 from raydp_tpu_torch.train.step_graph import (
-    Accumulators, StepRunner, prepare_optimizer,
+    Accumulators, StepRunner, graphs_allowed, prepare_optimizer,
 )
 
 logger = get_logger("train.torch_estimator")
@@ -228,6 +249,20 @@ def _resolve_loss(loss) -> Callable:
     return table[name]
 
 
+def _loss_takes_mask(loss) -> bool:
+    """Whether the loss accepts ``mask=`` (every named loss does; a custom
+    callable must declare it or take ``**kwargs``) — the reference's
+    condition for padding a ragged batch instead of dropping it."""
+    if not callable(loss):
+        return True
+    try:
+        params = inspect.signature(loss).parameters
+    except (TypeError, ValueError):
+        return False
+    return "mask" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
 def _strip_mask(batch):
     """Split the feed's validity mask off a batch dict (None when the feed
     is not padding) — model/preprocessor code never sees the mask key."""
@@ -273,7 +308,8 @@ def _make_apply(split_batch, compute_dtype, remat_mode: str = "none"):
     return apply_fn
 
 
-def _make_train_step(apply_fn, loss_fn, metrics, accum: int):
+def _make_train_step(apply_fn, loss_fn, metrics, accum: int,
+                     in_gang: bool = False):
     """Build the train step: one optimizer update from one batch.
 
     ``train_step(state, batch, mstats, loss_sum) -> (loss_sum, mstats)``
@@ -283,7 +319,21 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int):
     ROW-WEIGHTED in f32 (a masked microbatch weighs in by its real rows), so
     the single optimizer step at the end reproduces the unaccumulated
     update to float-summation-order tolerance while only ONE microbatch's
-    activations are ever live."""
+    activations are ever live.
+
+    ``in_gang``: the batch is this rank's slice of a global batch. The
+    rank's loss is its masked mean weighed by its share of the global row
+    count (all-reduced once a batch), so the ranks' losses sum to the
+    global batch's mean; after ``backward`` the gradients are summed across
+    the gang (one all-reduce of a flat buffer) and the optimizer steps on
+    that — the global batch's gradient on every rank. The loss sum then
+    holds this rank's shares, which the epoch sums across the gang."""
+
+    def _params(state):
+        return [p for p in state.model.parameters() if p.requires_grad]
+
+    def _global_rows(rows: torch.Tensor) -> torch.Tensor:
+        return torch.clamp_min(gang.all_reduce_(rows.clone()), 1.0)
 
     def _microbatch(state, batch, mask):
         preds, labels = apply_fn(state.model, batch, train=True)
@@ -295,8 +345,15 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int):
         batch, mask = _strip_mask(batch)
         if accum <= 1:
             lv, preds, labels = _microbatch(state, batch, mask)
+            if in_gang:
+                # a fill, not a host copy: a CUDA graph can capture it
+                rows = torch.sum(mask) if mask is not None else \
+                    lv.new_full((), float(labels.shape[0]))
+                lv = lv * (rows / _global_rows(rows))
             state.optimizer.zero_grad(set_to_none=True)
             lv.backward()
+            if in_gang:
+                gang.all_reduce_grads(_params(state))
             state.optimizer.step()
             new_mstats = tuple(
                 _update_metric(m, s, preds, labels, mask)
@@ -308,7 +365,7 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int):
             raise ValueError(f"accum_steps={accum} does not divide the batch "
                              f"dimension {rows_total}")
         mb = rows_total // accum
-        params = [p for p in state.model.parameters() if p.requires_grad]
+        params = _params(state)
         # grads/loss accumulate in f32 regardless of the param dtype
         g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         l_acc = torch.zeros((), dtype=torch.float32, device=loss_sum.device)
@@ -328,9 +385,11 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int):
             r_acc = r_acc + rows
             mstats = tuple(_update_metric(m, s, preds, labels, mb_mask)
                            for m, s in zip(metrics, mstats))
-        denom = torch.clamp_min(r_acc, 1.0)
+        denom = _global_rows(r_acc) if in_gang else torch.clamp_min(r_acc, 1.0)
         for p, a in zip(params, g_acc):
             p.grad = (a / denom).to(p.dtype)
+        if in_gang:
+            gang.all_reduce_grads(params)
         state.optimizer.step()
         return loss_sum + l_acc / denom, mstats
 
@@ -400,6 +459,26 @@ def _dispatch_record(epoch: int, before: tuple, after: tuple,
             "graph_steps": s1 - s0,
             "eager_steps": e1 - e0 + loop_eager_steps,
             "capture_s": c1 - c0, "eval_replays": er1 - er0}
+
+
+def _materialize_optimizer_state(state: TrainState) -> None:
+    """Create the optimizer's state, which torch makes at the first step:
+    one step on zero gradients. Every tensor it touches — the parameters
+    too — is then overwritten by the checkpoint restored into it."""
+    for p in state.model.parameters():
+        if p.requires_grad:
+            p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+
+
+def _all_reduce_sums(acc: Accumulators) -> None:
+    """Sum a pass's accumulators across the gang, in place: the loss sum,
+    the row count and every metric statistic (all of them sums)."""
+    for t in (acc.loss, acc.count, *(v for s in acc.stats
+                                     for v in s.values())):
+        if t is not None:
+            gang.all_reduce_(t)
 
 
 def _chain(body):
@@ -601,20 +680,188 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                                       dispatch=dispatch)
         return self._result
 
-    def _train_loop(self, feed, eval_feed, ckpt_dir: str,
-                    max_retries: int = 0, cache=None, eval_cache=None):
+    # --------------------------------------------------------------- fit_gang
+    def fit_gang(self, train_ds, evaluate_ds=None, *, num_workers: int = 2,
+                 max_retries: int = 0, job_name: Optional[str] = None,
+                 run_timeout: float = 3600.0,
+                 start_timeout: float = 180.0,
+                 worker_env: Optional[Dict[str, str]] = None
+                 ) -> TrainingResult:
+        """Train as a gang of ``num_workers`` rank processes under one
+        ``torch.distributed`` process group (``flax_estimator.py:1271-1364``,
+        parity: ``TorchTrainer`` + ``ScalingConfig(num_workers)`` +
+        ``FailureConfig(max_failures)``).
+
+        Each rank rebuilds the datasets from the object store (they must be
+        store-backed: ``portable()``), feeds its slice of every global batch
+        and runs the same train loop (see the module docstring for the
+        step). The backend follows the gang's rule
+        (:func:`~raydp_tpu_torch.spmd.job.gang_backend`): on CUDA, when the
+        node has a card for every rank, each rank takes one (``nccl``, the
+        chains captured as CUDA graphs); otherwise the ranks share the
+        visible cards, or run on the CPU, under ``gloo`` (every step
+        eager). A dead or failing rank fails the whole gang; the driver
+        then restarts it, and every rank resumes from the last checkpoint
+        — up to ``max_retries`` restarts. Afterwards ``predict``,
+        ``get_model``, ``export_serving`` and ``partial_fit`` work as after
+        ``fit``: the chief's trained state is loaded into a model here.
+
+        ``worker_env`` adds/overrides rank-process environment (a ``None``
+        value removes the variable).
+
+        **Shared storage requirement**: on a multi-machine gang,
+        ``checkpoint_dir`` must be a filesystem mounted on every rank's
+        host (rank 0 writes the step dirs every rank restores from). The
+        default — a driver-local temp dir — only works when all ranks share
+        the driver's machine; ranks that cannot see the directory fail fast
+        at startup with a clear error.
+        """
+        import uuid
+
+        from raydp_tpu_torch.spmd.job import create_spmd_job
+
+        ckpt_dir = self.checkpoint_dir or tempfile.mkdtemp(prefix="rdt-gang-")
         if self.checkpoint_dir:
+            # gang ranks run with resume=True by design (the restart loop
+            # below depends on it), so THIS is the one path where a fresh fit
+            # pointed at a reused dir silently ADOPTS the earlier run's
+            # latest step — warn before the ranks start
+            ckpt.warn_if_reused_dir(ckpt_dir)
+        train_payload = train_ds.portable()
+        eval_payload = evaluate_ds.portable() if evaluate_ds is not None \
+            else None
+
+        # the ranks get a copy without this process's tensors: the model as
+        # a CPU module (a CUDA tensor would pickle as one), no result
+        est = copy.copy(self)
+        est._result = None
+        est.__dict__.pop("_online", None)
+        est.checkpoint_dir = ckpt_dir
+        if self._model is not None:
+            est._model = copy.deepcopy(self._model).cpu()
+        cards = torch.cuda.device_count() if self.device.type == "cuda" else 0
+        gpus_per_process = 1 if 0 < num_workers <= cards else 0
+
+        def _rank_fit(ctx):
+            return est._gang_rank_fit(ctx, train_payload, eval_payload,
+                                      ckpt_dir)
+
+        job = create_spmd_job(job_name or f"torchfit-{uuid.uuid4().hex[:6]}",
+                              num_workers, torch_distributed=True,
+                              env=worker_env, timeout=start_timeout,
+                              gpus_per_process=gpus_per_process)
+        attempts = 0
+        while True:
+            try:
+                job.start()
+                results = job.run(_rank_fit, timeout=run_timeout)
+                job.stop()
+                break
+            except (KeyboardInterrupt, SystemExit):
+                job.stop()
+                raise
+            except Exception as e:  # noqa: BLE001 - gang restart (FailureConfig)
+                job.stop()
+                attempts += 1
+                if attempts > max_retries:
+                    raise
+                logger.warning("gang fit failed (%s); restarting gang from "
+                               "last checkpoint (retry %d/%d)",
+                               e, attempts, max_retries)
+
+        chief = results[0]
+        state = self._init_state()
+        state.load_state_dict(chief["state"])
+        self._result = TrainingResult(state=state, history=chief["history"],
+                                      checkpoint_dir=ckpt_dir,
+                                      dispatch=chief["dispatch"])
+        return self._result
+
+    def _gang_rank_fit(self, ctx, train_payload, eval_payload,
+                       ckpt_dir: str) -> Dict[str, Any]:
+        """Runs inside each SPMD rank (``flax_estimator.py:1366-1428``, the
+        reference's ``train_func`` body): the streaming feed over this
+        rank's :class:`GangShardIterator` (a gang never takes the resident
+        cache), the train loop with ``resume``; rank 0 returns the trained
+        state on the host."""
+        from raydp_tpu_torch.data.dataset import DistributedDataset
+
+        # the rank's own process: its TF32 switches, and its card
+        self.device = resolve_device(self.device)
+        if self.device.type == "cpu":
+            # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                      // ctx.world_size))
+        columns = self._columns()
+        # checkpoints assume ONE filesystem: rank 0 writes each step dir
+        # every rank restores from — fail fast on per-host paths
+        ckpt.ensure_shared_dir(ckpt_dir, "rdt_ckpt_dir_probe")
+        train_ds = DistributedDataset.from_portable(train_payload)
+        feed = DeviceFeed(
+            train_ds, self.batch_size, columns, device=self.device,
+            prefetch_to_device=self.prefetch_to_device,
+            host_iter=GangShardIterator(
+                train_ds, self.batch_size, ctx.world_size, ctx.rank, columns,
+                shuffle=self.shuffle, seed=self.seed))
+        eval_feed = None
+        if eval_payload is not None:
+            # every eval row counts once: the ragged final batch pads and
+            # masks (the reference's rule under a >1 data extent)
+            pad = bool(knobs.get("RDT_TRAIN_PAD_TAIL")) \
+                and _loss_takes_mask(self._loss)
+            eval_ds = DistributedDataset.from_portable(eval_payload)
+            eval_feed = DeviceFeed(
+                eval_ds, self.batch_size, columns, device=self.device,
+                prefetch_to_device=self.prefetch_to_device,
+                host_iter=GangShardIterator(
+                    eval_ds, self.batch_size, ctx.world_size, ctx.rank,
+                    columns, shuffle=False, seed=self.seed,
+                    pad_remainder=pad))
+
+        state, history, dispatch = self._train_loop(
+            feed, eval_feed, ckpt_dir, max_retries=0, resume=True,
+            in_gang=True)
+        out: Dict[str, Any] = {"history": history, "dispatch": dispatch}
+        if ctx.rank == 0:
+            # every rank holds the same replicated state: the chief's, as
+            # host tensors (numpy has no bf16)
+            out["state"] = ckpt.map_tensors(
+                lambda _, t: t.detach().cpu(), state.state_dict())
+        return out
+
+    def _train_loop(self, feed, eval_feed, ckpt_dir: str,
+                    max_retries: int = 0, cache=None, eval_cache=None,
+                    resume: bool = False, in_gang: bool = False):
+        """The epochs. ``resume`` (a gang rank's): restore the latest
+        checkpoint in ``ckpt_dir`` before the first epoch, and on a retry
+        restore the latest one there, whoever wrote it. ``in_gang``: this
+        process is a rank of ``fit_gang``'s process group — the step sums
+        its gradient across the ranks, BatchNorm takes the global batch's
+        statistics, the epoch's sums are summed across the ranks and rank
+        0 writes the checkpoints."""
+        if self.checkpoint_dir and not resume:
             ckpt.warn_if_reused_dir(ckpt_dir)
         loss_fn = _resolve_loss(self._loss)
         metrics = self._metrics
         device = self.device
         chain = self.steps_per_dispatch if cache is None else 1
-        # the optimizer steps in a graph on the resident and chained paths
-        graphed = device.type == "cuda" and (cache is not None or chain > 1)
-        state = self._init_state(graphed)
+        # the optimizer steps in a graph on the resident and chained paths,
+        # unless a gloo gang's collectives keep every step eager
+        capture = graphs_allowed(in_gang)
+        graphed = device.type == "cuda" and capture \
+            and (cache is not None or chain > 1)
+
+        def fresh_state() -> TrainState:
+            state = self._init_state(graphed)
+            if in_gang:
+                gang.sync_batchnorm(state.model)
+            return state
+
+        state = fresh_state()
         apply_fn, accum, mode = self._make_forward(state.model)
         rdt_metrics.set_gauge("train_accum_steps", accum)
-        train_step = _make_train_step(apply_fn, loss_fn, metrics, accum)
+        train_step = _make_train_step(apply_fn, loss_fn, metrics, accum,
+                                      in_gang)
         eval_step = _make_eval_step(apply_fn, loss_fn, metrics)
         # a capture is timed and its activation bytes published (the
         # reference's compile span) only when accumulation or remat is
@@ -645,7 +892,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 train = StepRunner(lambda _: step(plan.next_batch()), device,
                                    "resident train step",
                                    optimizer=state.optimizer, span=span)
-            elif chain > 1:
+            elif chain > 1 and capture:
                 train = StepRunner(_chain(step), device,
                                    f"{chain}-step train chain",
                                    optimizer=state.optimizer, span=span,
@@ -665,12 +912,40 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         #: up to it; a reused dir's stale steps (possibly HIGHER-numbered,
         #: which latest-step selection would otherwise prefer) are foreign
         last_written_step: Optional[int] = None
+
+        def adopt(max_step: Optional[int]) -> bool:
+            """Restore the latest checkpoint in ``ckpt_dir`` (at or below
+            ``max_step``) into ``state``, with its epoch and history, and
+            bind the steps again; whether there was one."""
+            nonlocal epoch, history, step, estep, run_train, run_eval
+            restored = ckpt.restore(ckpt_dir, state.state_dict(),
+                                    max_step=max_step)
+            if restored is None:
+                return False
+            saved, done_epoch = restored
+            state.load_state_dict(saved)
+            epoch = done_epoch + 1
+            extra = ckpt.restore_extra(ckpt_dir, max_step=max_step)
+            if extra and "history" in extra:
+                history = list(extra["history"])
+            # the optimizer's restored state is new tensors: warm up and
+            # capture again
+            step, estep, run_train, run_eval = bind(state)
+            return True
+
+        if resume and ckpt.latest_step(ckpt_dir) is not None:
+            # a fresh optimizer has no state yet: make it, so that the
+            # restore overwrites every tensor of it
+            _materialize_optimizer_state(state)
+            if adopt(None):
+                logger.info("resuming from checkpoint step %d", epoch - 1)
         while epoch < self.num_epochs:
             try:
                 rule = faults.check("estimator.epoch", key=str(epoch))
                 if rule is not None:  # chaos provokes the retry path here
                     faults.apply(rule, "estimator.epoch")
                 t0 = time.perf_counter()
+                gang.COMM.take()
                 acc.reset()
                 before = _counts(run_train, run_eval)
                 steps, samples, eager_steps = 0, 0, 0
@@ -697,8 +972,11 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                             break
                         td = time.perf_counter()
                         stack, k = item
-                        if chain > 1:
+                        if run_train is not None:
                             run_train(stack, n_steps=k)
+                        elif chain > 1:
+                            _chain(step)(stack)
+                            eager_steps += k
                         else:
                             step(stack)
                             eager_steps += 1
@@ -708,8 +986,11 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 if run_train is not None:
                     run_train.flush()
                 # the one host read of the epoch's loss: it waits for the
-                # device, so the epoch wall includes the device work
+                # device, so the epoch wall includes the device work; a gang
+                # first sums its ranks' shares
                 ts = time.perf_counter()
+                if in_gang:
+                    _all_reduce_sums(acc)
                 train_loss = float(acc.loss) / steps if steps else math.nan
                 t_sync = time.perf_counter() - ts
                 dt = time.perf_counter() - t0
@@ -748,11 +1029,17 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                     else:
                         for batch in eval_feed:
                             estep(batch)
+                    if in_gang:
+                        _all_reduce_sums(eacc)
                     rows = float(eacc.count)  # real rows only
                     report["eval_loss"] = (float(eacc.loss) / rows) if rows \
                         else math.nan
                     for m, s in zip(metrics, eacc.stats):
                         report[f"eval_{m.name}"] = m.compute(_host_stats(s))
+                if in_gang:
+                    # the host wall of the epoch's collectives called
+                    # eagerly (all of them under gloo)
+                    report["allreduce_time_s"] = gang.COMM.take()
 
                 dispatch.append(_dispatch_record(
                     epoch, before, _counts(run_train, run_eval), eager_steps))
@@ -765,7 +1052,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 if save_epoch_now(epoch, self.checkpoint_interval,
                                   self.num_epochs):
                     ckpt.save(ckpt_dir, state.state_dict(), step=epoch,
-                              extra={"history": history})
+                              extra={"history": history}, gang=in_gang)
                     last_written_step = epoch
                 epoch += 1
             except (KeyboardInterrupt, SystemExit):
@@ -776,32 +1063,20 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                     raise
                 logger.warning("epoch %d failed (%s); restoring from checkpoint "
                                "(retry %d/%d)", epoch, e, retries, max_retries)
-                # adopt a checkpoint only if THIS run wrote it — and then
-                # only up to the step this run wrote (a reused dir's stale
-                # higher-numbered steps would otherwise win latest-step
-                # selection and silently return an earlier run's model)
-                restored = None
-                if last_written_step is not None:
-                    restored = ckpt.restore(ckpt_dir, state.state_dict(),
-                                            max_step=last_written_step)
-                if restored is not None:
-                    saved, done_epoch = restored
-                    state.load_state_dict(saved)
-                    epoch = done_epoch + 1
-                    extra = ckpt.restore_extra(ckpt_dir,
-                                               max_step=last_written_step)
-                    if extra and "history" in extra:
-                        history = list(extra["history"])
-                else:
+                # adopt a checkpoint only if an explicit resume claimed the
+                # dir, or THIS run wrote it — and then only up to the step
+                # this run wrote (a reused dir's stale higher-numbered steps
+                # would otherwise win latest-step selection and silently
+                # return an earlier run's model)
+                if not ((resume or last_written_step is not None)
+                        and adopt(None if resume else last_written_step)):
                     # no checkpoint from this run (a failure before the
                     # first interval save): start over from fresh weights
                     # like a fresh fit
-                    state = self._init_state(graphed)
+                    state = fresh_state()
                     epoch = 0
                     history = []
-                # the optimizer's restored state is new tensors: warm up
-                # and capture again
-                step, estep, run_train, run_eval = bind(state)
+                    step, estep, run_train, run_eval = bind(state)
 
         return state, history, dispatch
 
@@ -887,17 +1162,19 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         (``stop_etl_after_conversion``). With ``shuffle`` a streaming fit
         reads the engine's ``random_shuffle(seed)`` of the train set; a
         resident fit skips it, since its per-epoch on-device permutation is
-        already a uniform row shuffle."""
-        if num_workers is not None and num_workers > 1:
-            raise NotImplementedError(
-                "fit_on_frame(num_workers > 1) is gang training, which the "
-                "port does not have yet")
+        already a uniform row shuffle. ``num_workers > 1`` trains as a gang
+        (:meth:`fit_gang`), which always streams, so a shuffled gang always
+        reads the engine's shuffle."""
         train_ds, eval_ds = self._convert_frames(
             train_df, evaluate_df, fs_directory=fs_directory,
             stop_etl_after_conversion=stop_etl_after_conversion)
-        if self.shuffle and not DeviceEpochCache.eligible(
-                train_ds, self._columns(), self.batch_size, self.drop_last):
+        in_gang = num_workers is not None and num_workers > 1
+        if self.shuffle and (in_gang or not DeviceEpochCache.eligible(
+                train_ds, self._columns(), self.batch_size, self.drop_last)):
             train_ds = train_ds.random_shuffle(seed=self.seed)
+        if in_gang:
+            return self.fit_gang(train_ds, eval_ds, num_workers=num_workers,
+                                 max_retries=max_retries)
         return self.fit(train_ds, eval_ds, max_retries=max_retries)
 
     # ---------------------------------------------------------------- predict

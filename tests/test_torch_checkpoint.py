@@ -1,7 +1,8 @@
 """raydp_tpu_torch.train.checkpoint: the reference's one-process step-dir
 layout and its restore semantics (torn dirs, retention bounded at the
-written step, ``max_step``, the JSON sidecar), and a bitwise round trip of a
-module's and an optimizer's state."""
+written step, ``max_step``, the JSON sidecar), a bitwise round trip of a
+module's and an optimizer's state, and the gang's side: ``ensure_shared_dir``
+and a save that rank 0 alone writes and both ranks restore."""
 
 import json
 import os
@@ -114,3 +115,36 @@ def test_max_step_leaves_stale_higher_steps_alone(tmp_path, monkeypatch):
         "history": [{"epoch": 0, "train_loss": 1.5}]}
     assert ckpt.restore_extra(str(tmp_path)) is None   # step 9: no sidecar
     assert ckpt.restore(str(tmp_path / "none"), _state(0.0)) is None
+
+
+def test_ensure_shared_dir_single_process_creates_the_dir(tmp_path):
+    target = tmp_path / "a" / "b"
+    ckpt.ensure_shared_dir(str(target), "probe")
+    assert target.is_dir()
+    ckpt.ensure_shared_dir(str(target), "probe")    # idempotent
+
+
+def test_gang_save_is_rank_0_s_and_every_rank_restores(tmp_path):
+    """In a 2-rank gloo gang both ranks call ``save`` with states that
+    differ (rank 1's is a decoy); only rank 0's is written, it is complete
+    when ``save`` returns on either rank, and both ranks restore it."""
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    ckpt_dir = str(tmp_path / "ck")
+
+    def save_and_restore(ctx, ckpt_dir=ckpt_dir):
+        ckpt.ensure_shared_dir(ckpt_dir, "probe")
+        path = ckpt.save(ckpt_dir, _state(float(ctx.rank * 10 + 1)), step=2,
+                         extra={"rank": ctx.rank}, gang=True)
+        complete = os.path.exists(os.path.join(path, "COMPLETE"))
+        state, step = ckpt.restore(ckpt_dir, _state(0.0))
+        return (complete, step, state["model"]["w"][0, 0].item(),
+                ckpt.restore_extra(ckpt_dir)["rank"])
+
+    job = create_spmd_job("t-ckpt", 2, torch_distributed=True, timeout=120)
+    job.start()
+    try:
+        got = job.run(save_and_restore, timeout=120)
+    finally:
+        job.stop()
+    assert got == [(True, 2, 1.0, 0)] * 2

@@ -16,7 +16,7 @@ losses; NYCTaxi's train loss only (real fares, mostly in smooth L1's linear
 regime, where Adam amplifies rounding noise: ROADMAP queue 3).
 
 Then the port's ``main`` of each example runs end to end with
-``--device cpu``.
+``--device cpu``, NYCTaxi's also as a gang of two ranks.
 """
 
 import importlib.util
@@ -199,6 +199,14 @@ def test_nyctaxi_main_with_trace_writes_a_trace_and_a_dump(capsys):
     assert "chrome trace:" in capsys.readouterr().out
 
 
-def test_nyctaxi_main_refuses_a_gang_and_names_the_item():
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        nyctaxi_mlp.main(["--num-workers", "2", "--device", "cpu"])
+def test_nyctaxi_main_trains_a_gang_of_two(capsys):
+    """``--num-workers 2`` trains as a gang of two CPU ranks (gloo): every
+    epoch reports, the loss falls, every eval row counts."""
+    out = nyctaxi_mlp.main(["--num-workers", "2", "--device", "cpu",
+                            "--rows", str(NYC_ROWS), "--epochs", "2",
+                            "--batch-size", str(NYC_BATCH)])
+    losses = [h["train_loss"] for h in out["history"]]
+    assert len(losses) == 2 and losses[-1] < losses[0]
+    assert all(np.isfinite(h["eval_loss"]) and h["allreduce_time_s"] > 0
+               for h in out["history"])
+    assert "'epoch': 1" in capsys.readouterr().out

@@ -207,13 +207,3 @@ def test_stop_etl_after_conversion_trains_from_kept_blocks(sides):
     assert port["stopped_session_executors"] == 0
     losses = [h["train_loss"] for h in port["history"]["stop_etl"]]
     assert len(losses) == 2 and losses[-1] < losses[0]
-
-
-def test_fit_on_frame_refuses_gang_training():
-    """Gang training is not ported: ``num_workers > 1`` raises before any
-    conversion instead of training on one device."""
-    est = TorchEstimator(model=NYCTaxiModel(3, device="cpu"),
-                         feature_columns=["a", "b", "c"], label_column="y",
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="gang training"):
-        est.fit_on_frame(None, num_workers=2)

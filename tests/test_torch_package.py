@@ -54,7 +54,9 @@ def test_imports_neither_jax_nor_the_reference():
         "'data.bridges', 'cli.submit', 'examples.gbdt_nyctaxi', "
         "'examples.torch_loop_nyctaxi', 'examples.nyctaxi_mlp', "
         "'examples.stroke_pipeline', 'tools.rdtlint', "
-        "'tools.rdtlint.rule_steps', 'tools.rdtlint.__main__'):\n"
+        "'tools.rdtlint.rule_steps', 'tools.rdtlint.__main__', "
+        "'spmd.job', 'spmd.worker', 'parallel.gang', "
+        "'examples.spmd_job'):\n"
         "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -14,9 +14,10 @@ tree: deleting a ``patch_task_refs`` branch, a head ``store_*`` proxy, or a
 literal, must each break the fence.
 
 Then the registries the lint reads: every port knob is the reference's entry
-of the same name, field for field (``RDT_WARM_IMPORTS``'s default aside),
-the knobs the port lacks are exactly the gang runner's and gang training's,
-and the generated tables regenerate to themselves.
+of the same name, field for field (``RDT_WARM_IMPORTS``'s default and the
+two gang knobs whose docs name ``torch.distributed`` aside), the one knob
+the port lacks is the sharded state's, and the generated tables regenerate
+to themselves.
 """
 
 import dataclasses
@@ -539,12 +540,14 @@ def test_real_registry_docs_and_defaults(monkeypatch):
     with pytest.raises(KeyError):
         # rdtlint: allow[knob-registry] deliberately unregistered: pins the KeyError
         knobs.get("RDT_NOT_A_KNOB")
-    # get_raw: the unparsed string, None when unset (the reference's
-    # require() case comes with the gang runner, its only caller)
+    # get_raw: the unparsed string, None when unset
     monkeypatch.delenv("RDT_STORE_ARENA", raising=False)
     assert knobs.get_raw("RDT_STORE_ARENA") is None
     monkeypatch.setenv("RDT_STORE_ARENA", "rdtarena")
     assert knobs.get_raw("RDT_STORE_ARENA") == "rdtarena"
+    monkeypatch.delenv("RDT_SPMD_JOB_ID", raising=False)
+    with pytest.raises(KeyError):
+        knobs.require("RDT_SPMD_JOB_ID")
 
 
 # ---------------------------------------------------------------------------
@@ -1113,9 +1116,8 @@ def test_real_rpc_call_sites_all_resolve():
     assert "spawn" in smap.methods("agent")
     # the serving replicas are executor actors: serve_* resolve there
     assert smap.methods("actor")["serve_load"].cls == "EtlExecutor"
-    # the gang runner's surfaces come with spmd/ (its worker's
-    # run_function, the reference's case, then resolves too)
-    assert not smap.has_surface("driver") and not smap.has_surface("worker")
+    assert "run_function" in smap.methods("worker")
+    assert smap.methods("worker")["run_function"].min_pos == 2
 
 
 # ---------------------------------------------------------------------------
@@ -1322,13 +1324,18 @@ def test_fence_breaks_when_telemetry_doc_table_stale(tmp_path, capsys):
 # the registries the lint reads: the port's against the reference's
 # ---------------------------------------------------------------------------
 
-#: the reference's knobs whose slices are not ported yet: the gang runner's
-#: six (ROADMAP 12a), gang training's pad-and-mask tail (12b) and the
-#: sharded train state's role map (12c)
-KNOBS_NOT_PORTED = {
-    "RDT_SPMD_JOB_ID", "RDT_SPMD_DRIVER", "RDT_SPMD_RANK",
-    "RDT_SPMD_WORLD_SIZE", "RDT_SPMD_COORDINATOR",
-    "RDT_SPMD_JAX_DISTRIBUTED", "RDT_TRAIN_PAD_TAIL", "RDT_TRAIN_SHARD_ROLES",
+#: the reference's knobs whose slices are not ported yet: the sharded train
+#: state's role map (ROADMAP 12c)
+KNOBS_NOT_PORTED = {"RDT_TRAIN_SHARD_ROLES"}
+#: the gang knobs whose docs name the port's process group where the
+#: reference's name ``jax.distributed`` (the names stay the reference's)
+PORT_KNOB_DOCS = {
+    "RDT_SPMD_COORDINATOR":
+        "torch.distributed rendezvous address override (the host:port of "
+        "init_process_group's tcp:// store).",
+    "RDT_SPMD_JAX_DISTRIBUTED":
+        "Whether a rank worker calls "
+        "torch.distributed.init_process_group().",
 }
 #: the reference's telemetry the port does not emit yet: the pipeline
 #: schedule's gauge and span (ROADMAP 12d)
@@ -1363,11 +1370,15 @@ def test_every_port_knob_is_the_reference_entry_field_for_field():
         == [f.name for f in dataclasses.fields(ref.Knob)]
     assert (port.PER_ACTION, port.PROCESS_START) \
         == (ref.PER_ACTION, ref.PROCESS_START)
-    assert len(port.KNOBS) == 90
+    assert len(port.KNOBS) == 97
     for name, knob in port.KNOBS.items():
         got = dataclasses.asdict(knob)
         want = dataclasses.asdict(ref.KNOBS[name])
         want["doc"] = _port_named(want["doc"])
+        if name in PORT_KNOB_DOCS:
+            assert "jax.distributed" in want["doc"]
+            assert got.pop("doc") == PORT_KNOB_DOCS[name]
+            want.pop("doc")
         if name == "RDT_WARM_IMPORTS":
             # the prototype pre-imports torch where the reference's imports
             # jax
