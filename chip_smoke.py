@@ -187,17 +187,45 @@
     equals the driver's ``predict`` with the returned state within
     ``GANG_EVAL_RTOL``, and a shuffled in-process fit shows what the row
     order alone does to the losses; no flash launch;
-14. prints one JSON line of kernel results, then the last line
+14. the sharding plane (``parallel/mesh.py``, ``parallel/shard.py``):
+    on phase 13's frames, (a) phase 13 (b)'s 1-rank nccl gang with
+    ``mesh_spec=MeshSpec()``, a world-1 mesh: graphs replayed, losses
+    bitwise (b)'s; (b) ``NYCTaxiModel`` at full width under
+    ``mesh_spec=dict(fsdp=2)``, two ranks on the card (gloo), unshuffled,
+    2 epochs: train losses within ``GANG_RESUME_RTOL`` of 13 (d)'s
+    in-process fit on the same rows in the same order, each rank's
+    parameters, buffers and Adam moments at most ``SHARD_BYTES_LIMIT`` of
+    the whole state's, the gathered state's ``predict`` against the last
+    eval within ``GANG_EVAL_RTOL``; (c) DLRM at bench widths with 26
+    tables of 1,002 rows under ``dlrm_param_rules("expert")`` on
+    ``expert=2``, 120,000 rows, 2 epochs: 501 rows a table a rank, losses
+    within ``SHARD_DLRM_RTOL`` of the in-process fit; (d) TransformerLM
+    at full width cut to 2 layers and T = 2048 under
+    ``transformer_param_rules("tensor")`` on ``tensor=2``: one SGD 1e-1
+    step against the replicated step (loss within ``TP_LOSS_RTOL``, the
+    parameters within ``TP_PARAM_BF16_STEPS`` × bf16's own distance from
+    it), a q kernel of 4 heads a rank and each rank's flash kernels
+    launched at H=4; (e) (b)'s gang for 4 epochs, crashed once at epoch 1
+    and resumed from the sharded multi-writer checkpoint (2 manifests,
+    ``COMPLETE``, history ``[0, 1, 2, 3]``, the driver's restore bitwise
+    the gang's state and its ``predict`` against the last eval); (f)
+    ``fit_gbdt(mesh=)`` on two ranks at phase 11's configuration against
+    the in-process fit (phase 11's split and margin limits). Each line
+    prints the ranks' bytes and ``memory_allocated``, the steady rate, the
+    share of a step in collectives and the gang starts; then the phase's
+    wall;
+15. prints one JSON line of kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 13, 3, 4:
-phases 5-13 are bound by the host's kernel launches, so their timed fits
-and requests come before any ``torch.profiler`` session of the process,
-and the profiled epochs of 5-6 (one per model, in fits of their own,
-replaying graphs) and phase 11's profiled round after them. Every kernel
-launch counter is set to 0 just before each driven path (3, both modes of
-4, 5, 6, 7, 8, 9, 10, 11, 12 and 13) and read just after; 5-13 run no
-attention and must launch none. Any failed check exits non-zero; so does a machine without
+The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 3,
+4: phases 5-14 are bound by the host's kernel launches, so their timed
+fits and requests come before any ``torch.profiler`` session of the
+process, and the profiled epochs of 5-6 (one per model, in fits of their
+own, replaying graphs) and phase 11's profiled round after them. Every
+kernel launch counter is set to 0 just before each driven path (3, both
+modes of 4, 5, 6, 7, 8, 9, 10, 11, 12, 13 and 14) and read just after;
+5-14 run no attention in this process and must launch none; 14 (d)'s
+ranks count their own launches. Any failed check exits non-zero; so does a machine without
 CUDA.
 """
 
@@ -1402,11 +1430,11 @@ def run_nyctaxi(fa, tmp: str):
     return out, profile
 
 
-def dlrm_model():
+def dlrm_model(vocab: int = DLRM_VOCAB):
     """bench.py's DLRM widths, bf16, seeded weights built on the CPU."""
     from raydp_tpu_torch.models import DLRM
 
-    return DLRM([DLRM_VOCAB] * len(DLRM_CATS), num_dense=len(DLRM_DENSE),
+    return DLRM([vocab] * len(DLRM_CATS), num_dense=len(DLRM_DENSE),
                 embedding_dim=32, bottom_mlp=(512, 128, 32),
                 top_mlp=(1024, 1024, 512, 256, 1), dtype=torch.bfloat16,
                 device="cpu", generator=torch.Generator().manual_seed(SEED))
@@ -3693,6 +3721,7 @@ def gang_nccl(train, test, features) -> dict:
            "samples_per_s_steady": steady_rate(gang.history[1:]),
            "single_samples_per_s_steady": steady_rate(single.history[1:]),
            "losses": losses_of(gang), "single_losses": losses_of(single),
+           "eval_losses": [r["eval_loss"] for r in gang.history],
            "max_rel_diff": worst}
     print(f"gang nccl: 1 rank, graph replays {out['replays']} (the "
           f"in-process fit {[d['graph_replays'] for d in single.dispatch]}); "
@@ -3919,21 +3948,495 @@ def gang_resume_on_cpu() -> dict:
         return gang_resume(train, test, features, tmp, device="cpu")
 
 
-def run_gang(fa, phase12: dict, tmp: str) -> dict:
+def run_gang(fa, phase12: dict, tmp: str, then):
     """Phase 13: the gang runner and gang training on the card; no flash
-    launch."""
+    launch. ``then(phase13, frames)`` (phase 14) runs on (b) and (d)'s
+    frames before their session stops; returns phase 13's numbers and
+    what ``then`` returned."""
     t_phase = time.perf_counter()
     zero_launches(fa)
     out = {"runner": gang_runner(), "example": gang_example(phase12)}
-    with gang_frames(tmp) as (train, test, features):
+    with gang_frames(tmp) as frames:
+        train, test, features = frames
         out["nccl"] = gang_nccl(train, test, features)
         out["resume"] = gang_resume(train, test, features, tmp)
+        counts = launches(fa)
+        print(f"gang launches of the flash kernels: {counts}")
+        require(not any(counts.values()), f"the gang launched {counts}")
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"gang phase: {out['phase_s']:.3f} s")
+        print("gang " + json.dumps(out))
+        free_memory()
+        return out, then(out, frames)
+
+
+# ---- phase 14: the sharding plane --------------------------------------------
+
+#: (b): each rank's parameters, buffers and Adam moments against the whole
+#: state's: fsdp=2 halves every kernel, the biases and BatchNorm's
+#: parameters and buffers stay whole (0.517 of the state by the shapes)
+SHARD_BYTES_LIMIT = 0.55
+#: (c): the expert-sharded DLRM's train losses against the in-process fit,
+#: the reference test's rtol (test_gang_expert_sharded_dlrm)
+SHARD_DLRM_RTOL = 5e-4
+#: (c): one row more than phase 6's tables: the reference refuses an
+#: uneven shard, and 1,001 rows do not split over expert=2
+SHARD_DLRM_VOCAB, SHARD_DLRM_EPOCHS = 1002, 2
+#: (d): the tensor-parallel LM at full width, cut to 2 layers and
+#: T = 2048 (gloo carries its activations through the host); one SGD step
+TP_LAYERS, TP_SEQ, TP_LR = 2, 2048, 1e-1
+#: (d): the loss of the split step against the replicated one; the
+#: updated parameters may differ from the replicated step's by up to twice
+#: what bf16 itself moves that step from f32 (measured in the run): the
+#: two bf16 steps round at other points, and their errors against f32 add
+#: (√2 for independent errors, with margin), as DENSE_REL_TOL_F32's note
+#: reasons for flash against dense
+TP_LOSS_RTOL, TP_PARAM_BF16_STEPS = 1e-3, 2.0
+
+
+def rank_report(label: str, result, replicated_bytes: int) -> list:
+    """Each rank's bytes against the whole state's, printed."""
+    shares = []
+    for r, rank in enumerate(result.ranks):
+        share = rank["param_bytes"] / replicated_bytes
+        shares.append(share)
+        print(f"{label} rank {r}: parameters, buffers and optimizer state "
+              f"{rank['param_bytes']} bytes of the whole state's "
+              f"{replicated_bytes} ({share:.3f}); torch.cuda.memory_allocated "
+              f"{rank['memory_allocated']} bytes")
+    return shares
+
+
+def collective_share(history: list) -> float:
+    """The share of the steady epochs' dispatch wall spent in collectives
+    (the ranks' host wall of them: gloo runs every one on the host)."""
+    steady = history[1:] or history
+    return sum(r["allreduce_time_s"] for r in steady) \
+        / sum(r["dispatch_time_s"] for r in steady)
+
+
+def smooth_l1_of(est, test) -> float:
+    """The smooth L1 of the driver's predict over ``test``."""
+    from raydp_tpu_torch.examples.nyctaxi_features import LABEL
+
+    d = np.abs(est.predict(test).astype(np.float64)
+               - test.to_pandas()[LABEL].to_numpy(np.float64))
+    return float(np.mean(np.where(d < 1.0, 0.5 * d * d, d - 0.5)))
+
+
+def shard_world1(train, test, features, phase13: dict) -> dict:
+    """(a) The world-1 mesh: phase 13 (b)'s 1-rank nccl gang with
+    ``mesh_spec=MeshSpec()``: graphs replayed, losses bitwise (b)'s."""
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+    from raydp_tpu_torch.parallel import MeshSpec
+
+    est = build_estimator(features, GANG_BATCH, GANG_EPOCHS, None,
+                          mesh_spec=MeshSpec())
+    est.shuffle, est.steps_per_dispatch = False, CHAIN
+    with device_cache(False):
+        t0 = time.perf_counter()
+        gang = est.fit_gang(train, test, num_workers=1)
+        wall = time.perf_counter() - t0
+    gang_report("shard world-1", gang.history, gang.dispatch)
+    nccl = phase13["nccl"]
+    out = {"replays": [d["graph_replays"] for d in gang.dispatch],
+           "losses": losses_of(gang),
+           "eval_losses": [r["eval_loss"] for r in gang.history],
+           "fit_gang_s": wall,
+           "bitwise": losses_of(gang) == nccl["losses"]
+           and [r["eval_loss"] for r in gang.history] == nccl["eval_losses"]}
+    print(f"shard world-1: mesh_spec=MeshSpec() on 1 nccl rank, graph "
+          f"replays {out['replays']} (must be > 0); train and eval losses "
+          f"bitwise phase 13 (b)'s: {out['bitwise']}; fit_gang {wall:.3f} s")
+    require(all(r > 0 for r in out["replays"]),
+            f"shard world-1: no graph replayed: {gang.dispatch}")
+    require(out["bitwise"], f"shard world-1: {out} vs {nccl}")
+    return out
+
+
+def shard_fsdp(train, test, features, phase13: dict) -> dict:
+    """(b) fsdp=2: NYCTaxiModel at full width on two ranks sharing the card
+    (gloo), unshuffled, against phase 13 (d)'s in-process fit on the same
+    rows in the same order; each rank's bytes; the gathered state's
+    predict against the last eval."""
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+    from raydp_tpu_torch.parallel import addressable_nbytes
+    from raydp_tpu_torch.spmd.job import SPMDJob
+
+    est = build_estimator(features, GANG_BATCH, GANG_EPOCHS, None,
+                          mesh_spec=dict(fsdp=2))
+    est.shuffle = False
+    clock = CallClock()
+    clock.wrap(SPMDJob, "start", "start")
+    with device_cache(False):
+        t0 = time.perf_counter()
+        try:
+            gang = est.fit_gang(train, test, num_workers=2)
+        finally:
+            clock.restore()
+        wall = time.perf_counter() - t0
+    gang_report("shard fsdp=2", gang.history, gang.dispatch)
+    state = est.get_state()
+    whole = addressable_nbytes((state.model, state.optimizer))
+    shares = rank_report("shard fsdp=2", gang, whole)
+    single = phase13["resume"]["single_losses"][:GANG_EPOCHS]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses_of(gang), single)]
+    predicted = smooth_l1_of(est, test)
+    eval_vs_predict = abs(gang.history[-1]["eval_loss"] - predicted) \
+        / predicted
+    out = {"fit_gang_s": wall, "start_s": clock.take()["start"],
+           "samples_per_s_steady": steady_rate(gang.history[1:]),
+           "collective_share": collective_share(gang.history),
+           "losses": losses_of(gang), "single_losses": single,
+           "rel_diffs": diffs, "byte_shares": shares,
+           "whole_state_bytes": whole,
+           "ranks": [{k: r[k] for k in ("param_bytes", "memory_allocated")}
+                     for r in gang.ranks],
+           "specs": {k: v for k, v in state.specs.items()
+                     if k.endswith("kernel")},
+           "eval_vs_predict_rel_diff": eval_vs_predict}
+    print(f"shard fsdp=2: 2 ranks on one card (gloo, eager) "
+          f"{out['samples_per_s_steady']:.1f} samples/s steady, collectives "
+          f"{out['collective_share']:.1%} of a steady epoch's dispatch; gang "
+          f"start {out['start_s']:.3f} s of fit_gang {wall:.3f} s; kernel "
+          f"specs {out['specs']}; train losses differ from the in-process "
+          f"fit's by {[f'{v:.3e}' for v in diffs]} (limit "
+          f"{GANG_RESUME_RTOL}); rank bytes {[f'{v:.3f}' for v in shares]} "
+          f"of the whole state (limit {SHARD_BYTES_LIMIT}); the last eval "
+          f"loss vs the gathered state's predict: {eval_vs_predict:.3e} "
+          f"(limit {GANG_EVAL_RTOL})")
+    require(max(diffs) <= GANG_RESUME_RTOL, f"shard fsdp=2: {out}")
+    require(len(shares) == 2 and max(shares) <= SHARD_BYTES_LIMIT,
+            f"shard fsdp=2 bytes: {out}")
+    require(eval_vs_predict <= GANG_EVAL_RTOL, f"shard fsdp=2 eval: {out}")
+    return out
+
+
+def shard_dlrm() -> dict:
+    """(c) expert=2: DLRM at bench widths, 26 tables of 1,002 rows split by
+    rows over two ranks sharing the card, unshuffled, against the
+    in-process fit of the same rows in the same order."""
+    from raydp_tpu_torch.data.dataset import BlockMeta, DistributedDataset
+    from raydp_tpu_torch.models import dlrm_param_rules
+    from raydp_tpu_torch.runtime.object_store import get_client
+    from raydp_tpu_torch.spmd.job import SPMDJob
+
+    tables = criteo_tables(DLRM_ROWS, DLRM_BLOCKS, SEED)
+    refs = get_client().put_arrow_many(tables)
+    ds = DistributedDataset([BlockMeta(num_rows=t.num_rows, ref=r)
+                             for t, r in zip(tables, refs)], tables[0].schema)
+    model = dlrm_model(SHARD_DLRM_VOCAB)
+    with device_cache(False):
+        t0 = time.perf_counter()
+        single = dlrm_estimator(model, SHARD_DLRM_EPOCHS, [],
+                                shuffle=False).fit(ds)
+        single_s = time.perf_counter() - t0
+        est = dlrm_estimator(model, SHARD_DLRM_EPOCHS, [], shuffle=False,
+                             mesh_spec=dict(expert=2),
+                             param_rules=dlrm_param_rules("expert"))
+        clock = CallClock()
+        clock.wrap(SPMDJob, "start", "start")
+        t0 = time.perf_counter()
+        try:
+            gang = est.fit_gang(ds, num_workers=2)
+        finally:
+            clock.restore()
+        wall = time.perf_counter() - t0
+    gang_report("shard dlrm expert=2", gang.history, gang.dispatch)
+    state = est.get_state()
+    from raydp_tpu_torch.parallel import addressable_nbytes
+
+    shares = rank_report("shard dlrm expert=2", gang,
+                         addressable_nbytes((state.model, state.optimizer)))
+    rows = sorted({r["local_shapes"][f"embedding_{i}.embedding"][0]
+                   for r in gang.ranks for i in range(len(DLRM_CATS))})
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses_of(gang),
+                                                  losses_of(single))]
+    out = {"fit_gang_s": wall, "fit_s": single_s,
+           "start_s": clock.take()["start"],
+           "samples_per_s_steady": steady_rate(gang.history[1:]),
+           "single_samples_per_s_steady": steady_rate(single.history[1:]),
+           "collective_share": collective_share(gang.history),
+           "losses": losses_of(gang), "single_losses": losses_of(single),
+           "rel_diffs": diffs, "table_rows_a_rank": rows,
+           "byte_shares": shares}
+    print(f"shard dlrm expert=2: every rank holds {rows} rows of every "
+          f"table; {out['samples_per_s_steady']:.1f} samples/s steady vs "
+          f"in-process {out['single_samples_per_s_steady']:.1f}; "
+          f"collectives {out['collective_share']:.1%} of a steady epoch's "
+          f"dispatch; gang start {out['start_s']:.3f} s of fit_gang "
+          f"{wall:.3f} s; train losses differ by "
+          f"{[f'{v:.3e}' for v in diffs]} (limit {SHARD_DLRM_RTOL})")
+    require(rows == [SHARD_DLRM_VOCAB // 2], f"shard dlrm rows: {out}")
+    require(max(diffs) <= SHARD_DLRM_RTOL, f"shard dlrm: {out}")
+    return out
+
+
+def tp_rank(ctx) -> dict:
+    """(d) in one rank of the 2-rank job: rank 0 first takes the replicated
+    bf16 step and, to measure bf16's own distance, the same step in f32
+    (dense attention); then both ranks take the tensor=2 step, counting the
+    flash launches and the heads each attention call saw."""
+    import torch
+
+    from raydp_tpu_torch import resolve_device
+    from raydp_tpu_torch.models import (
+        TransformerLM, lm_loss, transformer_param_rules,
+    )
+    from raydp_tpu_torch.models import transformer as tmod
+    from raydp_tpu_torch.ops import flash_attention as fa
+    from raydp_tpu_torch.parallel import ShardedModule, make_mesh
+
+    device = resolve_device()
+
+    def model(dtype, attention):
+        return TransformerLM(VOCAB, dim=DIM, num_heads=HEADS,
+                             num_layers=TP_LAYERS, attention=attention,
+                             dtype=dtype, device=device,
+                             generator=torch.Generator(device).manual_seed(
+                                 SEED))
+
+    tokens = torch.randint(0, VOCAB, (BATCH, TP_SEQ), device=device,
+                           generator=torch.Generator(device).manual_seed(
+                               SEED + 1))
+
+    def step(m) -> float:
+        opt = torch.optim.SGD(m.parameters(), lr=TP_LR)
+        loss = lm_loss(m(tokens), tokens)
+        loss.backward()
+        if isinstance(m, ShardedModule):
+            m.reduce_grads()
+        opt.step()
+        return loss.item()
+
+    out = {}
+    if ctx.rank == 0:
+        ref = model(torch.bfloat16, "flash")
+        out["loss_replicated"] = step(ref)
+        want = {n: p.detach() for n, p in ref.named_parameters()}
+        del ref
+        f32 = model(torch.float32, "dense")
+        out["loss_f32"] = step(f32)
+        out["bf16_distance"] = max(
+            (p.detach() - want[n]).abs().max().item()
+            for n, p in f32.named_parameters())
+        del f32
+        torch.cuda.empty_cache()
+    sm = ShardedModule(model(torch.bfloat16, "flash"),
+                       make_mesh(dict(tensor=2)),
+                       transformer_param_rules("tensor"))
+    heads = []
+    flash = tmod.flash_attention
+
+    def counted(q, k, v, **kw):
+        heads.append(q.shape[2])
+        return flash(q, k, v, **kw)
+
+    tmod.flash_attention = counted
+    fa.FWD_LAUNCHES = fa.DKDV_LAUNCHES = fa.DQ_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["loss"] = step(sm)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["launches"] = {"flash_attention_fwd": fa.FWD_LAUNCHES,
+                       "flash_attention_bwd_dkdv": fa.DKDV_LAUNCHES,
+                       "flash_attention_bwd_dq": fa.DQ_LAUNCHES}
+    out["heads"] = sorted(set(heads))
+    out["q_local"] = list(sm.local_shapes()["block_0.attn.q.kernel"])
+    out["memory_allocated"] = torch.cuda.memory_allocated(device)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    whole = sm.gather_state({"model": sm.state_dict()})["model"]
+    if ctx.rank == 0:
+        out["tp_distance"] = max((whole[n] - w).abs().max().item()
+                                 for n, w in want.items())
+    return out
+
+
+def shard_lm() -> dict:
+    """(d) tensor=2: TransformerLM at full width (2 layers, T = 2048) split
+    by transformer_param_rules over two ranks sharing the card, one SGD
+    step against the replicated step."""
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    job = create_spmd_job("smoke-tp", 2, torch_distributed=True,
+                          timeout=180)
+    t0 = time.perf_counter()
+    job.start()
+    start_s = time.perf_counter() - t0
+    try:
+        ranks = job.run(tp_rank, timeout=900)
+    finally:
+        job.stop()
+    r0 = ranks[0]
+    loss_rel = abs(r0["loss"] - r0["loss_replicated"]) \
+        / abs(r0["loss_replicated"])
+    out = {"start_s": start_s, "ranks": ranks, "loss_rel_diff": loss_rel}
+    print(f"shard lm tensor=2: the split step's loss {r0['loss']:.6f} vs "
+          f"the replicated step's {r0['loss_replicated']:.6f} "
+          f"({loss_rel:.3e}, limit {TP_LOSS_RTOL}; f32 "
+          f"{r0['loss_f32']:.6f}); the updated parameters differ from the "
+          f"replicated step's by at most {r0['tp_distance']:.3e}, bf16's own "
+          f"distance (the f32 step's) {r0['bf16_distance']:.3e} (limit "
+          f"{TP_PARAM_BF16_STEPS}× it); q kernel a "
+          f"rank {[r['q_local'] for r in ranks]}; heads an attention call "
+          f"saw {[r['heads'] for r in ranks]}; flash launches "
+          f"{[r['launches'] for r in ranks]}; the split step "
+          f"{[round(r['step_s'], 3) for r in ranks]} s; memory allocated "
+          f"{[r['memory_allocated'] for r in ranks]} bytes, peak "
+          f"{[r['max_memory_allocated'] for r in ranks]}")
+    require(loss_rel <= TP_LOSS_RTOL, f"shard lm loss: {out}")
+    require(r0["tp_distance"] <= TP_PARAM_BF16_STEPS * r0["bf16_distance"],
+            f"shard lm parameters: {out}")
+    require(all(r["q_local"] == [DIM, HEADS // 2, DIM // HEADS]
+                and r["heads"] == [HEADS // 2]
+                and all(n > 0 for n in r["launches"].values())
+                for r in ranks), f"shard lm split: {out}")
+    return out
+
+
+def gbdt_rank(ctx) -> dict:
+    """(f) in one rank: fit_gbdt on this rank's half of the rows."""
+    from raydp_tpu_torch.models import fit_gbdt
+    from raydp_tpu_torch.parallel import make_mesh
+
+    X, y = gbdt_rows()
+    t0 = time.perf_counter()
+    model, margins, _ = fit_gbdt(X, y, num_trees=GBDT_ROUNDS,
+                                 max_depth=GBDT_DEPTH, num_bins=256,
+                                 mesh=make_mesh())
+    wall = time.perf_counter() - t0
+    return {"model": model, "margins": margins, "fit_s": wall}
+
+
+def gbdt_rows():
+    """(f)'s rows: GBDT_ROWS seeded NYCTaxi-shaped rows."""
+    table = nyctaxi_tables(GBDT_ROWS, 1, SEED)[0]
+    X = np.stack([table[c].to_numpy() for c in NYC_COLUMNS], axis=1)
+    return X, table[NYC_LABEL].to_numpy()
+
+
+def shard_gbdt() -> dict:
+    """(f) Row-sharded GBDT: two ranks sharing the card, each with half of
+    the rows, histograms summed with one all_reduce a level, against the
+    in-process fit."""
+    from raydp_tpu_torch.models import fit_gbdt
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    X, y = gbdt_rows()
+    t0 = time.perf_counter()
+    single, margins, _ = fit_gbdt(X, y, num_trees=GBDT_ROUNDS,
+                                  max_depth=GBDT_DEPTH, num_bins=256)
+    single_s = time.perf_counter() - t0
+    job = create_spmd_job("smoke-gbdt", 2, torch_distributed=True,
+                          timeout=180)
+    job.start()
+    try:
+        ranks = job.run(gbdt_rank, timeout=600)
+    finally:
+        job.stop()
+    agree = forests_agree("shard gbdt 2 ranks", ranks[0]["model"], single,
+                          ranks[0]["margins"], margins)
+    out = {**agree, "fit_s": single_s,
+           "rank_fit_s": [r["fit_s"] for r in ranks],
+           "ranks_agree": same_forest(ranks[0]["model"], ranks[1]["model"])}
+    print(f"shard gbdt: {GBDT_ROWS} rows, depth {GBDT_DEPTH}, 256 bins, "
+          f"{GBDT_ROUNDS} rounds; in-process fit {single_s:.3f} s, the "
+          f"ranks' {[round(v, 3) for v in out['rank_fit_s']]} s; both ranks "
+          f"hold the same forest: {out['ranks_agree']}")
+    require(out["ranks_agree"], f"shard gbdt: {out}")
+    return out
+
+
+def shard_resume(train, test, features, tmp: str, phase13: dict) -> dict:
+    """(e) The sharded checkpoint: (b)'s gang for 4 epochs, rank 1 exiting
+    at epoch 1 once (max_retries=1), resumed from the sharded multi-writer
+    format; the driver's restore reassembles the whole state."""
+    import glob
+    import os
+
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+    from raydp_tpu_torch.train import checkpoint as ckpt
+
+    flag = os.path.join(tmp, "shard-crashed-once")
+    ckpt_dir = os.path.join(tmp, "shard-resume")
+
+    def crash_once(report):
+        import torch.distributed as dist
+
+        if (report["epoch"] == 1 and dist.get_rank() == 1
+                and not os.path.exists(flag)):
+            open(flag, "w").close()
+            os._exit(1)
+
+    est = build_estimator(features, GANG_BATCH, GANG_RESUME_EPOCHS, None,
+                          mesh_spec=dict(fsdp=2))
+    est.shuffle, est.callbacks, est.checkpoint_dir = \
+        False, [crash_once], ckpt_dir
+    with device_cache(False):
+        t0 = time.perf_counter()
+        gang = est.fit_gang(train, test, num_workers=2, max_retries=1)
+        wall = time.perf_counter() - t0
+    gang_report("shard resume", gang.history, gang.dispatch)
+    steps = sorted(glob.glob(os.path.join(ckpt_dir, "step_*")),
+                   key=lambda p: int(p.rsplit("_", 1)[1]))
+    latest = steps[-1]
+    manifests = len(glob.glob(os.path.join(latest, "manifest_*.json")))
+    complete = os.path.exists(os.path.join(latest, "COMPLETE"))
+    single = phase13["resume"]["single_losses"]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses_of(gang), single)]
+    state = est.get_state()
+    restored, step = ckpt.restore(ckpt_dir, state.state_dict())
+    bitwise = all(torch.equal(t, dict(ckpt._tensor_leaves(restored))[k])
+                  for k, t in ckpt._tensor_leaves(state.state_dict()))
+    state.load_state_dict(restored)
+    predicted = smooth_l1_of(est, test)
+    eval_vs_predict = abs(gang.history[-1]["eval_loss"] - predicted) \
+        / predicted
+    out = {"history_epochs": [r["epoch"] for r in gang.history],
+           "crashed": os.path.exists(flag), "fit_gang_s": wall,
+           "latest": os.path.basename(latest), "manifests": manifests,
+           "complete": complete, "restored_step": step,
+           "restore_bitwise": bitwise, "rel_diffs": diffs,
+           "eval_vs_predict_rel_diff": eval_vs_predict}
+    print(f"shard resume: history {out['history_epochs']}; {out['latest']} "
+          f"holds {manifests} manifests, COMPLETE {complete}; train losses "
+          f"differ from the in-process fit's by "
+          f"{[f'{v:.3e}' for v in diffs]} (limit {GANG_RESUME_RTOL}); the "
+          f"driver's restore of step {step} equals the gang's state bit for "
+          f"bit: {bitwise}; its predict vs the last eval loss "
+          f"{eval_vs_predict:.3e} (limit {GANG_EVAL_RTOL}); fit_gang "
+          f"{wall:.3f} s")
+    require(out["crashed"], "shard resume: the injected crash never fired")
+    require(out["history_epochs"] == list(range(GANG_RESUME_EPOCHS))
+            and manifests == 2 and complete and bitwise,
+            f"shard resume: {out}")
+    require(max(diffs) <= GANG_RESUME_RTOL, f"shard resume: {out}")
+    require(eval_vs_predict <= GANG_EVAL_RTOL, f"shard resume eval: {out}")
+    return out
+
+
+def run_sharding(fa, phase13: dict, frames, tmp: str) -> dict:
+    """Phase 14: the sharding plane on the card — (a) the world-1 mesh,
+    (b) fsdp=2, (c) expert=2 DLRM, (d) tensor=2 TransformerLM, (e) the
+    sharded checkpoint, (f) row-sharded GBDT. The driver launches no flash
+    kernel; (d)'s ranks count their own."""
+    t_phase = time.perf_counter()
+    zero_launches(fa)
+    train, test, features = frames
+    out = {"world1": shard_world1(train, test, features, phase13)}
+    out["fsdp"] = shard_fsdp(train, test, features, phase13)
+    out["dlrm"] = shard_dlrm()
+    free_memory()
+    out["lm"] = shard_lm()
+    out["resume"] = shard_resume(train, test, features, tmp, phase13)
+    out["gbdt"] = shard_gbdt()
     counts = launches(fa)
-    print(f"gang launches of the flash kernels: {counts}")
-    require(not any(counts.values()), f"the gang launched {counts}")
+    print(f"shard launches of the flash kernels in the driver: {counts}")
+    require(not any(counts.values()), f"phase 14's driver launched {counts}")
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"gang phase: {out['phase_s']:.3f} s")
-    print("gang " + json.dumps(out))
+    print(f"shard phase: {out['phase_s']:.3f} s")
+    print("shard " + json.dumps(out, default=str))
     return out
 
 
@@ -3967,7 +4470,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = {"flash_attention_fwd": check_kernel(fa, device, gen, baseline),
             **check_bwd_kernels(fa, device, gen, baseline)}
-    # phases 5-13 are bound by the host's kernel launches: their timed
+    # phases 5-14 are bound by the host's kernel launches: their timed
     # fits and requests run before any torch.profiler session of this
     # process (phases 3-4 profile, and so do 5-6 at their end), so no
     # profiler hook is left in the launch path while they are timed
@@ -3990,7 +4493,9 @@ def main() -> int:
         free_memory()
         examples = run_examples(fa, etl, tmp)
         free_memory()
-        gang = run_gang(fa, examples, tmp)
+        gang, sharding = run_gang(
+            fa, examples, tmp,
+            lambda phase13, frames: run_sharding(fa, phase13, frames, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the profiled epochs replay graphs: the idle share of a graphed epoch
@@ -4001,7 +4506,8 @@ def main() -> int:
                                      "store": store, "etl": etl,
                                      "dispatch": dispatch,
                                      "serving": serving, "gbdt": gbdt,
-                                     "examples": examples, "gang": gang}))
+                                     "examples": examples, "gang": gang,
+                                     "sharding": sharding}))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()
@@ -4019,6 +4525,10 @@ def main() -> int:
                 "library_ms", "tflops", "bound_share", "baseline_ms",
                 "speedup") if k in rows[name]}})
     kernels[0]["launches_inference"] = lm["launches"]
+    for k in kernels:
+        # phase 14 (d): each tensor rank's attention at HEADS / 2 heads
+        k["launches_tensor_parallel"] = [
+            r["launches"][k["name"]] for r in sharding["lm"]["ranks"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

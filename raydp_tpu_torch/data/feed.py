@@ -254,15 +254,33 @@ class HostBatchIterator:
         return batch, rest, buffered - self.batch_size
 
 
+def process_local_batch_rows(mesh, global_batch: int) -> Tuple[int, int]:
+    """The contiguous ``[start, stop)`` rows of each global batch that THIS
+    rank of ``mesh`` (a :class:`~raydp_tpu_torch.parallel.mesh.Mesh`) feeds:
+    its block of the batch dimension split over the data axes
+    (:func:`~raydp_tpu_torch.parallel.mesh.batch_sharding`, data × fsdp).
+    A proper slice under a >1 data extent; under a size-1 one (pure
+    ``expert`` or ``tensor`` meshes) every rank feeds the whole batch."""
+    from raydp_tpu_torch.parallel.mesh import data_axes
+
+    axes = data_axes(mesh)
+    n = mesh.extent(axes)
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by the "
+                         f"data extent {n} of {axes}")
+    per = global_batch // n
+    block = mesh.block(axes)
+    return block * per, (block + 1) * per
+
+
 class GangShardIterator:
     """Per-rank host batches that compose into globally-consistent batches.
 
     Global batch ``k`` covers dataset rows ``[k*B, (k+1)*B)`` in block order —
     exactly the batches a single-process :class:`HostBatchIterator` with
     ``shuffle=False`` cuts — and rank ``r`` of ``w`` yields its slice of
-    each, the equal split ``[r*B/w, (r+1)*B/w)`` (the reference derives the
-    range from the batch sharding of its mesh, ``process_local_batch_rows``;
-    under the port's replicated gang it is the equal split). All ranks
+    each: ``row_range`` when given (:func:`process_local_batch_rows` derives
+    it from the mesh), else the equal split ``[r*B/w, (r+1)*B/w)``. All ranks
     permute the *batch order* with the same seed (numpy's
     ``RandomState``, as the reference; no within-block shuffling), so every
     rank walks the same global batch sequence, and a shuffled gang visits
@@ -270,8 +288,9 @@ class GangShardIterator:
 
     ``pad_remainder``: the ragged final global batch (``total % B`` rows) is
     padded with zero rows to ``B`` and every batch carries :data:`MASK_KEY`,
-    so the ranks' slices of the final batch cover every row once and the
-    pad rows count zero — the rule the reference states for a >1 data
+    so the ranks' slices of the final batch cover every row once (or, on
+    ranks that feed the same rows, the same rows) and the pad rows count
+    zero — the rule the reference states for a >1 data
     extent (``RDT_TRAIN_PAD_TAIL``), which its own gang iterator breaks by
     dropping the tail. Without it the tail drops (``total // B`` batches),
     as the reference's iterator does.
@@ -287,13 +306,21 @@ class GangShardIterator:
         shuffle: bool = False,
         seed: int = 0,
         pad_remainder: bool = False,
+        row_range: Optional[Tuple[int, int]] = None,
     ):
         if not (0 <= rank < world_size):
             raise ValueError(f"rank {rank} out of range for world {world_size}")
-        if global_batch % world_size != 0:
-            raise ValueError(
-                f"global batch {global_batch} not divisible by world size "
-                f"{world_size}")
+        if row_range is None:
+            if global_batch % world_size != 0:
+                raise ValueError(
+                    f"global batch {global_batch} not divisible by world "
+                    f"size {world_size}")
+            per = global_batch // world_size
+            row_range = (rank * per, (rank + 1) * per)
+        lo, hi = row_range
+        if not (0 <= lo < hi <= global_batch):
+            raise ValueError(f"row_range {row_range} out of range for "
+                             f"global batch {global_batch}")
         self.dataset = dataset
         self.global_batch = global_batch
         self.world_size = world_size
@@ -301,7 +328,8 @@ class GangShardIterator:
         self.columns = _normalize_columns(columns)
         self.shuffle = shuffle
         self.seed = seed
-        self.per_rank = global_batch // world_size
+        self.row_range = (int(lo), int(hi))
+        self.per_rank = int(hi) - int(lo)
         self.pad_remainder = pad_remainder
         self._starts = np.cumsum([0] + list(dataset.block_sizes()))
         self.total = int(self._starts[-1])
@@ -373,7 +401,7 @@ class GangShardIterator:
     def _slice(self, k: int) -> Dict[str, np.ndarray]:
         """This rank's rows of global batch ``k``: the real ones only (the
         final batch's slice may be short, or empty)."""
-        start = k * self.global_batch + self.rank * self.per_rank
+        start = k * self.global_batch + self.row_range[0]
         stop = min(start + self.per_rank, self.total)
         parts = [self._decode_run(b, off, length)
                  for b, off, length in self._runs(start, stop)]

@@ -24,11 +24,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def build_estimator(features, batch_size: int, epochs: int, device,
-                    model=None):
+                    model=None, **estimator_kw):
     """The example's estimator: ``NYCTaxiModel`` (a fresh one unless
     ``model`` is given), Adam(1e-3), smooth L1, MAE and MSE. A fresh
     model is drawn on the host from seed 0 and placed on ``device`` by the
-    estimator, so every device trains from the same weights."""
+    estimator, so every device trains from the same weights.
+    ``estimator_kw``: more ``TorchEstimator`` arguments (``mesh_spec``)."""
     import torch
 
     from raydp_tpu_torch.examples.nyctaxi_features import LABEL
@@ -48,6 +49,7 @@ def build_estimator(features, batch_size: int, epochs: int, device,
         num_epochs=epochs,
         metrics=["mae", "mse"],
         device=device,
+        **estimator_kw,
     )
 
 

@@ -88,6 +88,11 @@ _ALL = [
        "device residency."),
     _k("RDT_STAGE_THREADS", "int", 1, PER_ACTION, "training",
        "Column fan-out threads of the native staging core (host decode)."),
+    _k("RDT_TRAIN_SHARD_ROLES", "bool", True, PER_ACTION, "training",
+       "Role-driven parameter sharding (embeddings over fsdp×tensor, "
+       "kernels over fsdp/tensor by dimension, biases replicated) for "
+       "leaves no param_rules entry matches; 0 restores the legacy "
+       "largest-divisible-dim fsdp fallback."),
     _k("RDT_TRAIN_PAD_TAIL", "bool", True, PER_ACTION, "training",
        "Pad-and-mask the ragged final batch under a >1 data extent (or a "
        ">1 stage extent — the pipelined forward reshapes every batch into "

@@ -15,14 +15,17 @@ from raydp_tpu_torch.models.convert import (
     dlrm_params_from_flax, gbdt_from_reference, mlp_variables_from_flax,
     transformer_params_from_flax,
 )
-from raydp_tpu_torch.models.dlrm import DLRM, criteo_batch_preprocessor
+from raydp_tpu_torch.models.dlrm import (
+    DLRM, criteo_batch_preprocessor, dlrm_param_rules,
+)
 from raydp_tpu_torch.models.gbdt import GBDTModel, fit_gbdt
 from raydp_tpu_torch.models.mlp import MLP, NYCTaxiModel
 from raydp_tpu_torch.models.transformer import (
-    TransformerLM, lm_loss, lm_loss_fused,
+    TransformerLM, lm_loss, lm_loss_fused, transformer_param_rules,
 )
 
 __all__ = ["DLRM", "GBDTModel", "MLP", "NYCTaxiModel", "TransformerLM",
-           "criteo_batch_preprocessor", "dlrm_params_from_flax", "fit_gbdt",
-           "gbdt_from_reference", "lm_loss", "lm_loss_fused",
-           "mlp_variables_from_flax", "transformer_params_from_flax"]
+           "criteo_batch_preprocessor", "dlrm_param_rules",
+           "dlrm_params_from_flax", "fit_gbdt", "gbdt_from_reference",
+           "lm_loss", "lm_loss_fused", "mlp_variables_from_flax",
+           "transformer_param_rules", "transformer_params_from_flax"]

@@ -114,6 +114,14 @@ class DLRM(nn.Module):
         return z.float()
 
 
+def dlrm_param_rules(axis: str = "expert"):
+    """Sharding rules: embedding tables row-sharded over ``axis``; MLPs
+    replicated (pass to TorchEstimator(param_rules=...)). A rank then holds
+    its block of every table's rows and looks up the ids in it
+    (:class:`~raydp_tpu_torch.parallel.shard.TensorSplit`)."""
+    return [("embedding", (axis, None))]
+
+
 def criteo_batch_preprocessor(num_dense: int = 13):
     """Split the estimator's flat batch into DLRM's dense/sparse dict: the
     first ``num_dense`` feature columns as float32, the rest as int64

@@ -39,12 +39,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from raydp_tpu_torch.device import DeviceLike, resolve_device
+from raydp_tpu_torch.parallel import gang
 
 OBJECTIVES = ("reg:squarederror", "binary:logistic", "multi:softmax",
               "multi:softprob")
@@ -202,10 +203,14 @@ def _at_nodes(table: torch.Tensor, node: torch.Tensor) -> torch.Tensor:
 
 def _build_trees(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
                  max_depth: int, num_bins: int, learning_rate: float,
-                 reg_lambda: float, min_child_weight: float):
+                 reg_lambda: float, min_child_weight: float,
+                 reduce: Optional[Callable] = None):
     """The K trees of one round for the (g, h) targets ``[n, K]``; returns
     (split features, split bins ``[K, 2**depth - 1]``, leaf values
-    ``[K, 2**depth]``, per-row update ``[n, K]``)."""
+    ``[K, 2**depth]``, per-row update ``[n, K]``). ``reduce`` sums each
+    level's stacked (g, h) histograms, and the leaves' sums, over the ranks
+    that hold the other rows (one collective each), so every rank takes the
+    same splits."""
     n, f = Xb.shape
     K = g.shape[1]
     dev = Xb.device
@@ -224,8 +229,10 @@ def _build_trees(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
         shape = (K, level_nodes, f, num_bins)
         hist_g, hist_h = segment_sums(seg, int(np.prod(shape)), g_rows,
                                       h_rows)
-        GL, HL = scan_bins(torch.stack([hist_g.view(shape),
-                                        hist_h.view(shape)]))
+        hist = torch.stack([hist_g.view(shape), hist_h.view(shape)])
+        if reduce is not None:
+            hist = reduce(hist)
+        GL, HL = scan_bins(hist)
         Gt = GL[..., -1:]
         Ht = HL[..., -1:]
         GR = Gt - GL
@@ -252,6 +259,8 @@ def _build_trees(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
 
     leaf_g, leaf_h = segment_sums(klass * num_leaves + node,
                                   K * num_leaves, g, h)
+    if reduce is not None:
+        leaf_g, leaf_h = reduce(torch.stack([leaf_g, leaf_h]))
     leaf_value = (-leaf_g / (leaf_h + reg_lambda)
                   * learning_rate).float().view(K, num_leaves)
     return (torch.cat(split_feature, dim=1), torch.cat(split_bin, dim=1),
@@ -424,17 +433,23 @@ def fit_gbdt(
     without the capture), ``fetch_s`` (tables and margins back to the
     host), ``rounds``, ``graph_replays`` and ``eager_rounds``.
 
-    ``mesh`` (rows sharded over devices) raises: the port has no multi-
-    device slice yet."""
+    ``mesh`` (a :class:`~raydp_tpu_torch.parallel.mesh.Mesh` built by
+    ``make_mesh`` inside the ranks of a process group, every rank passing
+    the same ``X`` and ``y``) shards the rows over its data axes (data ×
+    fsdp): they are padded with zero-weight rows to the data extent (they
+    add nothing to any histogram or leaf), each rank keeps its block, and
+    each level's histograms and the leaves' sums are summed over the data
+    ranks with one ``all_reduce`` each, so every rank holds the same split
+    tables; the rounds then run eagerly. The margins returned are every
+    row's, gathered from the ranks. On a world-1 mesh the fit is the
+    unsharded fit, bit for bit."""
+    from raydp_tpu_torch.parallel.mesh import data_axes
+    from raydp_tpu_torch.parallel.shard import gather_dim
     from raydp_tpu_torch.train.step_graph import StepRunner
 
     if objective not in OBJECTIVES:
         raise ValueError(
             f"unsupported objective {objective!r}; have {OBJECTIVES}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_gbdt(mesh=...) shards rows over devices, which the port "
-            "does not have yet")
     dev = resolve_device(device)
     times = {} if timings is None else timings
     t0 = time.perf_counter()
@@ -459,6 +474,25 @@ def fit_gbdt(
         K = 1
         base_score = np.float32(np.average(y, weights=w))
     pred0 = np.broadcast_to(np.asarray(base_score, np.float32), (len(y), K))
+    n_orig = len(y)
+    rows = data_axes(mesh) if mesh is not None else ()
+    ranks = mesh.extent(rows) if mesh is not None else 1
+    reduce = None
+    if ranks > 1:
+        pad = (-n_orig) % ranks
+        Xb = np.concatenate([Xb, np.zeros((pad, Xb.shape[1]), Xb.dtype)])
+        y = np.concatenate([y, np.zeros(pad, y.dtype)])
+        w = np.concatenate([w, np.zeros(pad, w.dtype)])
+        pred0 = np.broadcast_to(pred0[:1], (len(y), K))
+        per = len(y) // ranks
+        mine = slice(mesh.block(rows) * per, (mesh.block(rows) + 1) * per)
+        Xb_rank, y, w, pred0 = Xb[mine], y[mine], w[mine], pred0[mine]
+        group = mesh.group(rows)
+
+        def reduce(t):
+            return gang.all_reduce_(t.contiguous(), group)
+    else:
+        Xb_rank = Xb
 
     eval_host = None
     if evals is not None:
@@ -475,7 +509,8 @@ def fit_gbdt(
     t0 = time.perf_counter()
     # the bin matrix crosses once and stays resident for the whole fit
     Xb_d, y_d, w_d, pred = (torch.tensor(a, device=dev)
-                            for a in (Xb, y, w, np.ascontiguousarray(pred0)))
+                            for a in (Xb_rank, y, w,
+                                      np.ascontiguousarray(pred0)))
     evals_d = None
     if eval_host is not None:
         evals_d = tuple(torch.tensor(np.ascontiguousarray(a), device=dev)
@@ -487,11 +522,14 @@ def fit_gbdt(
         return _build_trees(Xb_, g, h, max_depth=max_depth,
                             num_bins=num_bins, learning_rate=learning_rate,
                             reg_lambda=reg_lambda,
-                            min_child_weight=min_child_weight)
+                            min_child_weight=min_child_weight,
+                            reduce=reduce)
 
     state = _Boosting(Xb_d, y_d, w_d, pred, num_trees, build, objective,
                       max_depth, evals_d)
-    runner = StepRunner(state.round, dev, "gbdt boosting round")
+    # a round whose histograms cross ranks runs eagerly
+    runner = StepRunner(state.round, dev, "gbdt boosting round",
+                        capture=reduce is None)
 
     evals_result: Dict[str, List[float]] = {}
     best_iteration = None
@@ -539,14 +577,17 @@ def fit_gbdt(
         best_iteration = best_round
     t0 = time.perf_counter()
     tables = [t[:keep].cpu().numpy() for t in (state.sf, state.sb, state.lv)]
-    margins = state.pred.cpu().numpy()
+    margins = state.pred
+    if reduce is not None:
+        margins = gather_dim(margins, 0, rows, mesh)[:n_orig]
+    margins = margins.cpu().numpy()
     times["fetch_s"] = fetch + time.perf_counter() - t0
     if not multi:
         tables = [t[:, 0] for t in tables]
         margins = margins[:, 0]
     if keep < rounds:  # truncated: the train margins must match
-        margins = base_score + predict_binned(Xb, *tables, max_depth,
-                                              device=dev)
+        margins = base_score + predict_binned(Xb[:n_orig], *tables,
+                                              max_depth, device=dev)
     times["capture_s"] = runner.capture_s
     times["rounds_s"] -= times["capture_s"]
     times["rounds"] = rounds

@@ -40,7 +40,11 @@ class _Dense(nn.Module):
     """Flax ``Dense``/``DenseGeneral``: ``kernel`` has shape
     ``in_shape + out_shape`` and contracts the input's trailing
     ``len(in_shape)`` dims; input, kernel and bias are cast to ``dtype``
-    first."""
+    first. ``split`` (set by :class:`~raydp_tpu_torch.parallel.shard.
+    ShardedModule` on a tensor-split kernel) wraps the product in its
+    collectives; None computes the whole product."""
+
+    split = None
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
                  dtype: Optional[torch.dtype], device: torch.device,
@@ -65,8 +69,12 @@ class _Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or x.dtype
+        if self.split is not None:
+            x = self.split.enter(x)
         y = torch.tensordot(x.to(dtype), self.kernel.to(dtype),
                             dims=self.n_in)
+        if self.split is not None:
+            y = self.split.leave(y)
         if self.bias is not None:
             # a separate add, rounded to dtype after the product's rounding,
             # as Flax's `y += bias`
@@ -75,7 +83,11 @@ class _Dense(nn.Module):
 
 
 class _Embed(nn.Module):
-    """Flax ``Embed``: an f32 table, rows returned in ``dtype``."""
+    """Flax ``Embed``: an f32 table, rows returned in ``dtype``. ``split``
+    (set by :class:`~raydp_tpu_torch.parallel.shard.ShardedModule` on a
+    table split by rows or columns) looks the ids up in the rank's shard."""
+
+    split = None
 
     def __init__(self, num: int, dim: int, dtype: Optional[torch.dtype],
                  device: torch.device):
@@ -89,7 +101,8 @@ class _Embed(nn.Module):
             self.embedding.shape[1]), generator=generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        rows = F.embedding(tokens, self.embedding)
+        rows = (F.embedding(tokens, self.embedding) if self.split is None
+                else self.split.lookup(tokens, self.embedding))
         return rows if self.dtype is None else rows.to(self.dtype)
 
 
@@ -113,14 +126,18 @@ class BatchNorm(nn.Module):
     :func:`~raydp_tpu_torch.parallel.gang.sync_batchnorm`) the statistics
     are the GLOBAL batch's, as the reference's gang takes them over its
     sharded batch: each rank sums ``Σx``, ``Σx²`` and its row count, one
-    differentiable all-reduce sums them across the ranks (its backward sums
-    the gradients too), and Flax's formula follows; the running buffers
-    then move alike on every rank. A gang's training batches are never
-    padded (its train feed drops the ragged tail, as the reference's does),
-    so every row of a rank's slice counts."""
+    differentiable all-reduce over ``stats_group`` (the ranks that feed
+    different rows) sums them (its backward sums the gradients too), and
+    Flax's formula follows; the running buffers then move alike on every
+    rank. While ``row_mask`` is set (a padded train batch's validity mask,
+    :func:`~raydp_tpu_torch.parallel.gang.batch_rows`) the sums and the
+    count take only the real rows."""
 
-    #: take the statistics across the process group's ranks
+    #: take the statistics across ``stats_group``'s ranks
     global_stats = False
+    stats_group = None
+    #: the 0/1 mask of the rows the statistics count (None: every row)
+    row_mask = None
 
     def __init__(self, features: int, dtype: Optional[torch.dtype],
                  device: torch.device, momentum: float = 0.99,
@@ -160,13 +177,20 @@ class BatchNorm(nn.Module):
         y = (x - mean) * mul + self.bias
         return y.to(self.dtype or x.dtype)
 
-    @staticmethod
-    def _gang_statistics(xf: torch.Tensor, axes: tuple):
-        """The global batch's ``(mean, var)`` across the gang's ranks."""
-        # a fill, not a host copy: a CUDA graph can capture it
-        rows = xf.new_full((1,), float(xf[..., 0].numel()))
+    def _gang_statistics(self, xf: torch.Tensor, axes: tuple):
+        """The global batch's ``(mean, var)`` across ``stats_group``."""
+        mask = self.row_mask
+        if mask is None:
+            # a fill, not a host copy: a CUDA graph can capture it
+            rows = xf.new_full((1,), float(xf[..., 0].numel()))
+            xs = xf
+        else:
+            m = mask.to(xf.dtype).reshape(mask.shape + (1,) * (
+                xf.ndim - mask.ndim))
+            rows = (m.sum() * (xf[..., 0].numel() // mask.numel()))[None]
+            xs = xf * m
         sums = gang.all_reduce_grad(torch.cat(
-            [xf.sum(axes), (xf * xf).sum(axes), rows]))
+            [xs.sum(axes), (xs * xf).sum(axes), rows]), self.stats_group)
         f = xf.shape[-1]
         count = sums[2 * f]
         mean = sums[:f] / count

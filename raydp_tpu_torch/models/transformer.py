@@ -22,7 +22,9 @@ subtle the port copies them:
 
 Attention: ``"flash"`` (the Hopper kernel on CUDA, its plain version on the
 CPU), ``"dense"`` (reference path), ``"auto"`` (flash on CUDA, dense on the
-CPU). The sequence-sharded ``"ring"`` path and ``mesh`` are not ported yet.
+CPU). The sequence-sharded ``"ring"`` path and ``mesh`` are not ported yet
+(ROADMAP item 13). :func:`transformer_param_rules` splits the model over a
+mesh's ``tensor`` axis (:mod:`raydp_tpu_torch.parallel.shard`).
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ class Attention(nn.Module):
         if attention == "ring" or mesh is not None:
             raise NotImplementedError(
                 "ring attention / sequence-sharded mesh: not ported yet "
-                "(ROADMAP queue 1)")
+                "(ROADMAP item 13)")
         if attention not in _ATTENTION_KINDS:
             raise ValueError(f"attention must be one of {_ATTENTION_KINDS}, "
                              f"got {attention!r}")
@@ -92,6 +94,12 @@ class Attention(nn.Module):
             self.add_module(name, _Dense((dim,), (num_heads, head_dim),
                                          dtype, device))
         self.o = _Dense((num_heads, head_dim), (dim,), dtype, device)
+
+    def tensor_pairs(self):
+        """The column layers whose head-split outputs feed the row layer
+        directly: under :func:`transformer_param_rules` a tensor rank's
+        attention runs on its own heads."""
+        return [(("q", "k", "v"), "o")]
 
     def _dispatch(self, device: torch.device) -> str:
         if self.attention != "auto":
@@ -125,6 +133,11 @@ class Block(nn.Module):
         self.gate = _Dense((dim,), (hidden,), dtype, device)
         self.up = _Dense((dim,), (hidden,), dtype, device)
         self.down = _Dense((hidden,), (dim,), dtype, device)
+
+    def tensor_pairs(self):
+        """The MLP's column layers (gate, up), whose hidden-split outputs
+        feed the row layer (down) directly."""
+        return [(("gate", "up"), "down")]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -175,6 +188,29 @@ class TransformerLM(nn.Module):
         if return_hidden:
             return x
         return self.lm_head(x).float()
+
+
+def transformer_param_rules(axis: str = "tensor"):
+    """Megatron-style tensor-parallel sharding rules for
+    :class:`TransformerLM` (for ``TorchEstimator(param_rules=...)`` /
+    ``param_sharding_rules``), the reference's as written.
+
+    Column-parallel up-projections (q/k/v over heads, gate/up over hidden)
+    and row-parallel down-projections (o, down): one all-reduce per
+    attention block and one per MLP block, the classic split, and a tensor
+    rank's attention runs on its own heads. Embedding and lm_head split the
+    feature/vocab dim."""
+    return [
+        ("attn/q/kernel", (None, axis, None)),
+        ("attn/k/kernel", (None, axis, None)),
+        ("attn/v/kernel", (None, axis, None)),
+        ("attn/o/kernel", (axis, None, None)),
+        ("gate/kernel", (None, axis)),
+        ("up/kernel", (None, axis)),
+        ("down/kernel", (axis, None)),
+        ("embed/embedding", (None, axis)),
+        ("lm_head/kernel", (None, axis)),
+    ]
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

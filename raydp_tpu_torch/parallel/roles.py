@@ -1,14 +1,28 @@
-"""Parameter roles and the remat policy over them — the one-device half of
-:mod:`raydp_tpu.parallel.roles`.
+"""Parameter roles, the partition spec each role wants, and the remat
+policy over them — port of :mod:`raydp_tpu.parallel.roles`.
 
-Copied as they are: the role vocabulary (:func:`classify_param`), the remat
-grammar (:data:`REMAT_MODES`, :data:`REMAT_ROLES`,
-:func:`parse_remat_policy`, with the same ``ValueError`` texts) and
-:func:`remat_mode_for_role`. Ported: :func:`segment_role` and
-:func:`addressable_nbytes` walk a module's named parameters (and an
-optimizer's state) instead of a pytree, and :func:`apply_remat` wraps a
-forward in ``torch.utils.checkpoint.checkpoint`` instead of
-``jax.checkpoint``:
+Copied as they are: the role vocabulary (:func:`classify_param`,
+:data:`STAGE_TOKENS`), the remat grammar (:data:`REMAT_MODES`,
+:data:`REMAT_ROLES`, :func:`parse_remat_policy`, with the same
+``ValueError`` texts) and :func:`remat_mode_for_role`.
+:func:`role_partition_spec` is the reference's policy on axis sizes (a
+:class:`~raydp_tpu_torch.parallel.mesh.Mesh` or a plain dict), returning
+the spec as a plain tuple; the port keeps the Flax layout and names, so
+its specs are the reference's leaf for leaf:
+
+- embedding tables (path names an embedding, 2-D): rows over ``fsdp`` ×
+  ``tensor`` when the product divides, else whichever axis does;
+- kernels (≥ 2-D): ``tensor`` on the output (last) dim, ``fsdp`` on the
+  largest remaining divisible dim;
+- biases, norm scales, scalars (≤ 1-D): replicated.
+
+An axis splits a dim only when its extent is > 1 and divides it, so the
+policy never raises. Ported: :func:`segment_role`,
+:func:`describe_roles` and :func:`addressable_nbytes` walk a module's named
+parameters (and an optimizer's state) instead of a pytree — on a sharded
+rank those tensors are its local shards, so :func:`addressable_nbytes`
+counts only them — and :func:`apply_remat` wraps a forward in
+``torch.utils.checkpoint.checkpoint`` instead of ``jax.checkpoint``:
 
 - ``dots`` saves the outputs of the matrix products (``aten.mm``,
   ``addmm``, ``bmm``, ``baddbmm``: what ``jax.checkpoint_policies.
@@ -26,9 +40,6 @@ however it ends, so a step moves them once under every mode.
 Checkpointing does not stash the RNG state (``preserve_rng_state=False``): no model of the port
 draws random numbers in its forward, and reading the CUDA generator would
 break the capture of the step into a CUDA graph.
-
-The partition-spec half (``role_partition_spec``) waits for the mesh
-(ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -44,6 +55,11 @@ from torch import nn
 #: catches the port's ``embedding_<i>.embedding`` and the conventional
 #: ``embedding`` / ``embed_tokens`` / ``token_embedder`` spellings.
 EMBEDDING_TOKENS = ("embed",)
+
+#: path substrings that mark a stage-stacked leaf (a pipeline's per-layer
+#: parameters stacked on a leading axis): the leading dim shards over
+#: ``stage``, the rest classifies as the unstacked leaf would
+STAGE_TOKENS = ("stage_stack",)
 
 REPLICATED = "replicated"
 EMBEDDING = "embedding"
@@ -63,6 +79,62 @@ def classify_param(path: str, shape: Tuple[int, ...]) -> str:
     if ndim == 2 and any(tok in low for tok in EMBEDDING_TOKENS):
         return EMBEDDING
     return KERNEL
+
+
+def _divides(dim: int, size: int) -> bool:
+    return size > 1 and dim > 1 and dim % size == 0
+
+
+def role_partition_spec(mesh, path: str, shape: Tuple[int, ...]) -> tuple:
+    """The spec the leaf's role wants on ``mesh`` (a mesh or its axis
+    sizes); total: degrades to replicated whenever an axis is absent, of
+    size 1, or does not divide.
+
+    Stage-stacked leaves (path contains a :data:`STAGE_TOKENS` token) put
+    the ``stage`` axis on their leading dim when it divides, then classify
+    the inner shape through the ordinary policy. Optimizer-state mirrors
+    inherit their parameter's spec: their paths carry the same names."""
+    from raydp_tpu_torch.parallel.mesh import mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    low = path.lower()
+    if any(tok in low for tok in STAGE_TOKENS) and len(shape) >= 1:
+        head = "stage" if _divides(shape[0], sizes["stage"]) else None
+        inner_path = low
+        for tok in STAGE_TOKENS:
+            inner_path = inner_path.replace(tok, "")
+        return (head, *role_partition_spec(sizes, inner_path,
+                                           tuple(shape[1:])))
+
+    fsdp, tensor = sizes["fsdp"], sizes["tensor"]
+    role = classify_param(path, shape)
+    if role == REPLICATED or (fsdp <= 1 and tensor <= 1):
+        return ()
+
+    spec: list = [None] * len(shape)
+    if role == EMBEDDING:
+        # rows (vocab) over the fsdp×tensor product when it divides; else
+        # whichever single axis does; embedding dim stays replicated
+        rows = shape[0]
+        if _divides(rows, fsdp * tensor) and fsdp > 1 and tensor > 1:
+            spec[0] = ("fsdp", "tensor")
+        elif _divides(rows, fsdp):
+            spec[0] = "fsdp"
+        elif _divides(rows, tensor):
+            spec[0] = "tensor"
+        return tuple(spec)
+
+    # kernels: tensor on the output (last) dim, fsdp on the largest
+    # remaining divisible dim (deterministic tie-break: lower index wins)
+    if _divides(shape[-1], tensor):
+        spec[-1] = "tensor"
+    if fsdp > 1:
+        order = sorted(range(len(shape)), key=lambda i: (-shape[i], i))
+        for i in order:
+            if spec[i] is None and _divides(shape[i], fsdp):
+                spec[i] = "fsdp"
+                break
+    return tuple(spec)
 
 
 #: the remat policy vocabulary (RDT_TRAIN_REMAT / TorchEstimator remat=)
@@ -162,11 +234,22 @@ def segment_role(tree) -> str:
     return max(weights.items(), key=lambda kv: (kv[1], kv[0]))[0]
 
 
+def describe_roles(tree) -> dict:
+    """Debug/bench helper: path → (role, shape) for every tensor of
+    ``tree`` (a module's parameters, an optimizer's state, or nestings)."""
+    out = {}
+    for path, t in _named_tensors(tree):
+        shape = tuple(t.shape)
+        out[path] = (classify_param(path, shape), shape)
+    return out
+
+
 def addressable_nbytes(tree) -> int:
     """Bytes of the tensors of ``tree`` held by this process: a module's
     parameters and buffers, an optimizer's state, or any nesting of them
-    (each tensor counted once). On one device that is what the
-    reference's replicated leaves occupy."""
+    (each tensor counted once). On a sharded rank those are its local
+    shards; on one device, what the reference's replicated leaves
+    occupy."""
     seen = set()
     total = 0
     for _, t in _named_tensors(tree, buffers=True):

@@ -14,14 +14,22 @@ Tensors are saved; every other leaf (an optimizer's hyperparameters) comes
 from the template at restore time, as the reference takes the tree's
 structure from its template.
 
-Under a training gang (a ``torch.distributed`` process group) every rank
-holds the whole replicated state: :func:`save` with ``gang`` writes on rank
-0 only — the
-reference's multi-writer format with one writer — and every rank waits at a
-barrier until the step is complete, so each rank can then restore it from
-the shared directory (:func:`ensure_shared_dir` checks at the gang's start
-that every rank sees it). The sharded multi-writer format waits for sharded
-state (ROADMAP item 12c).
+Under a training gang (a ``torch.distributed`` process group) :func:`save`
+with ``gang`` writes the reference's multi-writer format. Each rank ``p``
+writes ``shard_<p>.npz`` + ``manifest_<p>.json`` with the tensors it owns,
+each entry's ``index`` placing it in the global array: a sharded tensor
+(``layout`` gives its global shape, its index and whether this rank
+writes) lands once — of the ranks that hold the same shard, the one at
+coordinate 0 on every other axis writes, the reference's ``replica_id ==
+0`` — and a whole tensor (the replicated gang's state, buffers, step
+counters) is written by rank 0. Barriers stand around the write; rank 0
+writes ``extra.json`` and the ``COMPLETE`` marker after every rank has
+written, and every rank returns only once the step is complete, so each
+can restore it from the shared directory (:func:`ensure_shared_dir`
+checks at the gang's start that every rank sees it). :func:`restore`
+reads every manifest of a step, so either topology reads either format:
+the driver reassembles a gang's sharded checkpoint whole, and a rank of
+another mesh shape assembles the blocks its own ``layout`` asks for.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import json
 import os
 import shutil
 from collections.abc import Mapping
-from typing import Any, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -165,7 +173,36 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _entry_tensor(npz, e: dict) -> torch.Tensor:
     raw = torch.from_numpy(npz[e["arr"]].copy())
-    return raw.view(getattr(torch, e["dtype"])).reshape(e["shape"])
+    return raw.view(getattr(torch, e["dtype"])).reshape(
+        [t - s for s, t in e["index"]])
+
+
+def _load_manifests(path: str) -> dict:
+    """key → ``[(entry, shard file)]`` over every rank's manifest."""
+    import glob
+
+    entries: dict = {}
+    for mf in sorted(glob.glob(os.path.join(path, "manifest_*.json"))):
+        shard = mf.replace("manifest_", "shard_")[:-len(".json")] + ".npz"
+        with open(mf) as f:
+            for e in json.load(f):
+                entries.setdefault(e["key"], []).append((e, shard))
+    return entries
+
+
+def _assemble(recs, npz_of, want) -> torch.Tensor:
+    """The region ``want`` (``[[start, stop], ...]``) of a tensor from its
+    entries: the entry itself when one covers exactly that region, else
+    the whole tensor assembled from every entry and cut to it."""
+    for e, shard in recs:
+        if e["index"] == want:
+            return _entry_tensor(npz_of(shard), e)
+    e0 = recs[0][0]
+    full = torch.empty(e0["shape"], dtype=getattr(torch, e0["dtype"]))
+    for e, shard in recs:
+        full[tuple(slice(a, b) for a, b in e["index"])] = \
+            _entry_tensor(npz_of(shard), e)
+    return full[tuple(slice(a, b) for a, b in want)].clone()
 
 
 def _prune(ckpt_dir: str, written_step: int) -> None:
@@ -181,69 +218,93 @@ def _prune(ckpt_dir: str, written_step: int) -> None:
 
 
 def save(ckpt_dir: str, state: Any, step: int,
-         extra: Optional[dict] = None, gang: bool = False) -> str:
+         extra: Optional[dict] = None, gang: bool = False,
+         layout: Optional[Dict[str, tuple]] = None) -> str:
     """Write ``state``'s tensors as ``step_<step>`` (replacing a dir of that
     step), then ``extra`` (a JSON-serializable sidecar, e.g. the epoch
-    history) and ``COMPLETE``; then prune. Returns the step dir. ``gang``
-    (every rank of the process group calls it with the same replicated
-    state): rank 0 writes and every rank returns after the barrier that
-    follows."""
+    history) and ``COMPLETE``; then prune. Returns the step dir. ``gang``:
+    every rank of the process group calls it, each with its own state,
+    and returns once the step is complete. ``layout`` maps the key path of
+    each sharded tensor to ``(global shape, [[start, stop], ...], writes)``
+    (:func:`~raydp_tpu_torch.parallel.shard.placement`); every other tensor
+    is whole, as rank 0 holds it."""
     import torch.distributed as dist
 
-    if gang:
-        path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
-        if dist.get_rank() == 0:
-            _write(ckpt_dir, state, step, extra)
-        dist.barrier()
-        return path
-    return _write(ckpt_dir, state, step, extra)
-
-
-def _write(ckpt_dir: str, state: Any, step: int,
-           extra: Optional[dict]) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.makedirs(path)
+    rank = dist.get_rank() if gang else 0
+    if rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+    if gang:
+        dist.barrier()
     arrays, manifest = {}, []
-    for n, (key, t) in enumerate(_tensor_leaves(state)):
-        name = f"a{n}"
+    for key, t in _tensor_leaves(state):
+        shape, index, writes = (layout or {}).get(key) or (
+            tuple(t.shape), [[0, s] for s in t.shape], rank == 0)
+        if not writes:
+            continue
+        name = f"a{len(arrays)}"
         arrays[name] = _raw(t)
-        manifest.append({"key": key, "arr": name,
-                         "index": [[0, s] for s in t.shape],
-                         "shape": list(t.shape),
+        manifest.append({"key": key, "arr": name, "index": index,
+                         "shape": list(shape),
                          "dtype": _dtype_name(t.dtype)})
-    np.savez(os.path.join(path, "shard_0.npz"), **arrays)
-    with open(os.path.join(path, "manifest_0.json"), "w") as f:
-        json.dump(manifest, f)
-    if extra is not None:
-        _write_extra(path, ckpt_dir, step, extra)
-    open(os.path.join(path, "COMPLETE"), "w").close()
-    _prune(ckpt_dir, step)
+    if manifest or rank == 0:
+        np.savez(os.path.join(path, f"shard_{rank}.npz"), **arrays)
+        with open(os.path.join(path, f"manifest_{rank}.json"), "w") as f:
+            json.dump(manifest, f)
+    if gang:
+        dist.barrier()
+    if rank == 0:
+        if extra is not None:
+            _write_extra(path, ckpt_dir, step, extra)
+        open(os.path.join(path, "COMPLETE"), "w").close()
+        _prune(ckpt_dir, step)
+    if gang:
+        dist.barrier()
     return path
 
 
-def restore(ckpt_dir: str, template: Any, max_step: Optional[int] = None
+def restore(ckpt_dir: str, template: Any, max_step: Optional[int] = None,
+            layout: Optional[Dict[str, tuple]] = None
             ) -> Optional[Tuple[Any, int]]:
     """Restore the latest complete checkpoint (at or below ``max_step``)
     into the structure of ``template``: each tensor leaf comes from the
     checkpoint, on the template leaf's device; every other leaf is the
-    template's. Returns ``(state, step)`` or None."""
+    template's. A leaf ``layout`` names (as :func:`save` takes it) is the
+    block at its index; every other leaf is the whole tensor, assembled
+    from whichever ranks wrote it. Returns ``(state, step)`` or None."""
     latest = _latest_agreed(ckpt_dir, max_step=max_step)
     if latest is None:
         return None
     step, path = latest
-    with open(os.path.join(path, "manifest_0.json")) as f:
-        entries = {e["key"]: e for e in json.load(f)}
-    with np.load(os.path.join(path, "shard_0.npz")) as npz:
-        def load(key: str, leaf: torch.Tensor) -> torch.Tensor:
-            e = entries.get(key)
-            if e is None:
-                raise KeyError(f"checkpoint at {path} is missing leaf {key}")
-            return _entry_tensor(npz, e).to(leaf.device)
+    entries = _load_manifests(path)
+    opened: dict = {}
 
+    def npz_of(shard: str):
+        if shard not in opened:
+            opened[shard] = np.load(shard)
+        return opened[shard]
+
+    def load(key: str, leaf: torch.Tensor) -> torch.Tensor:
+        recs = entries.get(key)
+        if not recs:
+            raise KeyError(f"checkpoint at {path} is missing leaf {key}")
+        placed = (layout or {}).get(key)
+        want = placed[1] if placed else [[0, s] for s in recs[0][0]["shape"]]
+        t = _assemble(recs, npz_of, want)
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"checkpoint at {path}: leaf {key} has shape "
+                             f"{tuple(t.shape)}, the state wants "
+                             f"{tuple(leaf.shape)}")
+        return t.to(leaf.device)
+
+    try:
         return map_tensors(load, template), step
+    finally:
+        for npz in opened.values():
+            npz.close()
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

@@ -169,14 +169,17 @@ class StepRunner:
     def __init__(self, body: Callable[[Dict[str, torch.Tensor]], None],
                  device: torch.device, label: str,
                  optimizer: Optional[torch.optim.Optimizer] = None,
-                 span: Optional[str] = None, quiesce=None):
+                 span: Optional[str] = None, quiesce=None,
+                 capture: bool = True):
         self.body = body
         self.device = device
         self.label = label
         self.optimizer = optimizer
         self.span = span
         self.quiesce = quiesce
-        self.graphed = device.type == "cuda"
+        #: whether the body is captured on CUDA (``capture=False``: a body
+        #: whose collectives run on the host, called on its static inputs)
+        self.graphed = capture and device.type == "cuda"
         self.replays = 0
         self.replayed_steps = 0
         self.eager_steps = 0

@@ -33,8 +33,9 @@ reference), BatchNorm takes the global batch's statistics
 are summed across the ranks before the host reads them, so every rank's
 history is the global one. The eval tail pads and masks
 (``RDT_TRAIN_PAD_TAIL``), so every eval row counts once. Rank 0 writes the
-checkpoints, a failed rank fails the gang, and the driver restarts it,
-resuming from the last checkpoint, up to ``max_retries`` times.
+checkpoints (each rank its shards, under a sharded mesh: below), a failed
+rank fails the gang, and the driver restarts it, resuming from the last
+checkpoint, up to ``max_retries`` times.
 
 How it dispatches (the reference's jitted scan and chain): on CUDA the
 resident epoch, the resident eval pass and, with ``steps_per_dispatch=k >
@@ -79,12 +80,33 @@ remat is engaged, the gauges ``train_param_bytes_per_process``,
 ``train_accum_steps`` and ``train_activation_bytes_per_process``, and the
 ``train_epoch_seconds`` histogram.
 
-Not ported yet (ROADMAP): ``mesh``/``mesh_spec``/``param_rules``,
-``seq_sharded`` and ``PipelineModel``.
+Sharding (the reference's ``mesh``/``mesh_spec``/``param_rules``): torch
+runs one device a process, so a sharded fit is a gang's,
+``fit_gang(num_workers=n, mesh_spec=...)``, one rank a mesh position
+(:mod:`raydp_tpu_torch.parallel.mesh`); each rank builds the mesh over the
+gang's process group. A mesh with a ``fsdp``, ``expert`` or ``tensor``
+extent above 1 holds the model as each rank's shards
+(:class:`~raydp_tpu_torch.parallel.shard.ShardedModule`: ``param_rules``
+first, then the role policy), feeds each rank its block of every global
+batch over data × fsdp (:func:`~raydp_tpu_torch.data.feed.
+process_local_batch_rows`; the whole batch under pure ``expert`` or
+``tensor``), sums the step's row counts, gradients, BatchNorm statistics
+and epoch sums over exactly the ranks that saw different rows, runs every
+step eagerly, and checkpoints in the sharded multi-writer format; the
+driver gets the gathered state, and ``get_state()`` its specs. A ragged
+train tail pads and masks when ``drop_last=False`` (``RDT_TRAIN_PAD_TAIL``;
+BatchNorm's statistics count the real rows only). A plain ``fit`` runs on
+a world-1 mesh: a ``mesh_spec`` with an extent above 1 raises the
+reference's ``ValueError``; ``fit(mesh=)`` takes a mesh built by
+:func:`~raydp_tpu_torch.parallel.mesh.make_mesh` inside the ranks of the
+caller's own process group. A ``seq`` or ``stage`` extent above 1 raises
+``NotImplementedError`` (ROADMAP items 13 and 12d); so does
+``PipelineModel``, which is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import inspect
 import math
@@ -103,11 +125,16 @@ from raydp_tpu_torch import faults, knobs, profiler
 from raydp_tpu_torch import metrics as rdt_metrics
 from raydp_tpu_torch.data.feed import (
     MASK_KEY, DeviceEpochCache, DeviceFeed, GangShardIterator,
-    HostBatchIterator, epoch_seed,
+    HostBatchIterator, epoch_seed, process_local_batch_rows,
 )
 from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.log import get_logger
 from raydp_tpu_torch.parallel import gang
+from raydp_tpu_torch.parallel.mesh import (
+    Mesh, MeshSpec, as_mesh_spec, data_axes, make_mesh, seq_extent,
+    stage_extent,
+)
+from raydp_tpu_torch.parallel.shard import ShardedModule, placement
 from raydp_tpu_torch.parallel.roles import (
     addressable_nbytes, apply_remat, parse_remat_policy, remat_mode_for_role,
     segment_role,
@@ -126,10 +153,14 @@ logger = get_logger("train.torch_estimator")
 
 @dataclass
 class TrainState:
-    """The trained module and its optimizer."""
+    """The trained module and its optimizer. After a sharded fit, ``specs``
+    maps each parameter to the spec it was trained under (the reference's
+    vocabulary, ``.sharding.spec`` as a tuple; each rank's shard is in
+    ``TrainingResult.ranks``)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    specs: Optional[Dict[str, tuple]] = None
 
     def state_dict(self) -> Dict[str, Any]:
         return {"model": self.model.state_dict(),
@@ -150,6 +181,11 @@ class TrainingResult:
     #: those replays ran), ``eager_steps``, ``capture_s`` of a capture made
     #: in the epoch, ``eval_replays``
     dispatch: List[Dict[str, float]] = field(default_factory=list)
+    #: a gang's ranks, in rank order: ``param_bytes`` (the parameters,
+    #: buffers and optimizer state the rank held: its shards),
+    #: ``memory_allocated`` (the rank's CUDA bytes at the fit's end, None
+    #: on the CPU) and ``local_shapes`` (its shard of each parameter)
+    ranks: List[Dict[str, Any]] = field(default_factory=list)
 
 
 def _default_optimizer(params) -> torch.optim.Optimizer:
@@ -309,7 +345,7 @@ def _make_apply(split_batch, compute_dtype, remat_mode: str = "none"):
 
 
 def _make_train_step(apply_fn, loss_fn, metrics, accum: int,
-                     in_gang: bool = False):
+                     in_gang: bool = False, batch_group=None):
     """Build the train step: one optimizer update from one batch.
 
     ``train_step(state, batch, mstats, loss_sum) -> (loss_sum, mstats)``
@@ -321,19 +357,35 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int,
     update to float-summation-order tolerance while only ONE microbatch's
     activations are ever live.
 
-    ``in_gang``: the batch is this rank's slice of a global batch. The
-    rank's loss is its masked mean weighed by its share of the global row
-    count (all-reduced once a batch), so the ranks' losses sum to the
-    global batch's mean; after ``backward`` the gradients are summed across
-    the gang (one all-reduce of a flat buffer) and the optimizer steps on
-    that — the global batch's gradient on every rank. The loss sum then
-    holds this rank's shares, which the epoch sums across the gang."""
+    ``in_gang``: the batch is this rank's slice of a global batch, and
+    ``batch_group`` the ranks that hold the other slices. The rank's loss
+    is its masked mean weighed by its share of the global row count
+    (all-reduced once a batch), so the ranks' losses sum to the global
+    batch's mean; after ``backward`` the gradients are summed over the
+    group (one all-reduce of a flat buffer; a sharded model's own
+    :meth:`~raydp_tpu_torch.parallel.shard.ShardedModule.reduce_grads`) and
+    the optimizer steps on that — the global batch's gradient on every
+    rank. The loss sum then holds this rank's shares, which the epoch sums
+    over the group. A masked batch's BatchNorm statistics count its real
+    rows (:func:`~raydp_tpu_torch.parallel.gang.batch_rows`)."""
 
     def _params(state):
         return [p for p in state.model.parameters() if p.requires_grad]
 
     def _global_rows(rows: torch.Tensor) -> torch.Tensor:
-        return torch.clamp_min(gang.all_reduce_(rows.clone()), 1.0)
+        return torch.clamp_min(gang.all_reduce_(rows.clone(), batch_group),
+                               1.0)
+
+    def _sync_grads(state) -> None:
+        if isinstance(state.model, ShardedModule):
+            state.model.reduce_grads()
+        else:
+            gang.all_reduce_grads(_params(state), batch_group)
+
+    def _rows(state, mask):
+        if in_gang and mask is not None:
+            return gang.batch_rows(state.model, mask)
+        return contextlib.nullcontext()
 
     def _microbatch(state, batch, mask):
         preds, labels = apply_fn(state.model, batch, train=True)
@@ -344,16 +396,17 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int,
     def train_step(state, batch, mstats, loss_sum):
         batch, mask = _strip_mask(batch)
         if accum <= 1:
-            lv, preds, labels = _microbatch(state, batch, mask)
+            with _rows(state, mask):
+                lv, preds, labels = _microbatch(state, batch, mask)
+                if in_gang:
+                    # a fill, not a host copy: a CUDA graph can capture it
+                    rows = torch.sum(mask) if mask is not None else \
+                        lv.new_full((), float(labels.shape[0]))
+                    lv = lv * (rows / _global_rows(rows))
+                state.optimizer.zero_grad(set_to_none=True)
+                lv.backward()
             if in_gang:
-                # a fill, not a host copy: a CUDA graph can capture it
-                rows = torch.sum(mask) if mask is not None else \
-                    lv.new_full((), float(labels.shape[0]))
-                lv = lv * (rows / _global_rows(rows))
-            state.optimizer.zero_grad(set_to_none=True)
-            lv.backward()
-            if in_gang:
-                gang.all_reduce_grads(_params(state))
+                _sync_grads(state)
             state.optimizer.step()
             new_mstats = tuple(
                 _update_metric(m, s, preds, labels, mask)
@@ -366,6 +419,10 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int,
                              f"dimension {rows_total}")
         mb = rows_total // accum
         params = _params(state)
+        # a sharded model sums its gradients over ranks inside the backward
+        # (a reduce-scatter), so each rank weighs its microbatch's loss by
+        # its own rows before it, not its gradient after it
+        sharded = isinstance(state.model, ShardedModule)
         # grads/loss accumulate in f32 regardless of the param dtype
         g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         l_acc = torch.zeros((), dtype=torch.float32, device=loss_sum.device)
@@ -373,14 +430,16 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int,
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
             mb_mask = None if mask is None else mask[sl]
-            lv, preds, labels = _microbatch(
-                state, {n: a[sl] for n, a in batch.items()}, mb_mask)
-            grads = torch.autograd.grad(lv, params, allow_unused=True)
-            rows = torch.sum(mb_mask) if mb_mask is not None \
-                else float(labels.shape[0])
+            with _rows(state, mb_mask):
+                lv, preds, labels = _microbatch(
+                    state, {n: a[sl] for n, a in batch.items()}, mb_mask)
+                rows = torch.sum(mb_mask) if mb_mask is not None \
+                    else float(labels.shape[0])
+                grads = torch.autograd.grad(lv * rows if sharded else lv,
+                                            params, allow_unused=True)
             for a, g in zip(g_acc, grads):
                 if g is not None:
-                    a.add_(g.float() * rows)
+                    a.add_(g.float() if sharded else g.float() * rows)
             l_acc = l_acc + lv.detach().float() * rows
             r_acc = r_acc + rows
             mstats = tuple(_update_metric(m, s, preds, labels, mb_mask)
@@ -389,7 +448,7 @@ def _make_train_step(apply_fn, loss_fn, metrics, accum: int,
         for p, a in zip(params, g_acc):
             p.grad = (a / denom).to(p.dtype)
         if in_gang:
-            gang.all_reduce_grads(params)
+            _sync_grads(state)
         state.optimizer.step()
         return loss_sum + l_acc / denom, mstats
 
@@ -472,13 +531,42 @@ def _materialize_optimizer_state(state: TrainState) -> None:
     state.optimizer.zero_grad(set_to_none=True)
 
 
-def _all_reduce_sums(acc: Accumulators) -> None:
-    """Sum a pass's accumulators across the gang, in place: the loss sum,
+def _all_reduce_sums(acc: Accumulators, group) -> None:
+    """Sum a pass's accumulators over ``group``, in place: the loss sum,
     the row count and every metric statistic (all of them sums)."""
     for t in (acc.loss, acc.count, *(v for s in acc.stats
                                      for v in s.values())):
         if t is not None:
-            gang.all_reduce_(t)
+            gang.all_reduce_(t, group)
+
+
+def _check_mesh(mesh: Mesh) -> None:
+    """Refuse the axes the port does not shard over yet."""
+    if seq_extent(mesh) > 1:
+        raise NotImplementedError(
+            f"{mesh!r}: a seq extent above 1 (seq_sharded, ring attention) "
+            "is not ported yet (ROADMAP item 13)")
+    if stage_extent(mesh) > 1:
+        raise NotImplementedError(
+            f"{mesh!r}: a stage extent above 1 (the pipeline schedule) is "
+            "not ported yet (ROADMAP item 12d)")
+
+
+def _sharded(mesh: Optional[Mesh]) -> bool:
+    """Whether the mesh splits the model (not only the batch)."""
+    return mesh is not None and any(
+        mesh.shape[a] > 1 for a in ("fsdp", "expert", "tensor"))
+
+
+def _layout(state: TrainState, mesh: Mesh) -> Dict[str, tuple]:
+    """The checkpoint placement of every sharded tensor of ``state``."""
+    specs = state.model.tensor_specs(state.optimizer)
+    out = {}
+    for key, t in ckpt._tensor_leaves(state.state_dict()):
+        spec = specs.get(key, ())
+        if any(e is not None for e in spec):
+            out[key] = placement(spec, t.shape, mesh)
+    return out
 
 
 def _chain(body):
@@ -521,6 +609,10 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         device: DeviceLike = None,
         steps_per_dispatch: int = 1,
         remat: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
+        mesh_spec: Optional[Union[MeshSpec, Dict[str, int]]] = None,
+        param_rules: Optional[List[Tuple[str, tuple]]] = None,
+        seq_sharded: Optional[bool] = None,
     ):
         if model is None and model_creator is None:
             raise ValueError("pass model or model_creator")
@@ -568,7 +660,25 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         #: the parameter roles; None = the RDT_TRAIN_REMAT knob
         #: (parallel/roles.py parse_remat_policy)
         self.remat = remat
+        #: a mesh built by make_mesh inside the ranks of the caller's own
+        #: process group (fit); fit_gang builds its own from ``mesh_spec``
+        self._mesh = mesh
+        #: the mesh's axis sizes (a MeshSpec or a dict; None: MeshSpec())
+        self._mesh_spec = mesh_spec
+        #: ordered (path substring, spec) rules, ahead of the role policy
+        self.param_rules = param_rules
+        #: shard sequence dims over the mesh's seq axis (None: whenever it
+        #: is > 1); a seq extent above 1 is refused (ROADMAP item 13)
+        self.seq_sharded = seq_sharded
         self._result: Optional[TrainingResult] = None
+
+    def _build_mesh(self) -> Mesh:
+        """THIS process's mesh: the one passed, else ``mesh_spec`` over the
+        process group's world (every rank of it must call this)."""
+        mesh = self._mesh if self._mesh is not None else make_mesh(
+            self._mesh_spec, device_type=self.device.type)
+        _check_mesh(mesh)
+        return mesh
 
     def _resolve_accum(self) -> int:
         """The effective accumulation factor for THIS fit (the constructor
@@ -601,16 +711,20 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 accum, mode)
 
     # ------------------------------------------------------------------ build
-    def _init_state(self, graphed: bool = False) -> TrainState:
+    def _init_state(self, graphed: bool = False,
+                    mesh: Optional[Mesh] = None) -> TrainState:
         """A fresh model (a copy of ``model``, or ``model_creator()``) placed
-        on the fit's device under the ``train:place`` span, and its
-        optimizer from the factory, made capturable on CUDA (``graphed``:
-        the fit will capture its steps); the
+        on the fit's device under the ``train:place`` span — as this rank's
+        shards of ``mesh`` when given (:class:`ShardedModule`) — and its
+        optimizer from the factory over them, made capturable on CUDA
+        (``graphed``: the fit will capture its steps); the
         ``train_param_bytes_per_process`` gauge is read after it."""
         with profiler.trace("train:place", "training"):
             model = copy.deepcopy(self._model) if self._model is not None \
                 else self._model_creator()
             model = model.to(self.device)
+            if mesh is not None:
+                model = ShardedModule(model, mesh, self.param_rules)
             factory = self._optimizer or self._optimizer_creator \
                 or _default_optimizer
             optimizer = factory(model.parameters())
@@ -618,7 +732,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 prepare_optimizer(optimizer, graphed)
         rdt_metrics.set_gauge("train_param_bytes_per_process",
                               addressable_nbytes((model, optimizer)))
-        return TrainState(model, optimizer)
+        return TrainState(model, optimizer,
+                          specs=None if mesh is None else model.specs)
 
     def _columns(self) -> Dict:
         if self.columns_spec is not None:
@@ -638,6 +753,32 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
     # -------------------------------------------------------------------- fit
     def fit(self, train_ds, evaluate_ds=None, max_retries: int = 0
             ) -> TrainingResult:
+        """Train in this process: on a world-1 mesh (a ``mesh_spec`` with an
+        extent above 1 raises the reference's ``ValueError``; sharded fits
+        are :meth:`fit_gang`'s), or over ``mesh`` when one spanning the
+        ranks of the caller's process group was passed (every rank calls
+        ``fit`` with the same datasets)."""
+        if self._mesh is not None:
+            mesh = self._build_mesh()
+            if mesh.size > 1:
+                import torch.distributed as dist
+
+                # one directory for every rank: rank 0's
+                made = [tempfile.mkdtemp(prefix="rdt-ckpt-")
+                        if not self.checkpoint_dir and mesh.rank == 0
+                        else None]
+                dist.broadcast_object_list(made, src=0)
+                ckpt_dir = self.checkpoint_dir or made[0]
+                ckpt.ensure_shared_dir(ckpt_dir, "rdt_ckpt_dir_probe")
+                state, history, dispatch = self._fit_on_mesh(
+                    mesh, train_ds, evaluate_ds, ckpt_dir, resume=False,
+                    max_retries=max_retries)
+                self._result = TrainingResult(state=state, history=history,
+                                              checkpoint_dir=ckpt_dir,
+                                              dispatch=dispatch)
+                return self._result
+        else:
+            _check_mesh(Mesh(as_mesh_spec(self._mesh_spec).sizes(1)))
         columns = self._columns()
         ckpt_dir = self.checkpoint_dir or tempfile.mkdtemp(prefix="rdt-ckpt-")
 
@@ -709,6 +850,13 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         ``worker_env`` adds/overrides rank-process environment (a ``None``
         value removes the variable).
 
+        ``mesh_spec`` lays the ranks out as a mesh (its sizes must multiply
+        to ``num_workers``; the default is ``data=num_workers``, the
+        replicated gang); each rank builds it, and a ``fsdp``, ``expert``
+        or ``tensor`` extent above 1 shards the model (see the module
+        docstring). A driver-built ``mesh`` is refused: the mesh spans the
+        ranks' process group.
+
         **Shared storage requirement**: on a multi-machine gang,
         ``checkpoint_dir`` must be a filesystem mounted on every rank's
         host (rank 0 writes the step dirs every rank restores from). The
@@ -720,6 +868,11 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
 
         from raydp_tpu_torch.spmd.job import create_spmd_job
 
+        if self._mesh is not None:
+            raise ValueError("fit_gang builds its mesh inside the ranks; "
+                             "pass mesh_spec instead of a driver-built mesh")
+        # the layout, checked before any rank starts
+        _check_mesh(Mesh(as_mesh_spec(self._mesh_spec).sizes(num_workers)))
         ckpt_dir = self.checkpoint_dir or tempfile.mkdtemp(prefix="rdt-gang-")
         if self.checkpoint_dir:
             # gang ranks run with resume=True by design (the restart loop
@@ -772,18 +925,19 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         chief = results[0]
         state = self._init_state()
         state.load_state_dict(chief["state"])
+        state.specs = chief["specs"]
         self._result = TrainingResult(state=state, history=chief["history"],
                                       checkpoint_dir=ckpt_dir,
-                                      dispatch=chief["dispatch"])
+                                      dispatch=chief["dispatch"],
+                                      ranks=[r["rank"] for r in results])
         return self._result
 
     def _gang_rank_fit(self, ctx, train_payload, eval_payload,
                        ckpt_dir: str) -> Dict[str, Any]:
         """Runs inside each SPMD rank (``flax_estimator.py:1366-1428``, the
-        reference's ``train_func`` body): the streaming feed over this
-        rank's :class:`GangShardIterator` (a gang never takes the resident
-        cache), the train loop with ``resume``; rank 0 returns the trained
-        state on the host."""
+        reference's ``train_func`` body): the mesh over the gang, the
+        rank's feeds and the train loop with ``resume``; rank 0 returns the
+        trained state, gathered whole, on the host."""
         from raydp_tpu_torch.data.dataset import DistributedDataset
 
         # the rank's own process: its TF32 switches, and its card
@@ -792,76 +946,105 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             # the ranks share the host's cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1)
                                       // ctx.world_size))
-        columns = self._columns()
-        # checkpoints assume ONE filesystem: rank 0 writes each step dir
-        # every rank restores from — fail fast on per-host paths
+        mesh = self._build_mesh()
+        # checkpoints assume ONE filesystem: every rank writes its shards
+        # into the step dirs every rank restores from — fail fast on
+        # per-host paths
         ckpt.ensure_shared_dir(ckpt_dir, "rdt_ckpt_dir_probe")
         train_ds = DistributedDataset.from_portable(train_payload)
+        eval_ds = DistributedDataset.from_portable(eval_payload) \
+            if eval_payload is not None else None
+        state, history, dispatch = self._fit_on_mesh(
+            mesh, train_ds, eval_ds, ckpt_dir, resume=True, max_retries=0)
+        out: Dict[str, Any] = {"history": history, "dispatch": dispatch}
+        out["rank"] = {
+            "param_bytes": addressable_nbytes((state.model, state.optimizer)),
+            "memory_allocated": torch.cuda.memory_allocated(self.device)
+            if self.device.type == "cuda" else None,
+            "local_shapes": {n: tuple(p.shape) for n, p in
+                             state.model.state_dict().items()}}
+        whole = state.state_dict()
+        if isinstance(state.model, ShardedModule):
+            # a collective: every rank takes part
+            whole = state.model.gather_state(whole, state.optimizer)
+        if ctx.rank == 0:
+            # as host tensors (numpy has no bf16)
+            out["state"] = ckpt.map_tensors(
+                lambda _, t: t.detach().cpu(), whole)
+            out["specs"] = state.specs
+        return out
+
+    def _fit_on_mesh(self, mesh: Mesh, train_ds, eval_ds, ckpt_dir: str,
+                     resume: bool, max_retries: int):
+        """The train loop of one rank of ``mesh``: the streaming feed over
+        this rank's block of every global batch
+        (:func:`process_local_batch_rows`; a rank never takes the resident
+        cache). The ragged train tail pads and masks when ``drop_last`` is
+        off, the eval tail always (``RDT_TRAIN_PAD_TAIL``), so every row
+        counts once."""
+        columns = self._columns()
+        rows = process_local_batch_rows(mesh, self.batch_size)
+        pad = bool(knobs.get("RDT_TRAIN_PAD_TAIL")) \
+            and _loss_takes_mask(self._loss)
         feed = DeviceFeed(
             train_ds, self.batch_size, columns, device=self.device,
             prefetch_to_device=self.prefetch_to_device,
             host_iter=GangShardIterator(
-                train_ds, self.batch_size, ctx.world_size, ctx.rank, columns,
-                shuffle=self.shuffle, seed=self.seed))
+                train_ds, self.batch_size, mesh.size, mesh.rank, columns,
+                shuffle=self.shuffle, seed=self.seed,
+                pad_remainder=pad and not self.drop_last, row_range=rows))
         eval_feed = None
-        if eval_payload is not None:
-            # every eval row counts once: the ragged final batch pads and
-            # masks (the reference's rule under a >1 data extent)
-            pad = bool(knobs.get("RDT_TRAIN_PAD_TAIL")) \
-                and _loss_takes_mask(self._loss)
-            eval_ds = DistributedDataset.from_portable(eval_payload)
+        if eval_ds is not None:
             eval_feed = DeviceFeed(
                 eval_ds, self.batch_size, columns, device=self.device,
                 prefetch_to_device=self.prefetch_to_device,
                 host_iter=GangShardIterator(
-                    eval_ds, self.batch_size, ctx.world_size, ctx.rank,
+                    eval_ds, self.batch_size, mesh.size, mesh.rank,
                     columns, shuffle=False, seed=self.seed,
-                    pad_remainder=pad))
-
-        state, history, dispatch = self._train_loop(
-            feed, eval_feed, ckpt_dir, max_retries=0, resume=True,
-            in_gang=True)
-        out: Dict[str, Any] = {"history": history, "dispatch": dispatch}
-        if ctx.rank == 0:
-            # every rank holds the same replicated state: the chief's, as
-            # host tensors (numpy has no bf16)
-            out["state"] = ckpt.map_tensors(
-                lambda _, t: t.detach().cpu(), state.state_dict())
-        return out
+                    pad_remainder=pad, row_range=rows))
+        return self._train_loop(feed, eval_feed, ckpt_dir,
+                                max_retries=max_retries, resume=resume,
+                                mesh=mesh)
 
     def _train_loop(self, feed, eval_feed, ckpt_dir: str,
                     max_retries: int = 0, cache=None, eval_cache=None,
-                    resume: bool = False, in_gang: bool = False):
+                    resume: bool = False, mesh: Optional[Mesh] = None):
         """The epochs. ``resume`` (a gang rank's): restore the latest
         checkpoint in ``ckpt_dir`` before the first epoch, and on a retry
-        restore the latest one there, whoever wrote it. ``in_gang``: this
-        process is a rank of ``fit_gang``'s process group — the step sums
-        its gradient across the ranks, BatchNorm takes the global batch's
-        statistics, the epoch's sums are summed across the ranks and rank
-        0 writes the checkpoints."""
+        restore the latest one there, whoever wrote it. ``mesh``: this
+        process is a rank of a process group laid out as ``mesh`` — the
+        step sums its gradient over the ranks that saw other rows,
+        BatchNorm takes the global batch's statistics, the epoch's sums are
+        summed over those ranks, a ``fsdp``/``expert``/``tensor`` extent
+        above 1 shards the model (every step eager), and the checkpoints
+        are the gang's."""
         if self.checkpoint_dir and not resume:
             ckpt.warn_if_reused_dir(ckpt_dir)
         loss_fn = _resolve_loss(self._loss)
         metrics = self._metrics
         device = self.device
         chain = self.steps_per_dispatch if cache is None else 1
+        in_gang = mesh is not None
+        sharded = _sharded(mesh)
+        batch_group = mesh.group(data_axes(mesh)) if in_gang else None
         # the optimizer steps in a graph on the resident and chained paths,
-        # unless a gloo gang's collectives keep every step eager
-        capture = graphs_allowed(in_gang)
+        # unless a gloo gang's collectives, or a sharded state's, keep
+        # every step eager
+        capture = graphs_allowed(in_gang) and not sharded
         graphed = device.type == "cuda" and capture \
             and (cache is not None or chain > 1)
 
         def fresh_state() -> TrainState:
-            state = self._init_state(graphed)
+            state = self._init_state(graphed, mesh if sharded else None)
             if in_gang:
-                gang.sync_batchnorm(state.model)
+                gang.sync_batchnorm(state.model, batch_group)
             return state
 
         state = fresh_state()
         apply_fn, accum, mode = self._make_forward(state.model)
         rdt_metrics.set_gauge("train_accum_steps", accum)
         train_step = _make_train_step(apply_fn, loss_fn, metrics, accum,
-                                      in_gang)
+                                      in_gang, batch_group)
         eval_step = _make_eval_step(apply_fn, loss_fn, metrics)
         # a capture is timed and its activation bytes published (the
         # reference's compile span) only when accumulation or remat is
@@ -918,8 +1101,9 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             ``max_step``) into ``state``, with its epoch and history, and
             bind the steps again; whether there was one."""
             nonlocal epoch, history, step, estep, run_train, run_eval
-            restored = ckpt.restore(ckpt_dir, state.state_dict(),
-                                    max_step=max_step)
+            restored = ckpt.restore(
+                ckpt_dir, state.state_dict(), max_step=max_step,
+                layout=_layout(state, mesh) if sharded else None)
             if restored is None:
                 return False
             saved, done_epoch = restored
@@ -990,7 +1174,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 # first sums its ranks' shares
                 ts = time.perf_counter()
                 if in_gang:
-                    _all_reduce_sums(acc)
+                    _all_reduce_sums(acc, batch_group)
                 train_loss = float(acc.loss) / steps if steps else math.nan
                 t_sync = time.perf_counter() - ts
                 dt = time.perf_counter() - t0
@@ -1030,7 +1214,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                         for batch in eval_feed:
                             estep(batch)
                     if in_gang:
-                        _all_reduce_sums(eacc)
+                        _all_reduce_sums(eacc, batch_group)
                     rows = float(eacc.count)  # real rows only
                     report["eval_loss"] = (float(eacc.loss) / rows) if rows \
                         else math.nan
@@ -1052,7 +1236,9 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 if save_epoch_now(epoch, self.checkpoint_interval,
                                   self.num_epochs):
                     ckpt.save(ckpt_dir, state.state_dict(), step=epoch,
-                              extra={"history": history}, gang=in_gang)
+                              extra={"history": history}, gang=in_gang,
+                              layout=_layout(state, mesh) if sharded
+                              else None)
                     last_written_step = epoch
                 epoch += 1
             except (KeyboardInterrupt, SystemExit):
@@ -1278,3 +1464,10 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         if self._result is None:
             raise RuntimeError("call fit() first")
         return self._result.state.model.eval()
+
+    def get_state(self) -> TrainState:
+        """The trained state: the module, its optimizer and, after a
+        sharded fit, the specs it was trained under."""
+        if self._result is None:
+            raise RuntimeError("call fit()/fit_on_frame() first")
+        return self._result.state

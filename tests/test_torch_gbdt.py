@@ -221,8 +221,12 @@ def test_unsupported_objective_and_mesh_are_refused():
     with pytest.raises(ValueError) as got:
         P.fit_gbdt(X, y, objective="rank:pairwise", device="cpu")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        P.fit_gbdt(X, y, mesh=object(), device="cpu")
+    # a mesh of ranks this process has no process group for (a layout
+    # given only as axis sizes) cannot shard rows: make_mesh in the ranks
+    from raydp_tpu_torch.parallel import Mesh
+
+    with pytest.raises(RuntimeError, match="make_mesh inside the ranks"):
+        P.fit_gbdt(X, y, mesh=Mesh(dict(data=2)), device="cpu")
 
 
 def test_fit_timings_name_every_part_of_the_wall():

@@ -55,7 +55,8 @@ def test_imports_neither_jax_nor_the_reference():
         "'examples.torch_loop_nyctaxi', 'examples.nyctaxi_mlp', "
         "'examples.stroke_pipeline', 'tools.rdtlint', "
         "'tools.rdtlint.rule_steps', 'tools.rdtlint.__main__', "
-        "'spmd.job', 'spmd.worker', 'parallel.gang', "
+        "'spmd.job', 'spmd.worker', 'parallel.gang', 'parallel.mesh', "
+        "'parallel.shard', "
         "'examples.spmd_job'):\n"
         "    assert 'raydp_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n")

@@ -1324,9 +1324,8 @@ def test_fence_breaks_when_telemetry_doc_table_stale(tmp_path, capsys):
 # the registries the lint reads: the port's against the reference's
 # ---------------------------------------------------------------------------
 
-#: the reference's knobs whose slices are not ported yet: the sharded train
-#: state's role map (ROADMAP 12c)
-KNOBS_NOT_PORTED = {"RDT_TRAIN_SHARD_ROLES"}
+#: the reference's knobs whose slices are not ported yet: none
+KNOBS_NOT_PORTED: set = set()
 #: the gang knobs whose docs name the port's process group where the
 #: reference's name ``jax.distributed`` (the names stay the reference's)
 PORT_KNOB_DOCS = {
@@ -1370,7 +1369,7 @@ def test_every_port_knob_is_the_reference_entry_field_for_field():
         == [f.name for f in dataclasses.fields(ref.Knob)]
     assert (port.PER_ACTION, port.PROCESS_START) \
         == (ref.PER_ACTION, ref.PROCESS_START)
-    assert len(port.KNOBS) == 97
+    assert len(port.KNOBS) == 98
     for name, knob in port.KNOBS.items():
         got = dataclasses.asdict(knob)
         want = dataclasses.asdict(ref.KNOBS[name])
