@@ -214,18 +214,35 @@
     prints the ranks' bytes and ``memory_allocated``, the steady rate, the
     share of a step in collectives and the gang starts; then the phase's
     wall;
-15. prints one JSON line of kernel results, then the last line
-    ``{"ok": true, "device": {...}}``.
+15. the seq and stage axes, on two ranks sharing the card (gloo): (a)
+    ``ring_attention`` at the flagship shape (B=2, T=8192, H=8, D=128,
+    bf16, causal) over ``seq=2``, its output and q/k/v gradients held
+    against one ``flash_attention`` call within ``SPLIT_BF16_STEPS`` ×
+    bf16's own distance from the f32 dense run (relative L2), the flash
+    launches a rank (forward 1 and 2 under the causal skip), the ring's
+    wall and the bytes each rank sent; (b) the TransformerLM at full width
+    cut to 2 layers, T=8192 over ``seq=2``, one SGD step against the
+    unsharded step with phase 14 (d)'s gates; (c) ``pipeline_apply`` over
+    two full-width Blocks, one a stage of ``stage=2``, 4 microbatches of
+    1 × 2048 tokens, outputs and both stages' gradients against the
+    blocks in order, 5 launches of each kernel a rank (every tick); (d)
+    ``fit_gang(mesh_spec={"stage": 2})`` of the reference test's
+    ``PipelineModel`` against ``fit`` (rtol 5e-4) and the
+    ``train_pipeline_stages`` gauge; (e) ``examples/longcontext_lm.py
+    --seq-parallel 2``: the loss falls; then the phase's wall;
+16. prints one JSON line of kernel results (with each kernel's launches a
+    rank in 15 (b), ``launches_ring``, and 15 (c), ``launches_pipeline``),
+    then the last line ``{"ok": true, "device": {...}}``.
 
-The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 3,
-4: phases 5-14 are bound by the host's kernel launches, so their timed
+The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+3, 4: phases 5-15 are bound by the host's kernel launches, so their timed
 fits and requests come before any ``torch.profiler`` session of the
 process, and the profiled epochs of 5-6 (one per model, in fits of their
 own, replaying graphs) and phase 11's profiled round after them. Every
 kernel launch counter is set to 0 just before each driven path (3, both
-modes of 4, 5, 6, 7, 8, 9, 10, 11, 12, 13 and 14) and read just after;
-5-14 run no attention in this process and must launch none; 14 (d)'s
-ranks count their own launches. Any failed check exits non-zero; so does a machine without
+modes of 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15) and read just
+after; 5-15 run no attention in this process and must launch none; the
+ranks of 14 (d) and 15 count their own launches, each case's from 0. Any failed check exits non-zero; so does a machine without
 CUDA.
 """
 
@@ -4440,6 +4457,470 @@ def run_sharding(fa, phase13: dict, frames, tmp: str) -> dict:
     return out
 
 
+# ---- phase 15: the seq and stage axes ----------------------------------------
+
+#: (a): the ring at the flagship shape (B, T, H, D), bf16, causal, over seq=2
+RING_SHAPE = (2, 8192, 8, 128)
+#: (a), (b): a split run may differ from the one-card run by up to twice
+#: what bf16 itself moves the one-card run from f32 (measured in the run):
+#: the two bf16 runs round at other points (the ring merges its blocks in
+#: f32 and rounds once more; its dk/dv sum two blocks' bf16 gradients), and
+#: their errors against f32 add, as TP_PARAM_BF16_STEPS reasons
+SPLIT_BF16_STEPS = 2.0
+#: (b): the TransformerLM at full width over seq=2, cut to 2 layers, one
+#: SGD step at phase 14 (d)'s rate
+SEQ_LAYERS, SEQ_T = 2, 8192
+#: (c): pipeline_apply over two of the TransformerLM's Blocks at full width
+#: (one a stage): 4 microbatches of 1 × 2048 tokens
+PIPE_MICRO, PIPE_T = 4, 2048
+#: (c): the pipelined run applies the same kernels to the same microbatches
+#: as the blocks in order; its outputs may differ by one bf16 rounding step
+#: (2^-7 of the value, plus 1e-5 for f32 sums near zero, as OUT_TOL) and
+#: its gradients, whose four microbatch shares the two sum in another
+#: order, by bf16's unit roundoff (2^-8) in relative L2
+PIPE_OUT_TOL, PIPE_GRAD_REL = (1e-5, 2.0 ** -7), 2.0 ** -8
+#: (d): the reference test's PipelineModel (tests/test_pipeline_estimator.py:
+#: four residual tanh blocks of width 8, a Dense head) on its 256 rows,
+#: fit_gang over stage=2 against fit, the test's rtol
+PIPE_EST_DIM, PIPE_EST_ROWS, PIPE_EST_RTOL = 8, 256, 5e-4
+#: (e): the long-context example at its defaults, fewer steps
+LONGCTX_ARGS = ["--seq-parallel", "2", "--steps", "6"]
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def ring_case(ctx, device) -> dict:
+    """(a) in one rank: its block of the flagship q/k/v through the ring
+    (forward and backward), gathered whole on every rank; rank 0 holds it
+    against one flash_attention call and the f32 dense run."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.ops import flash_attention as fa
+    from raydp_tpu_torch.ops.ring_attention import (
+        dense_attention, ring_attention)
+    from raydp_tpu_torch.parallel import gang, make_mesh
+    from raydp_tpu_torch.parallel.shard import gather_dim
+
+    mesh = make_mesh(dict(seq=2))
+    b, t, h, d = RING_SHAPE
+    gen = torch.Generator(device).manual_seed(SEED + 2)
+    q, k, v, g = (torch.randn(b, t, h, d, device=device, generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    c = mesh.coords["seq"]
+    block = slice(c * t // 2, (c + 1) * t // 2)
+
+    def ring_once():
+        """One forward and backward: (out, q/k/v grads, wall, host seconds
+        in the exchanges)."""
+        ql, kl, vl = (x[:, block].clone().requires_grad_(True)
+                      for x in (q, k, v))
+        torch.cuda.synchronize()
+        dist.barrier()
+        gang.COMM.take()
+        t0 = time.perf_counter()
+        out = ring_attention(ql, kl, vl, mesh, causal=True)
+        out.backward(g[:, block])
+        torch.cuda.synchronize()
+        return ([out.detach(), ql.grad, kl.grad, vl.grad],
+                time.perf_counter() - t0, gang.COMM.take())
+
+    # the first run starts the process's kernels and point-to-point pairs
+    _, first_s, _ = ring_once()
+    zero_launches(fa)
+    sent = gang.COMM.sent_bytes
+    blocks, wall, exchange_s = ring_once()
+    res = {"first_wall_s": first_s, "wall_s": wall,
+           "exchange_s": exchange_s, "launches": launches(fa),
+           "sent_bytes": gang.COMM.sent_bytes - sent}
+    whole = [gather_dim(x, 1, ("seq",), mesh) for x in blocks]
+    if ctx.rank == 0:
+        def run(fn, dtype):
+            xs = [x.detach().to(dtype).requires_grad_(True)
+                  for x in (q, k, v)]
+            o = fn(*xs, causal=True)
+            o.backward(g.to(dtype))
+            return [o.detach()] + [x.grad for x in xs]
+
+        flash = run(fa.flash_attention, torch.bfloat16)
+        dense = run(dense_attention, torch.float32)
+        names = ("out", "dq", "dk", "dv")
+        res["ring_vs_flash"] = {n: rel_l2(a, f) for n, a, f in
+                                zip(names, whole, flash)}
+        res["flash_vs_f32"] = {n: rel_l2(f, x) for n, f, x in
+                               zip(names, flash, dense)}
+        del flash, dense
+    del whole, blocks, q, k, v, g
+    free_memory()
+    return res
+
+
+def seq_lm_case(ctx, device) -> dict:
+    """(b) in one rank: rank 0 first takes the unsharded bf16 step (flash)
+    and, to measure bf16's own distance, the same step in f32 (dense);
+    then both ranks take the seq=2 step on their halves of the tokens
+    (ring attention), counting the flash launches."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.models import TransformerLM, lm_loss
+    from raydp_tpu_torch.ops import flash_attention as fa
+    from raydp_tpu_torch.parallel import ShardedModule, gang, make_mesh
+
+    mesh = make_mesh(dict(seq=2))
+
+    def model(dtype, attention, mesh=None):
+        return TransformerLM(VOCAB, dim=DIM, num_heads=HEADS,
+                             num_layers=SEQ_LAYERS, attention=attention,
+                             mesh=mesh, dtype=dtype, device=device,
+                             generator=torch.Generator(device).manual_seed(
+                                 SEED))
+
+    tokens = torch.randint(0, VOCAB, (BATCH, SEQ_T), device=device,
+                           generator=torch.Generator(device).manual_seed(
+                               SEED + 1))
+
+    def step(m, tok, mesh=None) -> float:
+        opt = torch.optim.SGD(m.parameters(), lr=TP_LR)
+        loss = lm_loss(m(tok), tok, mesh)
+        loss.backward()
+        if isinstance(m, ShardedModule):
+            m.reduce_grads()
+        opt.step()
+        return loss.item()
+
+    out = {}
+    if ctx.rank == 0:
+        ref = model(torch.bfloat16, "flash")
+        out["loss_unsharded"] = step(ref, tokens)
+        want = {n: p.detach() for n, p in ref.named_parameters()}
+        del ref
+        free_memory()
+        f32 = model(torch.float32, "dense")
+        out["loss_f32"] = step(f32, tokens)
+        out["bf16_distance"] = max(
+            (p.detach() - want[n]).abs().max().item()
+            for n, p in f32.named_parameters())
+        del f32
+        free_memory()
+    sm = ShardedModule(model(torch.bfloat16, "ring", mesh), mesh)
+    c = mesh.coords["seq"]
+    local = tokens[:, c * SEQ_T // 2:(c + 1) * SEQ_T // 2].contiguous()
+    # a forward and backward first, without the update, so the timed step
+    # finds both ranks' kernels, libraries and exchanges started
+    lm_loss(sm(local), local, mesh).backward()
+    sm.zero_grad(set_to_none=True)
+    zero_launches(fa)
+    torch.cuda.reset_peak_memory_stats(device)
+    opt = torch.optim.SGD(sm.parameters(), lr=TP_LR)
+    split = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        split[name] = time.perf_counter() - t
+        return result
+
+    dist.barrier()
+    gang.COMM.take()
+    t0 = time.perf_counter()
+    loss = timed("forward_s", lambda: lm_loss(sm(local), local, mesh))
+    timed("backward_s", loss.backward)
+    timed("reduce_s", sm.reduce_grads)
+    timed("update_s", opt.step)
+    out["loss"] = loss.item()
+    out["step_s"] = time.perf_counter() - t0
+    out["split"] = split
+    # host seconds in the ring's exchanges, the loss's sum and the
+    # gradients' all-reduce (a rank that waits for the other counts it)
+    out["collective_s"] = gang.COMM.take()
+    out["launches"] = launches(fa)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    if ctx.rank == 0:
+        out["seq_distance"] = max(
+            (p.detach() - want[n]).abs().max().item()
+            for n, p in sm.module.named_parameters())
+    del sm
+    free_memory()
+    return out
+
+
+def pipeline_case(ctx, device) -> dict:
+    """(c) in one rank: two full-width Blocks stacked, one a stage of
+    stage=2, 4 microbatches through pipeline_apply, forward and backward,
+    counting the flash launches; rank 0 then applies the blocks in order
+    to the same microbatches and holds the outputs and both stages'
+    gradients (summed over the stage axis) against them."""
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from raydp_tpu_torch.models.layers import init_parameters
+    from raydp_tpu_torch.models.transformer import Block
+    from raydp_tpu_torch.ops import flash_attention as fa
+    from raydp_tpu_torch.parallel import gang, make_mesh, pipeline_apply
+    from raydp_tpu_torch.parallel.shard import all_reduce_sum
+
+    mesh = make_mesh(dict(stage=2))
+    gen = torch.Generator(device).manual_seed(SEED + 3)
+    blocks = []
+    for _ in range(2):
+        blk = Block(DIM, HEADS, attention="flash", dtype=torch.bfloat16,
+                    device=device)
+        init_parameters(blk, gen)
+        blocks.append(blk)
+    template = blocks[0]
+    names = [n for n, _ in template.named_parameters()]
+    x = torch.randn(PIPE_MICRO, 1, PIPE_T, DIM, device=device,
+                    generator=gen).to(torch.bfloat16)
+    g = torch.randn(PIPE_MICRO, 1, PIPE_T, DIM, device=device,
+                    generator=gen)
+
+    def layer(p, h):
+        return functional_call(template, p, (h,))
+
+    def stacked():
+        return {n: torch.stack([dict(b.named_parameters())[n].detach()
+                                for b in blocks]).requires_grad_(True)
+                for n in names}
+
+    params = stacked()
+    zero_launches(fa)
+    torch.cuda.synchronize()
+    dist.barrier()
+    gang.COMM.take()
+    t0 = time.perf_counter()
+    out = pipeline_apply(layer, params, x, mesh)
+    (out.float() * g).sum().backward()
+    torch.cuda.synchronize()
+    res = {"wall_s": time.perf_counter() - t0,
+           "exchange_s": gang.COMM.take(), "launches": launches(fa)}
+    grads = {n: all_reduce_sum(p.grad, ("stage",), mesh)
+             for n, p in params.items()}
+    if ctx.rank == 0:
+        seq = stacked()
+        want = []
+        for h in x:
+            for i in range(2):
+                h = layer({n: p[i] for n, p in seq.items()}, h)
+            want.append(h)
+        want = torch.stack(want)
+        (want.float() * g).sum().backward()
+        atol, rtol = PIPE_OUT_TOL
+        step = (out.float() - want.float()).abs() \
+            / (atol + rtol * want.float().abs())
+        res["out_max_abs_diff"] = float((out - want).abs().max())
+        res["out_steps_used"] = float(step.max())
+        res["grad_rel_l2"] = max(rel_l2(grads[n], seq[n].grad)
+                                 for n in names)
+        del seq, want
+    del params, grads, out, blocks
+    free_memory()
+    return res
+
+
+def long_context_rank(ctx) -> dict:
+    """(a), (b) and (c) in one rank of a 2-rank job sharing the card."""
+    from raydp_tpu_torch import resolve_device
+
+    device = resolve_device()
+    return {"ring": ring_case(ctx, device), "lm": seq_lm_case(ctx, device),
+            "pipeline": pipeline_case(ctx, device)}
+
+
+def pipeline_estimator() -> dict:
+    """(d) fit_gang(mesh_spec={"stage": 2}) of the reference test's
+    PipelineModel over two ranks sharing the card against fit in this
+    process, unshuffled; the driver's train_pipeline_stages gauge."""
+    import pyarrow as pa
+
+    from raydp_tpu_torch import metrics as rdt_metrics
+    from raydp_tpu_torch.data.dataset import BlockMeta, DistributedDataset
+    from raydp_tpu_torch.models.layers import _Dense, init_parameters
+    from raydp_tpu_torch.runtime.object_store import get_client
+    from raydp_tpu_torch.train import PipelineModel, TorchEstimator
+
+    dim = PIPE_EST_DIM
+    cpu = torch.device("cpu")
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = _Dense((dim,), (dim,), None, cpu, use_bias=True)
+
+        def forward(self, x):
+            return x + torch.tanh(self.Dense_0(x))
+
+    # PipelineModel copies its layers' parameters: draw them first
+    gen = torch.Generator().manual_seed(SEED)
+    layers = [Block() for _ in range(4)]
+    head = _Dense((dim,), (1,), None, cpu, use_bias=True)
+    for m in layers:
+        init_parameters(m, gen)
+    head.reset_parameters(gen)
+    model = PipelineModel(layers, head=head)
+    rng = np.random.RandomState(SEED)
+    x = rng.normal(size=(PIPE_EST_ROWS, dim))
+    data = {f"f{i}": x[:, i] for i in range(dim)}
+    data["label"] = x @ rng.normal(size=(dim,)) \
+        + 0.1 * rng.normal(size=PIPE_EST_ROWS)
+    table = pa.table(data)
+    tables = [table.slice(i * 64, 64) for i in range(PIPE_EST_ROWS // 64)]
+    refs = get_client().put_arrow_many(tables)
+    ds = DistributedDataset([BlockMeta(num_rows=t.num_rows, ref=r)
+                             for t, r in zip(tables, refs)], tables[0].schema)
+
+    def est(**kw):
+        return TorchEstimator(model=model, loss="mse",
+                              feature_columns=list(data)[:-1],
+                              label_column="label", batch_size=64, seed=SEED,
+                              shuffle=False, num_epochs=3, accum_steps=4,
+                              **kw)
+
+    single = est().fit(ds)
+    t0 = time.perf_counter()
+    gang = est(mesh_spec={"stage": 2}).fit_gang(ds, num_workers=2)
+    wall = time.perf_counter() - t0
+    stages = rdt_metrics.snapshot()["gauges"]["train_pipeline_stages"][""]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses_of(gang),
+                                                  losses_of(single))]
+    out = {"fit_gang_s": wall, "losses": losses_of(gang),
+           "single_losses": losses_of(single), "rel_diffs": diffs,
+           "pipeline_stages": stages,
+           "local_shapes": [r["local_shapes"]["stage_stack.Dense_0.kernel"]
+                            for r in gang.ranks]}
+    print(f"longctx (d) fit_gang stage=2 of a PipelineModel: train losses "
+          f"{[f'{v:.6f}' for v in out['losses']]} vs fit "
+          f"{[f'{v:.6f}' for v in out['single_losses']]} (relative "
+          f"{[f'{v:.3e}' for v in diffs]}, limit {PIPE_EST_RTOL}); "
+          f"train_pipeline_stages {stages}; stage_stack kernel a rank "
+          f"{out['local_shapes']}; fit_gang {wall:.3f} s")
+    require(max(diffs) <= PIPE_EST_RTOL and stages == 2
+            and out["local_shapes"] == [(2, dim, dim)] * 2,
+            f"longctx pipeline estimator: {out}")
+    return out
+
+
+def long_context_example() -> dict:
+    """(e) examples/longcontext_lm.py --seq-parallel 2: two ranks sharing
+    the card (gloo), ring attention on the card; the loss falls."""
+    from raydp_tpu_torch.examples import longcontext_lm
+
+    t0 = time.perf_counter()
+    res = longcontext_lm.main(LONGCTX_ARGS)
+    out = {"main_s": time.perf_counter() - t0, "losses": res["losses"],
+           "tokens_per_s": [r["tokens_per_s"] for r in res["ranks"]],
+           "launches": [r["launches"] for r in res["ranks"]],
+           "mesh": res["mesh"]}
+    print(f"longctx (e) longcontext_lm.py {' '.join(LONGCTX_ARGS)}: losses "
+          f"{[f'{v:.4f}' for v in out['losses']]}, "
+          f"{[round(v) for v in out['tokens_per_s']]} tokens/s a rank, "
+          f"flash launches {out['launches']}; main {out['main_s']:.3f} s")
+    require(out["losses"][-1] < out["losses"][0]
+            and all(n > 0 for r in out["launches"] for n in r.values()),
+            f"longctx example: {out}")
+    return out
+
+
+def run_long_context(fa) -> dict:
+    """Phase 15: the seq and stage axes on the card — (a) the ring at the
+    flagship shape, (b) the TransformerLM over seq=2, (c) pipeline_apply
+    over full-width Blocks, in one 2-rank job sharing the card (gloo), each
+    rank counting its own launches; (d) fit_gang of a PipelineModel over
+    stage=2; (e) the long-context example. The driver launches no flash
+    kernel."""
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    t_phase = time.perf_counter()
+    zero_launches(fa)
+    job = create_spmd_job("smoke-longctx", 2, torch_distributed=True,
+                          timeout=180)
+    t0 = time.perf_counter()
+    job.start()
+    start_s = time.perf_counter() - t0
+    try:
+        ranks = job.run(long_context_rank, timeout=900)
+    finally:
+        job.stop()
+    out = {"start_s": start_s}
+
+    ring = [r["ring"] for r in ranks]
+    r0 = ring[0]
+    out["ring"] = ring
+    print(f"longctx (a) ring B,T,H,D={RING_SHAPE} bf16 causal over seq=2: "
+          f"against one flash_attention call, relative L2 "
+          f"{ {k: f'{v:.3e}' for k, v in r0['ring_vs_flash'].items()} }; "
+          f"bf16's own (flash vs f32 dense) "
+          f"{ {k: f'{v:.3e}' for k, v in r0['flash_vs_f32'].items()} } "
+          f"(limit {SPLIT_BF16_STEPS}x it); flash launches a rank "
+          f"{[r['launches'] for r in ring]}; ring forward+backward "
+          f"{[round(r['wall_s'], 4) for r in ring]} s (the first "
+          f"{[round(r['first_wall_s'], 4) for r in ring]}), of it in the "
+          f"exchanges {[round(r['exchange_s'], 4) for r in ring]} s; "
+          f"{[r['sent_bytes'] for r in ring]} bytes sent a rank")
+    require(all(r0["ring_vs_flash"][k]
+                <= SPLIT_BF16_STEPS * r0["flash_vs_f32"][k]
+                for k in r0["ring_vs_flash"]), f"longctx ring: {r0}")
+    # the causal skip: rank 0 folds its own block, rank 1 both
+    require([r["launches"] for r in ring] == [
+        dict.fromkeys(KERNELS, 1), dict.fromkeys(KERNELS, 2)],
+        f"longctx ring launches: {ring}")
+
+    lm = [r["lm"] for r in ranks]
+    l0 = lm[0]
+    loss_rel = abs(l0["loss"] - l0["loss_unsharded"]) \
+        / abs(l0["loss_unsharded"])
+    out["lm"] = {"ranks": lm, "loss_rel_diff": loss_rel}
+    print(f"longctx (b) TransformerLM over seq=2 (dim {DIM}, {HEADS} heads, "
+          f"{SEQ_LAYERS} layers, T={SEQ_T}): the split step's loss "
+          f"{l0['loss']:.6f} vs the unsharded step's "
+          f"{l0['loss_unsharded']:.6f} ({loss_rel:.3e}, limit "
+          f"{TP_LOSS_RTOL}; f32 {l0['loss_f32']:.6f}); the updated "
+          f"parameters differ from the unsharded step's by at most "
+          f"{l0['seq_distance']:.3e}, bf16's own distance (the f32 step's) "
+          f"{l0['bf16_distance']:.3e} (limit {TP_PARAM_BF16_STEPS}x it); "
+          f"flash launches {[r['launches'] for r in lm]}; the split step "
+          f"{[round(r['step_s'], 3) for r in lm]} s, of it in collectives "
+          f"{[round(r['collective_s'], 3) for r in lm]} s, split "
+          f"{[{k: round(v, 3) for k, v in r['split'].items()} for r in lm]};"
+          f" peak memory "
+          f"{[r['max_memory_allocated'] for r in lm]} bytes")
+    require(loss_rel <= TP_LOSS_RTOL, f"longctx lm loss: {out['lm']}")
+    require(l0["seq_distance"] <= TP_PARAM_BF16_STEPS * l0["bf16_distance"],
+            f"longctx lm parameters: {out['lm']}")
+    require(all(n > 0 for r in lm for n in r["launches"].values()),
+            f"longctx lm launches: {out['lm']}")
+
+    pipe = [r["pipeline"] for r in ranks]
+    p0 = pipe[0]
+    out["pipeline"] = pipe
+    print(f"longctx (c) pipeline_apply over 2 Blocks at dim {DIM}, stage=2, "
+          f"{PIPE_MICRO} microbatches of 1x{PIPE_T}: against the blocks in "
+          f"order, outputs differ by at most {p0['out_max_abs_diff']:.3e} "
+          f"({p0['out_steps_used']:.3f} of one bf16 step), gradients by "
+          f"{p0['grad_rel_l2']:.3e} relative L2 (limit {PIPE_GRAD_REL:.3e}); "
+          f"flash launches a rank {[r['launches'] for r in pipe]}; forward+"
+          f"backward {[round(r['wall_s'], 4) for r in pipe]} s, of it in "
+          f"the exchanges {[round(r['exchange_s'], 4) for r in pipe]} s")
+    require(p0["out_steps_used"] <= 1.0 and p0["grad_rel_l2"]
+            <= PIPE_GRAD_REL, f"longctx pipeline: {p0}")
+    ticks = PIPE_MICRO + 1
+    require(all(r["launches"] == dict.fromkeys(KERNELS, ticks)
+                for r in pipe), f"longctx pipeline launches: {pipe}")
+
+    out["estimator"] = pipeline_estimator()
+    out["example"] = long_context_example()
+    counts = launches(fa)
+    print(f"longctx launches of the flash kernels in the driver: {counts}")
+    require(not any(counts.values()), f"phase 15's driver launched {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"longctx phase: {out['phase_s']:.3f} s")
+    print("longctx " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -4493,9 +4974,10 @@ def main() -> int:
         free_memory()
         examples = run_examples(fa, etl, tmp)
         free_memory()
-        gang, sharding = run_gang(
+        gang, (sharding, longctx) = run_gang(
             fa, examples, tmp,
-            lambda phase13, frames: run_sharding(fa, phase13, frames, tmp))
+            lambda phase13, frames: (run_sharding(fa, phase13, frames, tmp),
+                                     run_long_context(fa)))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the profiled epochs replay graphs: the idle share of a graphed epoch
@@ -4507,7 +4989,8 @@ def main() -> int:
                                      "dispatch": dispatch,
                                      "serving": serving, "gbdt": gbdt,
                                      "examples": examples, "gang": gang,
-                                     "sharding": sharding}))
+                                     "sharding": sharding,
+                                     "longctx": longctx}, default=str))
     free_memory()
     lm = run_lm(fa, device)
     free_memory()
@@ -4529,6 +5012,12 @@ def main() -> int:
         # phase 14 (d): each tensor rank's attention at HEADS / 2 heads
         k["launches_tensor_parallel"] = [
             r["launches"][k["name"]] for r in sharding["lm"]["ranks"]]
+        # phase 15 (b) and (c), a rank: the TransformerLM's step over
+        # seq=2 (the ring) and pipeline_apply over stage=2
+        k["launches_ring"] = [r["launches"][k["name"]]
+                              for r in longctx["lm"]["ranks"]]
+        k["launches_pipeline"] = [r["launches"][k["name"]]
+                                  for r in longctx["pipeline"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

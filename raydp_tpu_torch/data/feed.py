@@ -294,6 +294,11 @@ class GangShardIterator:
     extent (``RDT_TRAIN_PAD_TAIL``), which its own gang iterator breaks by
     dropping the tail. Without it the tail drops (``total // B`` batches),
     as the reference's iterator does.
+
+    ``seq_split=(block, n)``: dim 1 of every ndim >= 2 leaf is cut to its
+    ``block``-th of ``n`` blocks — the rank's part of a batch laid out
+    ``batch_sharding(mesh, seq=True)`` (dim 0 over the data axes, dim 1
+    over ``seq``).
     """
 
     def __init__(
@@ -307,6 +312,7 @@ class GangShardIterator:
         seed: int = 0,
         pad_remainder: bool = False,
         row_range: Optional[Tuple[int, int]] = None,
+        seq_split: Optional[Tuple[int, int]] = None,
     ):
         if not (0 <= rank < world_size):
             raise ValueError(f"rank {rank} out of range for world {world_size}")
@@ -331,6 +337,7 @@ class GangShardIterator:
         self.row_range = (int(lo), int(hi))
         self.per_rank = int(hi) - int(lo)
         self.pad_remainder = pad_remainder
+        self.seq_split = seq_split
         self._starts = np.cumsum([0] + list(dataset.block_sizes()))
         self.total = int(self._starts[-1])
         # decoded-block cache across epochs (HostBatchIterator's trick):
@@ -420,8 +427,23 @@ class GangShardIterator:
             np.random.RandomState(self.seed).shuffle(order)
         for k in order:
             batch = self._slice(int(k))
+            if self.seq_split is not None:
+                batch = {n: _seq_block(a, *self.seq_split)
+                         for n, a in batch.items()}
             yield pad_batch(batch, self.per_rank) \
                 if self.pad_remainder else batch
+
+
+def _seq_block(a: np.ndarray, block: int, n: int) -> np.ndarray:
+    """Block ``block`` of ``n`` of dim 1 of an ndim >= 2 leaf (the seq
+    split, ``batch_sharding(mesh, seq=True)``); 1-D leaves whole."""
+    if a.ndim < 2:
+        return a
+    if a.shape[1] % n:
+        raise ValueError(f"dim 1 of a batch leaf {a.shape} does not split "
+                         f"over the seq extent {n}")
+    per = a.shape[1] // n
+    return a[:, block * per:(block + 1) * per]
 
 
 class ResidentEpoch:

@@ -278,6 +278,10 @@ _ALL_METRICS = [
        "this process's devices, read off XLA's memory_analysis — the "
        "activation-residency measure accumulation/remat/seq-sharding "
        "drive down."),
+    _m("train_pipeline_stages", GAUGE, "1", "training",
+       "Pipeline stages the current fit's GPipe schedule runs over (the "
+       "mesh's stage extent; set only when training a PipelineModel — the "
+       "accum microbatches double as its pipeline microbatches)."),
 ]
 
 METRICS: Dict[str, Metric] = {m.name: m for m in _ALL_METRICS}
@@ -347,6 +351,10 @@ _ALL_SPANS = [
        "Compilation + activation-residency analysis of the accumulated "
        "train step (the lax.scan over microbatches; covers the "
        "memory_analysis read behind train_activation_bytes_per_process)."),
+    _s("train:pipeline", "training",
+       "Compilation + activation-residency analysis of the pipelined "
+       "(stage-stacked shard_map GPipe) train step — the train:accum twin "
+       "for stage>1 fits."),
 ]
 
 SPANS: Dict[str, Span] = {s.name: s for s in _ALL_SPANS}

@@ -7,13 +7,14 @@
 - :mod:`gbdt` — histogram gradient-boosted trees (``fit_gbdt``,
   ``GBDTModel``), trained on the card;
 - :mod:`layers` — the Flax layers they share;
-- :mod:`convert` — Flax variable trees → the port's state_dicts, and a
+- :mod:`convert` — Flax variable trees (a ``PipelineModel``'s stacked
+  ones too) → the port's state_dicts, and a
   reference forest → the port's ``GBDTModel``.
 """
 
 from raydp_tpu_torch.models.convert import (
     dlrm_params_from_flax, gbdt_from_reference, mlp_variables_from_flax,
-    transformer_params_from_flax,
+    pipeline_params_from_flax, transformer_params_from_flax,
 )
 from raydp_tpu_torch.models.dlrm import (
     DLRM, criteo_batch_preprocessor, dlrm_param_rules,
@@ -28,4 +29,5 @@ __all__ = ["DLRM", "GBDTModel", "MLP", "NYCTaxiModel", "TransformerLM",
            "criteo_batch_preprocessor", "dlrm_param_rules",
            "dlrm_params_from_flax", "fit_gbdt", "gbdt_from_reference",
            "lm_loss", "lm_loss_fused", "mlp_variables_from_flax",
-           "transformer_param_rules", "transformer_params_from_flax"]
+           "pipeline_params_from_flax", "transformer_param_rules",
+           "transformer_params_from_flax"]

@@ -52,6 +52,14 @@ def dlrm_params_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     return _flatten(params)
 
 
+def pipeline_params_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The reference ``PipelineModel``'s params (``{"embed", "stage_stack",
+    "head"}``, the layers' parameters stacked on a leading axis) → the
+    port's ``PipelineModel`` state_dict: ``stage_stack.Dense_0.kernel``
+    [n_layers, in, out] is ``params["stage_stack"]["Dense_0"]["kernel"]``."""
+    return _flatten(params)
+
+
 def gbdt_from_reference(fields: Mapping):
     """The reference ``GBDTModel``'s fields (a mapping of numpy arrays and
     scalars, e.g. ``dataclasses.asdict`` of it) → the port's

@@ -20,16 +20,30 @@ subtle the port copies them:
   while :func:`lm_loss_fused` multiplies the float32 hidden states by the
   float32 kernel.
 
-Attention: ``"flash"`` (the Hopper kernel on CUDA, its plain version on the
-CPU), ``"dense"`` (reference path), ``"auto"`` (flash on CUDA, dense on the
-CPU). The sequence-sharded ``"ring"`` path and ``mesh`` are not ported yet
-(ROADMAP item 13). :func:`transformer_param_rules` splits the model over a
-mesh's ``tensor`` axis (:mod:`raydp_tpu_torch.parallel.shard`).
+Attention: ``"ring"`` (exact attention over a sequence split across the
+``seq`` axis of ``mesh``: :func:`~raydp_tpu_torch.ops.ring_attention.
+ring_attention`), ``"flash"`` (the Hopper kernel on CUDA, its plain version
+on the CPU), ``"dense"`` (reference path), ``"auto"`` (ring when ``mesh``
+has a ``seq`` extent above 1, else flash on CUDA, dense on the CPU).
+
+Under a ``mesh`` with a ``seq`` extent above 1 every rank of the axis feeds
+its block of each sequence (``tokens[:, i·T/n:(i+1)·T/n]`` on seq rank
+``i``) and gets its block of the logits: RoPE takes the tokens' global
+positions, attention is the ring, and :func:`lm_loss` /
+:func:`lm_loss_fused` with ``mesh=`` take the next rank's first token as the
+last position's target and divide by the global count (the data axes'
+rows too), which the reference's GSPMD gives implicitly. The ranks compute
+different tokens, so a replicated parameter's gradient sums over ``seq``
+(``token_axes``, read by
+:meth:`~raydp_tpu_torch.parallel.shard.ShardedModule.reduce_grads`).
+:func:`transformer_param_rules` splits the model over a mesh's ``tensor``
+axis (:mod:`raydp_tpu_torch.parallel.shard`); with ``seq`` each (seq,
+tensor) rank rings only its own heads.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +54,16 @@ from torch.utils.checkpoint import checkpoint
 from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.models.layers import _Dense, _Embed, init_parameters
 from raydp_tpu_torch.ops.flash_attention import flash_attention
-from raydp_tpu_torch.ops.ring_attention import dense_attention
+from raydp_tpu_torch.ops.ring_attention import dense_attention, ring_attention
+from raydp_tpu_torch.parallel.mesh import axis_index, data_axes, seq_extent
+from raydp_tpu_torch.parallel.shard import ppermute, sum_partials
 
-_ATTENTION_KINDS = ("auto", "flash", "dense")
+_ATTENTION_KINDS = ("auto", "ring", "flash", "dense")
+
+
+def _seq_split(mesh) -> bool:
+    """Whether ``mesh`` splits the sequence (a ``seq`` extent above 1)."""
+    return mesh is not None and seq_extent(mesh) > 1
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
@@ -81,14 +102,18 @@ class Attention(nn.Module):
                  device: DeviceLike = None):
         super().__init__()
         device = resolve_device(device)
-        if attention == "ring" or mesh is not None:
-            raise NotImplementedError(
-                "ring attention / sequence-sharded mesh: not ported yet "
-                "(ROADMAP item 13)")
         if attention not in _ATTENTION_KINDS:
             raise ValueError(f"attention must be one of {_ATTENTION_KINDS}, "
                              f"got {attention!r}")
+        if attention == "ring" and mesh is None:
+            raise ValueError("attention='ring' needs the mesh whose seq axis "
+                             "splits the sequence")
+        if attention in ("flash", "dense") and _seq_split(mesh):
+            raise ValueError(
+                f"attention={attention!r} on {mesh!r} would attend within "
+                "the rank's block of the sequence only: use 'ring' or 'auto'")
         self.attention = attention
+        self.mesh = mesh
         head_dim = dim // num_heads
         for name in ("q", "k", "v"):
             self.add_module(name, _Dense((dim,), (num_heads, head_dim),
@@ -104,15 +129,23 @@ class Attention(nn.Module):
     def _dispatch(self, device: torch.device) -> str:
         if self.attention != "auto":
             return self.attention
+        if _seq_split(self.mesh):
+            return "ring"
         return "flash" if device.type == "cuda" else "dense"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         t = x.shape[1]
         q, k, v = self.q(x), self.k(x), self.v(x)
-        positions = torch.arange(t, device=x.device)
+        # global positions: seq rank i holds tokens [i·t, (i+1)·t)
+        start = axis_index(self.mesh, "seq") * t if _seq_split(self.mesh) \
+            else 0
+        positions = torch.arange(start, start + t, device=x.device)
         q = rotary_embedding(q, positions)
         k = rotary_embedding(k, positions)
-        if self._dispatch(x.device) == "flash":
+        kind = self._dispatch(x.device)
+        if kind == "ring":
+            out = ring_attention(q, k, v, self.mesh, causal=True)
+        elif kind == "flash":
             out = flash_attention(q, k, v, causal=True)
         else:
             out = dense_attention(q, k, v, causal=True)
@@ -155,7 +188,10 @@ class TransformerLM(nn.Module):
     Parameters are created on ``device`` (default CUDA; raises without it)
     and drawn from ``generator`` (default: a generator on ``device`` seeded
     with 0) with the reference's Flax initializers; the values differ from a
-    JAX init, so parity tests load converted Flax weights instead."""
+    JAX init, so parity tests load converted Flax weights instead.
+
+    With a ``mesh`` that splits the sequence, each seq rank passes its
+    block of the tokens [B, T/n] (see the module docstring)."""
 
     def __init__(self, vocab_size: int, dim: int = 256, num_heads: int = 4,
                  num_layers: int = 2, mlp_ratio: int = 4,
@@ -166,6 +202,8 @@ class TransformerLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.num_layers = num_layers
+        #: the mesh axes over which the ranks compute different tokens
+        self.token_axes = ("seq",) if _seq_split(mesh) else ()
         self.embed = _Embed(vocab_size, dim, dtype, device)
         for i in range(num_layers):
             self.add_module(f"block_{i}", Block(
@@ -213,11 +251,54 @@ def transformer_param_rules(axis: str = "tensor"):
     ]
 
 
-def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy (shifted); tokens [B, T], logits [B, T, V]."""
+def _row_axes(mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` over which ranks hold different tokens of the
+    batch: the data axes and ``seq``, where above 1."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in (*data_axes(mesh), "seq") if mesh.shape[a] > 1)
+
+
+def _next_targets(tokens: torch.Tensor, mesh) -> Tuple[torch.Tensor, int]:
+    """Each local position's next-token target [B, T_local] and how many
+    positions score: under a sequence split the last position's target is
+    the next seq rank's first token, and the last rank's final position has
+    none."""
+    if not _seq_split(mesh):
+        return tokens[:, 1:].long(), tokens.shape[1] - 1
+    first_of_next = ppermute(tokens[:, :1].contiguous(), "seq", mesh,
+                             shift=-1)
+    targets = torch.cat([tokens[:, 1:], first_of_next], dim=1).long()
+    last = axis_index(mesh, "seq") == seq_extent(mesh) - 1
+    return targets, tokens.shape[1] - int(last)
+
+
+def _global_count(tokens: torch.Tensor, mesh) -> int:
+    """B·(T−1) of the global batch the rank holds a block of."""
+    b, t = tokens.shape
+    return b * mesh.extent(data_axes(mesh)) * (t * seq_extent(mesh) - 1)
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """Next-token cross entropy (shifted); tokens [B, T], logits [B, T, V].
+
+    With a ``mesh`` whose data or seq axes split the batch, tokens and
+    logits are the rank's block (rows over the data axes, positions over
+    ``seq``) and the result is the GLOBAL loss, the mean over the global
+    batch's B·(T−1) positions, on every rank; each rank's backward gives
+    its own positions' share of the gradient (sum them over those axes, as
+    :meth:`~raydp_tpu_torch.parallel.shard.ShardedModule.reduce_grads`
+    does)."""
     vocab = logits.shape[-1]
-    return F.cross_entropy(logits[:, :-1].reshape(-1, vocab),
-                           tokens[:, 1:].reshape(-1).long())
+    axes = _row_axes(mesh)
+    if not axes:
+        return F.cross_entropy(logits[:, :-1].reshape(-1, vocab),
+                               tokens[:, 1:].reshape(-1).long())
+    targets, n = _next_targets(tokens, mesh)
+    total = F.cross_entropy(logits[:, :n].reshape(-1, vocab),
+                            targets[:, :n].reshape(-1), reduction="sum")
+    return sum_partials(total / _global_count(tokens, mesh), axes, mesh)
 
 
 def _chunk_ce_sum(x: torch.Tensor, kernel: torch.Tensor,
@@ -230,7 +311,7 @@ def _chunk_ce_sum(x: torch.Tensor, kernel: torch.Tensor,
 
 def lm_loss_fused(hidden: torch.Tensor, lm_head_kernel: torch.Tensor,
                   tokens: torch.Tensor, chunk: int = 1024,
-                  remat: bool = True) -> torch.Tensor:
+                  remat: bool = True, mesh=None) -> torch.Tensor:
     """Next-token cross entropy with the lm_head applied per T-chunk, so the
     [B, T, V] float32 logits never exist at once (peak B×chunk×V).
 
@@ -241,10 +322,13 @@ def lm_loss_fused(hidden: torch.Tensor, lm_head_kernel: torch.Tensor,
     backward. The last chunk may be shorter; the reference pads it and masks
     the padding out, which has the same value and gradient.
     ``hidden`` [B, T, D] from ``model(tokens, return_hidden=True)``;
-    ``lm_head_kernel`` [D, V] = ``model.lm_head.kernel``."""
-    b, t, _ = hidden.shape
-    x, y = hidden[:, :-1], tokens[:, 1:].long()
-    n = t - 1
+    ``lm_head_kernel`` [D, V] = ``model.lm_head.kernel``. ``mesh`` as in
+    :func:`lm_loss`."""
+    axes = _row_axes(mesh)
+    y, n = _next_targets(tokens, mesh)
+    count = _global_count(tokens, mesh) if axes \
+        else tokens.shape[0] * n
+    x, y = hidden[:, :n], y[:, :n]
     kernel = lm_head_kernel.to(hidden.dtype)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for start in range(0, n, chunk):
@@ -254,4 +338,6 @@ def lm_loss_fused(hidden: torch.Tensor, lm_head_kernel: torch.Tensor,
                 _chunk_ce_sum, *args, use_reentrant=False)
         else:
             total = total + _chunk_ce_sum(*args)
-    return total / (b * n)
+    if axes:
+        return sum_partials(total / count, axes, mesh)
+    return total / count

@@ -340,7 +340,8 @@ def flash_attention(q, k, v, causal: bool = True,
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
 
     def to3(x):
-        return x.transpose(1, 2).reshape(b * h, t, d)
+        # at B = 1 the reshape is a strided view; the kernels read rows
+        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
     out3 = _Flash.apply(to3(q), to3(k), to3(v), scale, causal, block_k)
     return out3.reshape(b, h, t, d).transpose(1, 2)

@@ -79,6 +79,9 @@ class CommClock:
 
     def __init__(self):
         self.seconds = 0.0
+        #: bytes this process sent by neighbour exchange
+        #: (:func:`~raydp_tpu_torch.parallel.shard.ppermute`), never reset
+        self.sent_bytes = 0
 
     def take(self) -> float:
         seconds, self.seconds = self.seconds, 0.0

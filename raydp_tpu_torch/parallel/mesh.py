@@ -2,13 +2,14 @@
 
 Axis convention (sizes multiply to the number of ranks), the reference's:
 
-- ``stage``   — pipeline parallel (not ported yet: ROADMAP item 12d);
+- ``stage``   — pipeline parallel (:mod:`raydp_tpu_torch.parallel.pipeline`);
 - ``data``    — data parallel: batch dim split, params replicated, grads
   summed;
 - ``fsdp``    — params and optimizer state split over this axis, gathered
   before use; the batch is split over it too;
 - ``expert``  — expert parallel (DLRM's embedding rows);
-- ``seq``     — sequence parallel (not ported yet: ROADMAP item 13);
+- ``seq``     — sequence parallel (ring attention,
+  :mod:`raydp_tpu_torch.ops.ring_attention`);
 - ``tensor``  — tensor parallel (Megatron-style column/row splits).
 
 The reference runs one process over many devices and GSPMD inserts the
@@ -29,6 +30,7 @@ a plain ``dict`` of sizes and needs no process group. Ported from the
 reference's module: :data:`AXES`, :class:`MeshSpec` (as it is),
 :func:`make_mesh`, :func:`data_axes`, :func:`batch_sharding`,
 :func:`seq_extent`, :func:`stage_extent`, :func:`replicated`,
+:func:`axis_index` (``lax.axis_index``),
 :func:`param_sharding_rules` and :func:`shard_params`. ``vary_manual`` is
 not: it marks a value as varying over ``shard_map``'s manual axes, a JAX
 type-system shim with nothing to mark in eager torch.
@@ -267,18 +269,22 @@ def stage_extent(mesh) -> int:
     return mesh_sizes(mesh)["stage"]
 
 
+def axis_index(mesh: Mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis`` (``lax.axis_index`` under
+    ``shard_map``): which block of a dim split over ``axis`` it holds."""
+    return mesh.coords[axis]
+
+
 def batch_sharding(mesh, extra_batch_axes: Sequence[str] = (),
                    seq: bool = False) -> tuple:
     """The spec of a batch-leading array: dim 0 over the data axes (plus
-    any ``extra_batch_axes`` folded into the same dim). ``seq=True`` under
-    a >1 ``seq`` extent would add dim 1 over ``seq``: not ported yet
-    (ROADMAP item 13)."""
+    any ``extra_batch_axes`` folded into the same dim); ``seq=True`` under
+    a >1 ``seq`` extent adds dim 1 over ``seq`` (the sequence dim of a
+    long-context batch, or the feature dim of a tabular one)."""
     axes = tuple(data_axes(mesh)) + tuple(extra_batch_axes)
     entry = axes if len(axes) > 1 else axes[0]
     if seq and seq_extent(mesh) > 1:
-        raise NotImplementedError(
-            "batch_sharding(seq=True) over a >1 seq extent: sequence "
-            "sharding is not ported yet (ROADMAP item 13)")
+        return (entry, "seq")
     return (entry,)
 
 

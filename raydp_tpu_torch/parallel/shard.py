@@ -1,5 +1,10 @@
 """The sharded train state and the collectives of a sharded step.
 
+The collectives along a dim (:func:`gather_dim`, :func:`reduce_scatter_dim`)
+and the neighbour exchange (:func:`ppermute`, ``lax.ppermute``: the ring's
+K/V rotation and the pipeline's stage hop) come first, then their
+autograd forms.
+
 The reference places each leaf of its train state under a
 ``NamedSharding`` and lets GSPMD insert the collectives. The port's rank
 holds one device, so :class:`ShardedModule` holds, for every parameter of a
@@ -31,9 +36,15 @@ backward hands the shard its gradient:
   the rank's own heads. A table split by rows looks up the ids in its
   block, zero elsewhere, and sums the rows over the ranks.
 
+A leaf split over ``stage`` on its leading dim (a
+:class:`~raydp_tpu_torch.train.torch_estimator.PipelineModel`'s
+``stage_stack``) stays split: the rank applies its stage's run of layers
+(:mod:`raydp_tpu_torch.parallel.pipeline`).
+
 After the backward, :meth:`ShardedModule.reduce_grads` sums each gradient
-over the batch axes (data, fsdp) its spec does not split — what the
-gather's backward has not summed yet — with one collective per group. An
+over the batch axes (data, fsdp, and the module's ``token_axes``) its spec
+does not split — what the gather's backward has not summed yet — with one
+collective per group. An
 explicit spec that does not divide its dim raises, as the reference's
 ``device_put`` does; the role policy never produces one.
 """
@@ -111,6 +122,67 @@ def all_reduce_sum(t: torch.Tensor, axes: Sequence[str],
                    mesh: Mesh) -> torch.Tensor:
     """The sum of ``t`` over ``axes``' ranks (a new tensor)."""
     return gang.all_reduce_(t.contiguous().clone(), mesh.group(axes))
+
+
+def exchange(tensors: Sequence[torch.Tensor], axis: str, mesh: Mesh,
+             shift: int = 1) -> List[torch.Tensor]:
+    """Send each of ``tensors`` to the rank ``shift`` places on along
+    ``axis`` and receive the same shapes from the rank ``shift`` places
+    back, cyclically — one ``batch_isend_irecv`` for all of them. Under
+    ``gloo`` a CUDA tensor travels through the host (gloo's point-to-point
+    moves host memory); under ``nccl`` it stays on the card. A size-1 axis
+    (or a whole turn) hands the tensors back."""
+    import torch.distributed as dist
+
+    n = mesh.shape[axis]
+    if n == 1 or shift % n == 0:
+        return list(tensors)
+    members = mesh.members((axis,))
+    me = mesh.coords[axis]
+    dst, src = members[(me + shift) % n], members[(me - shift) % n]
+    group = mesh.group((axis,))
+    staged = any(t.is_cuda for t in tensors) \
+        and dist.get_backend(group) == "gloo"
+    sends = [(t.cpu() if staged else t).contiguous() for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = [dist.P2POp(dist.isend, t, dst, group) for t in sends] + \
+        [dist.P2POp(dist.irecv, t, src, group) for t in recvs]
+    t0 = time.perf_counter()
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    gang.COMM.seconds += time.perf_counter() - t0
+    gang.COMM.sent_bytes += sum(t.numel() * t.element_size() for t in sends)
+    if staged:
+        recvs = [r.to(t.device) for r, t in zip(recvs, tensors)]
+    return recvs
+
+
+class _PPermute(torch.autograd.Function):
+    """``lax.ppermute`` by a cyclic shift along one axis; its transpose is
+    the opposite shift."""
+
+    @staticmethod
+    def forward(ctx, t, axis, mesh, shift):
+        ctx.axis, ctx.mesh, ctx.shift = axis, mesh, shift
+        return exchange([t], axis, mesh, shift)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (exchange([g], ctx.axis, ctx.mesh, -ctx.shift)[0], None,
+                None, None)
+
+
+def ppermute(t: torch.Tensor, axis: str, mesh: Mesh,
+             shift: int = 1) -> torch.Tensor:
+    """The neighbour exchange (``lax.ppermute`` with the permutation
+    ``i -> i + shift``): rank ``i`` along ``axis`` sends ``t`` to
+    ``i + shift`` and returns what ``i - shift`` sent, cyclically.
+    Differentiable: the backward is the same exchange with ``-shift``.
+    Every rank of the axis must call it, in the same order; a size-1 axis
+    is the identity."""
+    if mesh.shape[axis] == 1:
+        return t
+    return _PPermute.apply(t, axis, mesh, shift)
 
 
 class _GatherParam(torch.autograd.Function):
@@ -194,6 +266,42 @@ class _ScatterToSplit(torch.autograd.Function):
         return gather_dim(g, g.ndim + s.pos, s.axes, s.mesh), None
 
 
+class _Along:
+    """The layout the split autograd functions read: ``axes``, ``mesh`` and
+    ``pos``, the split dim counted from the end."""
+
+    def __init__(self, axes: Sequence[str], mesh: Mesh, pos: int = -1):
+        self.axes, self.mesh, self.pos = tuple(axes), mesh, pos
+
+
+def copy_to(t: torch.Tensor, axes: Sequence[str], mesh: Mesh
+            ) -> torch.Tensor:
+    """``t``, replicated over ``axes``, used by ranks that compute different
+    parts: the backward sums its gradient over those ranks."""
+    return _CopyToSplit.apply(t, _Along(axes, mesh))
+
+
+def sum_partials(t: torch.Tensor, axes: Sequence[str], mesh: Mesh
+                 ) -> torch.Tensor:
+    """The sum of the ranks' partial ``t`` over ``axes``; the backward hands
+    each partial the (replicated) gradient."""
+    return _ReduceFromSplit.apply(t, _Along(axes, mesh))
+
+
+def scatter_to(t: torch.Tensor, dim: int, axes: Sequence[str], mesh: Mesh
+               ) -> torch.Tensor:
+    """The rank's block of ``t``'s ``dim`` split over ``axes``; the backward
+    gathers the blocks' gradients."""
+    return _ScatterToSplit.apply(t, _Along(axes, mesh, dim - t.ndim))
+
+
+def gather_from(t: torch.Tensor, dim: int, axes: Sequence[str], mesh: Mesh
+                ) -> torch.Tensor:
+    """The blocks of ``t``'s ``dim`` split over ``axes``, gathered whole;
+    the backward takes the rank's block of the (replicated) gradient."""
+    return _GatherFromSplit.apply(t, _Along(axes, mesh, dim - t.ndim))
+
+
 class TensorSplit:
     """How a layer computes on its shard (set as the layer's ``split``).
 
@@ -241,6 +349,9 @@ def _compute_split(owner: nn.Module, attr: str, spec: tuple
     or None (every split is gathered for the use)."""
     from raydp_tpu_torch.models.layers import _Dense, _Embed
 
+    if spec and spec[0] == "stage":
+        # a pipeline's stage-stacked leaf: the stage applies its own run
+        return 0, "stage"
     if isinstance(owner, _Dense) and attr == "kernel":
         for d, entry in enumerate(spec):
             if entry == "tensor":
@@ -316,7 +427,7 @@ class ShardedModule(nn.Module):
             owner_name, _, attr = name.rpartition(".")
             owner = module.get_submodule(owner_name)
             computed = _compute_split(owner, attr, spec)
-            if computed is not None:
+            if computed is not None and computed[1] != "stage":
                 owner.split = _split_of(owner, *computed, mesh)
             gathered = [(d, _axes_of(e)) for d, e in enumerate(spec)
                         if e is not None
@@ -351,8 +462,12 @@ class ShardedModule(nn.Module):
 
     def reduce_grads(self) -> None:
         """Sum each gradient over the batch axes its spec does not split
-        (one flat all-reduce per group of parameters)."""
-        batch = [a for a in data_axes(self.mesh) if self.mesh.shape[a] > 1]
+        (one flat all-reduce per group of parameters): the data axes, and
+        the axes the module names in ``token_axes`` (a sequence-split LM's
+        ``seq``: its ranks compute different tokens)."""
+        axes = data_axes(self.mesh) + tuple(
+            getattr(self.module, "token_axes", ()))
+        batch = [a for a in dict.fromkeys(axes) if self.mesh.shape[a] > 1]
         by_rest: Dict[tuple, list] = {}
         for name, p in self.module.named_parameters():
             if p.requires_grad:

@@ -1,7 +1,8 @@
 """raydp_tpu_torch.train — the estimator, its metrics and checkpoints.
 
 - :mod:`torch_estimator` — :class:`TorchEstimator` (fit / fit_on_frame
-  / predict / get_model / partial_fit, the port of ``FlaxEstimator``);
+  / predict / get_model / partial_fit, the port of ``FlaxEstimator``) and
+  :class:`PipelineModel`, the layer-list model the GPipe schedule trains;
 - :mod:`gbdt_estimator` — :class:`GBDTEstimator` (histogram trees on the
   card; fit / fit_on_frame / predict / get_model / load_model);
 - :mod:`step_graph` — the step runner that replays a captured train or
@@ -20,9 +21,9 @@ from raydp_tpu_torch.train.estimator import (
 from raydp_tpu_torch.train.gbdt_estimator import GBDTEstimator
 from raydp_tpu_torch.train.metrics import Metric, build_metrics
 from raydp_tpu_torch.train.torch_estimator import (
-    TorchEstimator, TrainingResult, TrainState,
+    PipelineModel, TorchEstimator, TrainingResult, TrainState,
 )
 
 __all__ = ["EstimatorInterface", "FrameEstimatorInterface", "GBDTEstimator",
-           "Metric", "TorchEstimator", "TrainState", "TrainingResult",
-           "build_metrics"]
+           "Metric", "PipelineModel", "TorchEstimator", "TrainState",
+           "TrainingResult", "build_metrics"]

@@ -99,9 +99,21 @@ BatchNorm's statistics count the real rows only). A plain ``fit`` runs on
 a world-1 mesh: a ``mesh_spec`` with an extent above 1 raises the
 reference's ``ValueError``; ``fit(mesh=)`` takes a mesh built by
 :func:`~raydp_tpu_torch.parallel.mesh.make_mesh` inside the ranks of the
-caller's own process group. A ``seq`` or ``stage`` extent above 1 raises
-``NotImplementedError`` (ROADMAP items 13 and 12d); so does
-``PipelineModel``, which is not ported.
+caller's own process group.
+
+A ``seq`` extent above 1 splits dim 1 of the batch's ndim >= 2 leaves over
+``seq`` in the feed (``seq_sharded``; the reference's
+``batch_sharding(mesh, seq=True)``), and the step gathers them whole at
+entry, so the model sees every row as the reference's GSPMD shows it the
+global array; the seq ranks then compute alike, and their gradients are not
+summed. A ``stage`` extent above 1 trains a :class:`PipelineModel` through
+the GPipe schedule (:mod:`raydp_tpu_torch.parallel.pipeline`): each rank
+holds its stage's run of the stacked layers (the role policy splits
+``stage_stack`` over ``stage``), ``accum_steps`` is the microbatch count,
+remat is set per segment (``embed``, ``stage_stack``, ``head``), and the
+``train_pipeline_stages`` gauge and the ``train:pipeline`` span are
+emitted; any other model on a staged mesh raises the reference's
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -131,10 +143,12 @@ from raydp_tpu_torch.device import DeviceLike, resolve_device
 from raydp_tpu_torch.log import get_logger
 from raydp_tpu_torch.parallel import gang
 from raydp_tpu_torch.parallel.mesh import (
-    Mesh, MeshSpec, as_mesh_spec, data_axes, make_mesh, seq_extent,
-    stage_extent,
+    Mesh, MeshSpec, as_mesh_spec, axis_index, data_axes, make_mesh,
+    seq_extent, stage_extent,
 )
-from raydp_tpu_torch.parallel.shard import ShardedModule, placement
+from raydp_tpu_torch.parallel.shard import (
+    ShardedModule, gather_dim, placement,
+)
 from raydp_tpu_torch.parallel.roles import (
     addressable_nbytes, apply_remat, parse_remat_policy, remat_mode_for_role,
     segment_role,
@@ -323,16 +337,24 @@ def _host_stats(stats) -> Dict[str, np.ndarray]:
                 else np.asarray(v, np.float32)) for k, v in stats.items()}
 
 
-def _make_apply(split_batch, compute_dtype, remat_mode: str = "none"):
+def _make_apply(split_batch, compute_dtype, remat_mode: str = "none",
+                seq_mesh: Optional[Mesh] = None):
     """Build THE forward of the train and eval steps — one source for the
     split/cast/mode/squeeze policy; the train forward runs under
     ``remat_mode`` (:func:`~raydp_tpu_torch.parallel.roles.apply_remat`).
+    ``seq_mesh``: the feed split dim 1 of the batch's ndim >= 2 leaves over
+    its ``seq`` axis; they are gathered whole before the preprocessor and
+    the model, which see every rank's row as the reference's GSPMD shows
+    them the global array.
 
     Returns ``apply_fn(model, batch, train) -> (preds_f32, labels)``."""
     train_forward = apply_remat(lambda model, inputs: model(inputs),
                                 remat_mode)
 
     def apply_fn(model, batch, train: bool):
+        if seq_mesh is not None:
+            batch = {k: gather_dim(v, 1, ("seq",), seq_mesh) if v.ndim >= 2
+                     else v for k, v in batch.items()}
         inputs, labels = split_batch(batch)
         inputs = _cast_floating(inputs, compute_dtype)
         model.train(train)
@@ -540,22 +562,25 @@ def _all_reduce_sums(acc: Accumulators, group) -> None:
             gang.all_reduce_(t, group)
 
 
-def _check_mesh(mesh: Mesh) -> None:
-    """Refuse the axes the port does not shard over yet."""
-    if seq_extent(mesh) > 1:
-        raise NotImplementedError(
-            f"{mesh!r}: a seq extent above 1 (seq_sharded, ring attention) "
-            "is not ported yet (ROADMAP item 13)")
-    if stage_extent(mesh) > 1:
-        raise NotImplementedError(
-            f"{mesh!r}: a stage extent above 1 (the pipeline schedule) is "
-            "not ported yet (ROADMAP item 12d)")
-
-
 def _sharded(mesh: Optional[Mesh]) -> bool:
     """Whether the mesh splits the model (not only the batch)."""
     return mesh is not None and any(
-        mesh.shape[a] > 1 for a in ("fsdp", "expert", "tensor"))
+        mesh.shape[a] > 1 for a in ("fsdp", "expert", "tensor", "stage"))
+
+
+def _traced_once(body, span: str):
+    """``body`` whose first call runs inside the profiler span ``span`` (an
+    eager fit's first step, where a graphed one times its capture)."""
+    first = [True]
+
+    def run(batch):
+        if not first[0]:
+            return body(batch)
+        first[0] = False
+        with profiler.trace(span, "training"):
+            return body(batch)
+
+    return run
 
 
 def _layout(state: TrainState, mesh: Mesh) -> Dict[str, tuple]:
@@ -578,6 +603,153 @@ def _chain(body):
             body({n: t[i] for n, t in stack.items()})
 
     return chain
+
+
+class PipelineModel(nn.Module):
+    """A layer-list model for pipeline-parallel placement (the reference's
+    ``PipelineModel``).
+
+    ``layers`` is a sequence of stage-homogeneous modules (identical
+    parameter names and shapes — the transformer-block case); ``embed`` and
+    ``head`` are optional entry and exit modules that run OUTSIDE the
+    pipeline (``embed`` maps the batch inputs to the hidden array the
+    layers consume). The layers' parameters are stacked on a leading axis
+    under ``stage_stack`` (:func:`~raydp_tpu_torch.parallel.pipeline.
+    stack_stage_params`; ``stage_stack.<name>`` is the reference's
+    ``params["stage_stack"][...]``), which the role policy splits over a
+    mesh's ``stage`` axis, so each rank holds its stage's contiguous run;
+    ``layers[0]`` is the template each layer's parameters run through.
+    The stack is a copy of the layers' parameters when the model is built:
+    draw (or load) them first.
+
+    ``forward`` is the sequential host form that ``predict`` and
+    ``export_serving`` use — row-identical to the pipelined forward. The
+    estimator trains through the GPipe schedule
+    (:func:`~raydp_tpu_torch.parallel.pipeline.pipeline_apply`) on any mesh:
+    its ``accum_steps`` microbatches are the pipeline's. Modules with
+    buffers (BatchNorm's running statistics) are refused: running stats
+    cannot hop stages."""
+
+    def __init__(self, layers: Sequence[nn.Module],
+                 embed: Optional[nn.Module] = None,
+                 head: Optional[nn.Module] = None):
+        super().__init__()
+        if not layers:
+            raise ValueError("PipelineModel needs at least one layer")
+        from raydp_tpu_torch.parallel.pipeline import stack_stage_params
+
+        layers = list(layers)
+        parts = [("embed", embed), *((f"layers[{i}]", m)
+                                     for i, m in enumerate(layers)),
+                 ("head", head)]
+        for where, m in parts:
+            if m is not None and any(True for _ in m.buffers()):
+                raise ValueError(
+                    f"PipelineModel {where} carries mutable collections "
+                    f"['batch_stats'] (e.g. BatchNorm batch_stats): running "
+                    f"stats cannot hop pipeline stages — use stat-free blocks "
+                    f"(LayerNorm)")
+        self.embed = embed
+        self.head = head
+        stacked = stack_stage_params(
+            [{n: p.detach() for n, p in m.named_parameters()}
+             for m in layers])
+        self.stage_stack = nn.Module()
+        for name, t in stacked.items():
+            *path, leaf = name.split(".")
+            owner = self.stage_stack
+            for part in path:
+                if part not in owner._modules:
+                    owner.add_module(part, nn.Module())
+                owner = owner._modules[part]
+            owner.register_parameter(leaf, nn.Parameter(t.clone()))
+        self._names = list(stacked)
+        # the template is no submodule: its own parameters never train
+        self._template = (layers[0],)
+        #: set by the estimator for training: ``(mesh, n_micro, seg_modes)``
+        self.schedule: Optional[tuple] = None
+
+    @property
+    def num_layers(self) -> int:
+        return int(self._stack()[self._names[0]].shape[0])
+
+    def _stack(self) -> Dict[str, torch.Tensor]:
+        """The stacked parameters by their names in a layer (the rank's run
+        of layers under a stage-split :class:`ShardedModule`)."""
+        out = {}
+        for name in self._names:
+            t = self.stage_stack
+            for part in name.split("."):
+                t = getattr(t, part)
+            out[name] = t
+        return out
+
+    def _layer(self, params: Dict[str, torch.Tensor],
+               x: torch.Tensor) -> torch.Tensor:
+        from torch.func import functional_call
+
+        return functional_call(self._template[0], params, (x,))
+
+    def forward(self, inputs):
+        if self.schedule is not None:
+            return self._pipelined(inputs, *self.schedule)
+        h = self.embed(inputs) if self.embed is not None else inputs
+        stack = self._stack()
+        for i in range(self.num_layers):
+            h = self._layer({n: p[i] for n, p in stack.items()}, h)
+        return self.head(h) if self.head is not None else h
+
+    def _pipelined(self, inputs, mesh: Mesh, n_micro: int,
+                   seg_modes: Dict[str, str]):
+        """The training forward (the reference's ``_make_pipeline_apply``):
+        the batch in ``n_micro`` microbatches through the GPipe schedule,
+        each segment under its own remat mode."""
+        from raydp_tpu_torch.parallel.pipeline import pipeline_apply
+
+        def run(fn, segment, *args):
+            return apply_remat(fn, seg_modes.get(segment, "none"))(*args)
+
+        h = inputs
+        if self.embed is not None:
+            h = run(lambda m, x: m(x), "embed", self.embed, h)
+        rows = int(h.shape[0])
+        if rows % n_micro:
+            raise ValueError(
+                f"pipeline microbatching: accum_steps={n_micro} does not "
+                f"divide the batch dimension {rows} — pad-and-mask the tail "
+                f"(RDT_TRAIN_PAD_TAIL) or drop it (drop_last=True)")
+        h_micro = h.reshape((n_micro, rows // n_micro) + tuple(h.shape[1:]))
+        layer = apply_remat(self._layer, seg_modes.get("stage_stack", "none"))
+        out = pipeline_apply(layer, self._stack(), h_micro, mesh,
+                             stage_local=True, split_data=False)
+        h = out.reshape((rows,) + tuple(out.shape[2:]))
+        if self.head is not None:
+            h = run(lambda m, x: m(x), "head", self.head, h)
+        return h
+
+
+def _pipeline_model(model: nn.Module) -> Optional[PipelineModel]:
+    """The :class:`PipelineModel` a (sharded) train-state model is, if any."""
+    inner = model.module if isinstance(model, ShardedModule) else model
+    return inner if isinstance(inner, PipelineModel) else None
+
+
+def _check_pipeline(model: nn.Module, sizes: Dict[str, int]) -> None:
+    """Refuse a placement the schedule cannot run, before any step: layers
+    that do not divide over the stages, a plain module on a staged mesh."""
+    n_stages = sizes["stage"]
+    if isinstance(model, PipelineModel):
+        n_layers = model.num_layers
+        if n_stages > 1 and n_layers % n_stages:
+            raise ValueError(
+                f"PipelineModel has {n_layers} layers; the mesh's "
+                f"stage={n_stages} must divide them (each stage applies "
+                f"a contiguous run of layers)")
+    elif n_stages > 1:
+        raise ValueError(
+            f"mesh has stage={n_stages} but the model is not a "
+            f"PipelineModel: stage-stacked placement needs the layer-list "
+            f"description (raydp_tpu_torch.train.PipelineModel)")
 
 
 class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
@@ -667,18 +839,16 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         self._mesh_spec = mesh_spec
         #: ordered (path substring, spec) rules, ahead of the role policy
         self.param_rules = param_rules
-        #: shard sequence dims over the mesh's seq axis (None: whenever it
-        #: is > 1); a seq extent above 1 is refused (ROADMAP item 13)
+        #: split dim 1 of the batch's ndim >= 2 leaves over the mesh's seq
+        #: axis (None: whenever it is > 1; False opts out)
         self.seq_sharded = seq_sharded
         self._result: Optional[TrainingResult] = None
 
     def _build_mesh(self) -> Mesh:
         """THIS process's mesh: the one passed, else ``mesh_spec`` over the
         process group's world (every rank of it must call this)."""
-        mesh = self._mesh if self._mesh is not None else make_mesh(
+        return self._mesh if self._mesh is not None else make_mesh(
             self._mesh_spec, device_type=self.device.type)
-        _check_mesh(mesh)
-        return mesh
 
     def _resolve_accum(self) -> int:
         """The effective accumulation factor for THIS fit (the constructor
@@ -700,15 +870,50 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 else str(knobs.get("RDT_TRAIN_REMAT"))).lower()
         return parse_remat_policy(spec)
 
-    def _make_forward(self, model: nn.Module) -> Tuple[Callable, int, str]:
+    def _use_seq(self, mesh: Optional[Mesh]) -> bool:
+        """Does THIS fit split the batch's dim 1 over the mesh's seq axis?
+        Auto-on when the mesh has a >1 seq extent; ``seq_sharded=False``
+        opts out (and True without a seq extent stays off — there is
+        nothing to split over)."""
+        if mesh is None or seq_extent(mesh) <= 1:
+            return False
+        return True if self.seq_sharded is None else bool(self.seq_sharded)
+
+    def _make_forward(self, model: nn.Module, mesh: Optional[Mesh] = None
+                      ) -> Tuple[Callable, int, str]:
         """THIS fit's forward and the step's knobs around it — one source
-        shared by ``fit`` and ``partial_fit``: ``(apply_fn, accum,
-        remat_mode)``. One device, one monolithic model: the mode is the
-        policy's for the model's dominant parameter role."""
+        shared by ``fit`` and ``partial_fit``: ``(apply_fn, step_accum,
+        remat_mode)``; publishes ``train_accum_steps`` (and, for a
+        :class:`PipelineModel`, ``train_pipeline_stages``).
+
+        A monolithic model runs under the policy's mode for its dominant
+        parameter role, ``accum`` microbatches a step. A
+        :class:`PipelineModel` trains through the GPipe schedule over
+        ``mesh``'s stage axis (a world-1 mesh: one stage) with the
+        ``accum`` microbatches as the pipeline's, so the step runs with
+        accum 1 and no remat around the forward: each segment (``embed``,
+        ``stage_stack``, ``head``) runs under its own role's mode inside
+        it."""
         accum = self._resolve_accum()
-        mode = remat_mode_for_role(self._resolve_remat(), segment_role(model))
-        return (_make_apply(self._split_batch, self.compute_dtype, mode),
-                accum, mode)
+        policy = self._resolve_remat()
+        rdt_metrics.set_gauge("train_accum_steps", accum)
+        if mesh is None:
+            mesh = Mesh(as_mesh_spec(self._mesh_spec).sizes(1))
+        seq_mesh = mesh if self._use_seq(mesh) else None
+        pipe = _pipeline_model(model)
+        if pipe is None:
+            mode = remat_mode_for_role(policy, segment_role(model))
+            return (_make_apply(self._split_batch, self.compute_dtype, mode,
+                                seq_mesh), accum, mode)
+        seg_modes = {name: remat_mode_for_role(policy, segment_role(sub))
+                     for name, sub in (("embed", pipe.embed),
+                                       ("stage_stack", pipe.stage_stack),
+                                       ("head", pipe.head))
+                     if sub is not None}
+        pipe.schedule = (mesh, accum, seg_modes)
+        rdt_metrics.set_gauge("train_pipeline_stages", stage_extent(mesh))
+        return (_make_apply(self._split_batch, self.compute_dtype,
+                            seq_mesh=seq_mesh), 1, "none")
 
     # ------------------------------------------------------------------ build
     def _init_state(self, graphed: bool = False,
@@ -724,6 +929,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 else self._model_creator()
             model = model.to(self.device)
             if mesh is not None:
+                # before the stage split, which leaves each rank its run
+                _check_pipeline(model, mesh.shape)
                 model = ShardedModule(model, mesh, self.param_rules)
             factory = self._optimizer or self._optimizer_creator \
                 or _default_optimizer
@@ -778,7 +985,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                                               dispatch=dispatch)
                 return self._result
         else:
-            _check_mesh(Mesh(as_mesh_spec(self._mesh_spec).sizes(1)))
+            # the reference's ValueError for sizes that need more devices
+            as_mesh_spec(self._mesh_spec).sizes(1)
         columns = self._columns()
         ckpt_dir = self.checkpoint_dir or tempfile.mkdtemp(prefix="rdt-ckpt-")
 
@@ -845,7 +1053,9 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         then restarts it, and every rank resumes from the last checkpoint
         — up to ``max_retries`` restarts. Afterwards ``predict``,
         ``get_model``, ``export_serving`` and ``partial_fit`` work as after
-        ``fit``: the chief's trained state is loaded into a model here.
+        ``fit``: the chief's trained state is loaded into a model here,
+        and this process's ``train_accum_steps`` and
+        ``train_pipeline_stages`` gauges take the chief's values.
 
         ``worker_env`` adds/overrides rank-process environment (a ``None``
         value removes the variable).
@@ -871,8 +1081,13 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         if self._mesh is not None:
             raise ValueError("fit_gang builds its mesh inside the ranks; "
                              "pass mesh_spec instead of a driver-built mesh")
-        # the layout, checked before any rank starts
-        _check_mesh(Mesh(as_mesh_spec(self._mesh_spec).sizes(num_workers)))
+        # the layout, the step's knobs and the placement, checked before
+        # any rank starts
+        sizes = as_mesh_spec(self._mesh_spec).sizes(num_workers)
+        self._resolve_accum()
+        self._resolve_remat()
+        if self._model is not None:
+            _check_pipeline(self._model, sizes)
         ckpt_dir = self.checkpoint_dir or tempfile.mkdtemp(prefix="rdt-gang-")
         if self.checkpoint_dir:
             # gang ranks run with resume=True by design (the restart loop
@@ -923,6 +1138,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                                e, attempts, max_retries)
 
         chief = results[0]
+        for name, value in chief["gauges"].items():
+            rdt_metrics.set_gauge(name, value)
         state = self._init_state()
         state.load_state_dict(chief["state"])
         state.specs = chief["specs"]
@@ -963,6 +1180,11 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             if self.device.type == "cuda" else None,
             "local_shapes": {n: tuple(p.shape) for n, p in
                              state.model.state_dict().items()}}
+        # the fit's geometry, which the driver's gauges then report
+        gauges = rdt_metrics.snapshot()["gauges"]
+        out["gauges"] = {g: gauges[g][""] for g in
+                         ("train_accum_steps", "train_pipeline_stages")
+                         if "" in gauges.get(g, {})}
         whole = state.state_dict()
         if isinstance(state.model, ShardedModule):
             # a collective: every rank takes part
@@ -984,6 +1206,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         counts once."""
         columns = self._columns()
         rows = process_local_batch_rows(mesh, self.batch_size)
+        seq = (axis_index(mesh, "seq"), seq_extent(mesh)) \
+            if self._use_seq(mesh) else None
         pad = bool(knobs.get("RDT_TRAIN_PAD_TAIL")) \
             and _loss_takes_mask(self._loss)
         feed = DeviceFeed(
@@ -992,7 +1216,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             host_iter=GangShardIterator(
                 train_ds, self.batch_size, mesh.size, mesh.rank, columns,
                 shuffle=self.shuffle, seed=self.seed,
-                pad_remainder=pad and not self.drop_last, row_range=rows))
+                pad_remainder=pad and not self.drop_last, row_range=rows,
+                seq_split=seq))
         eval_feed = None
         if eval_ds is not None:
             eval_feed = DeviceFeed(
@@ -1001,7 +1226,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                 host_iter=GangShardIterator(
                     eval_ds, self.batch_size, mesh.size, mesh.rank,
                     columns, shuffle=False, seed=self.seed,
-                    pad_remainder=pad, row_range=rows))
+                    pad_remainder=pad, row_range=rows, seq_split=seq))
         return self._train_loop(feed, eval_feed, ckpt_dir,
                                 max_retries=max_retries, resume=resume,
                                 mesh=mesh)
@@ -1041,15 +1266,17 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             return state
 
         state = fresh_state()
-        apply_fn, accum, mode = self._make_forward(state.model)
-        rdt_metrics.set_gauge("train_accum_steps", accum)
+        apply_fn, accum, mode = self._make_forward(state.model, mesh)
+        pipelined = _pipeline_model(state.model) is not None
         train_step = _make_train_step(apply_fn, loss_fn, metrics, accum,
                                       in_gang, batch_group)
         eval_step = _make_eval_step(apply_fn, loss_fn, metrics)
         # a capture is timed and its activation bytes published (the
-        # reference's compile span) only when accumulation or remat is
-        # engaged, as the reference reads its memory analysis
-        span = "train:accum" if accum > 1 or mode != "none" else None
+        # reference's compile span) only when accumulation, remat or the
+        # pipeline is engaged, as the reference reads its memory analysis;
+        # an eager pipelined fit times its first step under the span
+        span = "train:pipeline" if pipelined else \
+            "train:accum" if accum > 1 or mode != "none" else None
 
         acc = Accumulators(metrics, device)
         eacc = Accumulators(metrics, device, count=True)
@@ -1084,6 +1311,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             if eval_plan is not None:
                 evals = StepRunner(lambda _: estep(eval_plan.next_batch()),
                                    device, "resident eval step")
+            if pipelined and train is None:
+                step = _traced_once(step, span)
             return step, estep, train, evals
 
         step, estep, run_train, run_eval = bind(state)
@@ -1329,7 +1558,6 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             return None
         state = self._init_state()
         apply_fn, accum, _ = self._make_forward(state.model)
-        rdt_metrics.set_gauge("train_accum_steps", accum)
         train_step = _make_train_step(apply_fn, _resolve_loss(self._loss),
                                       self._metrics, accum)
         acc = Accumulators(self._metrics, self.device)

@@ -210,3 +210,55 @@ def test_nyctaxi_main_trains_a_gang_of_two(capsys):
     assert all(np.isfinite(h["eval_loss"]) and h["allreduce_time_s"] > 0
                for h in out["history"])
     assert "'epoch': 1" in capsys.readouterr().out
+
+
+#: the long-context example at a CPU size: the reference's flags
+LC_ARGS = ["--seq-len", "64", "--batch", "4", "--dim", "32", "--heads", "2",
+           "--layers", "1", "--vocab", "64", "--steps", "3",
+           "--seq-parallel", "2"]
+LC_LOSS_RTOL = 1e-5         # the LM step's loss (test_torch_seq_sharded.py)
+
+
+def test_longcontext_lm_seq_parallel_matches_the_reference_step0(
+        capsys, monkeypatch):
+    """``longcontext_lm.py --seq-parallel 2``: the reference's example on
+    its 8 CPU devices (data=4 × seq=2) and the port's as a gang of two CPU
+    ranks (seq=2, ring attention), from the same Flax init. Step 0's loss
+    is the reference's to rtol 1e-5 and prints the same line; the loss
+    falls over the steps."""
+    import sys
+
+    from raydp_tpu.models import TransformerLM as JaxLM
+    from raydp_tpu.models import lm_loss as jax_lm_loss
+    from raydp_tpu_torch.examples import longcontext_lm
+    from raydp_tpu_torch.models import transformer_params_from_flax
+
+    spec = importlib.util.spec_from_file_location(
+        "ref_longcontext_lm", os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "examples", "longcontext_lm.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    monkeypatch.setattr(sys, "argv", ["longcontext_lm.py", *LC_ARGS])
+    ref.main()
+    ref_out = capsys.readouterr().out
+    ref_step0 = next(line for line in ref_out.splitlines()
+                     if line.startswith("step 0:"))
+
+    # the example's model, tokens and init (PRNGKey(0)), unsharded
+    model = JaxLM(vocab_size=64, dim=32, num_heads=2, num_layers=1)
+    start = np.random.RandomState(0).randint(0, 64, size=(4, 1))
+    tokens = jnp.asarray((start + np.arange(64)[None]) % 64, jnp.int32)
+    params = model.init(jax.random.PRNGKey(0), tokens)["params"]
+    want = float(jax_lm_loss(model.apply({"params": params}, tokens),
+                             tokens))
+
+    out = longcontext_lm.main([*LC_ARGS, "--device", "cpu"],
+                              init_state=transformer_params_from_flax(
+                                  jax.tree.map(np.asarray, params)))
+    printed = capsys.readouterr().out
+    assert out["mesh"]["seq"] == 2 and len(out["ranks"]) == 2
+    np.testing.assert_allclose(out["losses"][0], want, rtol=LC_LOSS_RTOL)
+    assert ref_step0 in printed.splitlines()
+    assert out["losses"][-1] < out["losses"][0]
+    assert "tokens/s" in printed

@@ -323,3 +323,26 @@ def test_flash_grads_through_autograd_match_jax(causal, t, block_k):
                                    (96, 64), (1, 8)])
 def test_fit_block_matches_jax(t, blk):
     assert tfa._fit_block(t, blk) == jfa._fit_block(t, blk)
+
+
+def test_kernel_inputs_are_contiguous_at_batch_one(monkeypatch):
+    """The kernels read contiguous rows and refuse strided tensors: at B = 1
+    the [B, T, H, D] → [BH, T, D] reshape is a strided view, so the wrapper
+    must copy it. The forward and backward receive contiguous q, k, v (and
+    out, do) whatever B is."""
+    seen = []
+
+    def checked(fn):
+        def run(*args, **kwargs):
+            seen.append(all(a.is_contiguous() for a in args
+                            if isinstance(a, torch.Tensor)))
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(tfa, "_fwd", checked(tfa._fwd))
+    monkeypatch.setattr(tfa, "_bwd", checked(tfa._bwd))
+    for b in (1, 2):
+        q, k, v = [torch.from_numpy(x).requires_grad_()
+                   for x in _qkv(b, 32, 2, 16, seed=b)]
+        tfa.flash_attention(q, k, v).sum().backward()
+    assert seen == [True] * 4

@@ -386,7 +386,8 @@ def test_pad_tail_knob_restores_drop():
 def test_plain_fit_on_a_sharded_spec_raises():
     """A plain fit runs on one device: a mesh with an extent above 1
     raises the reference's ValueError; fit_gang refuses a driver-built
-    mesh, and the axes not ported yet."""
+    mesh, a staged mesh for a model that is not a PipelineModel, and sizes
+    that do not multiply to the ranks."""
     from raydp_tpu.parallel.mesh import MeshSpec as RefMeshSpec
 
     ds = TableDataset(_linear_tables(256, 1))
@@ -399,9 +400,7 @@ def test_plain_fit_on_a_sharded_spec_raises():
 
     with pytest.raises(ValueError, match="builds its mesh inside the ranks"):
         _port_estimator(mesh=make_mesh()).fit_gang(ds, num_workers=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _port_estimator(mesh_spec=dict(seq=2)).fit_gang(ds, num_workers=2)
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    with pytest.raises(ValueError, match="not a PipelineModel"):
         _port_estimator(mesh_spec=dict(stage=2)).fit_gang(ds, num_workers=2)
     with pytest.raises(ValueError, match="needs 4 devices, have 2"):
         _port_estimator(mesh_spec=dict(data=2, fsdp=2)).fit_gang(

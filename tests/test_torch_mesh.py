@@ -112,8 +112,9 @@ def test_mesh_layout_matches_the_reference():
     assert mesh.size == 1 and mesh.device_mesh is None
     assert Mesh(dict(fsdp=2, tensor=2), rank=3).coords == dict(
         stage=0, data=0, fsdp=1, expert=0, seq=0, tensor=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        batch_sharding(Mesh(dict(data=4, seq=2)), seq=True)
+    seq = dict(data=4, seq=2)
+    assert batch_sharding(Mesh(seq), seq=True) == tuple(
+        ref_batch(_ref_mesh(seq), seq=True).spec) == ("data", "seq")
 
 
 @pytest.mark.parametrize("sizes", SPECS, ids=str)

@@ -1336,9 +1336,8 @@ PORT_KNOB_DOCS = {
         "Whether a rank worker calls "
         "torch.distributed.init_process_group().",
 }
-#: the reference's telemetry the port does not emit yet: the pipeline
-#: schedule's gauge and span (ROADMAP 12d)
-TELEMETRY_NOT_PORTED = {"train_pipeline_stages", "train:pipeline"}
+#: the reference's telemetry the port does not emit yet: none
+TELEMETRY_NOT_PORTED = set()
 
 
 def _standalone(package: str, module: str):

@@ -5,7 +5,7 @@ failing rank, placement-group accounting, ranks reading the object store,
 stop's SIGKILL escalation, and the process group: the reference's
 ``jax_distributed`` psum across two ranks becomes a ``torch_distributed``
 gloo ``all_reduce`` (``[3.0, 3.0]`` on both ranks). The ring-attention case
-waits for the port's ring attention (ROADMAP item 13).
+is in ``tests/test_torch_seq_sharded.py``.
 
 The ``rt`` fixture starts the port's runtime; conftest's ``runtime``
 fixture starts the reference's, and the two never run at once. Then the

@@ -170,12 +170,30 @@ def test_converter_output_is_checked_on_load(change):
 
 
 def test_ring_and_mesh_are_not_ported_yet():
-    with pytest.raises(NotImplementedError):
+    """The ring and the mesh are ported now (tests/test_torch_seq_sharded.py
+    runs them over ranks): ``attention="ring"`` needs a mesh, a mesh that
+    splits the sequence refuses the attentions that would see only the
+    rank's block, and over a world-1 mesh the ring is the flash path —
+    the dense logits within 1e-4 (f32 sums in another order)."""
+    from raydp_tpu_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="needs the mesh"):
         TransformerLM(64, dim=16, num_heads=2, num_layers=1,
                       attention="ring", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TransformerLM(64, dim=16, num_heads=2, num_layers=1,
-                      mesh=object(), device="cpu")
+    for kind in ("dense", "flash"):
+        with pytest.raises(ValueError, match="'ring' or 'auto'"):
+            TransformerLM(64, dim=16, num_heads=2, num_layers=1,
+                          attention=kind, mesh=Mesh(dict(seq=2)),
+                          device="cpu")
+    tokens = torch.from_numpy(_tokens(2, 16, 64)).long()
+    dense = TransformerLM(64, dim=16, num_heads=2, num_layers=1,
+                          attention="dense", device="cpu")
+    ring = TransformerLM(64, dim=16, num_heads=2, num_layers=1,
+                         attention="ring", mesh=Mesh(dict()), device="cpu")
+    ring.load_state_dict(dense.state_dict())
+    with torch.no_grad():
+        np.testing.assert_allclose(ring(tokens).numpy(),
+                                   dense(tokens).numpy(), atol=1e-4)
 
 
 def _jax_loss(jm, kind, tokens):
