@@ -1,7 +1,22 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch / H100 port (raydp_tpu_torch) on one CUDA card.
+"""Smoke run of the PyTorch / H100 port (raydp_tpu_torch) on one CUDA card,
+or, with phase 16, on four cards of one host.
 
-    python3 chip_smoke.py [--baseline DIR]
+    python3 chip_smoke.py [--baseline DIR] [--phases N,N,...]
+
+With no ``--phases`` it runs phases 1-15 on one card. ``--phases`` runs
+phase 1 and only the phases named (16 only when named: it needs four
+cards and fails on fewer); a phase whose input comes from one not named
+computes that input itself (13 runs the NYCTaxi example for its
+single-process losses, 14 and 16 fit the in-process NYCTaxi run on
+phase 13's frames), and a rate printed only as a yardstick from one not
+named prints as nan. Phases 13-15 hold the same checks on any number of
+cards: a gang takes one card a rank under nccl when the host has a card
+for every rank (``fit_gang``'s rule), else its ranks share the cards
+under gloo, and only what belongs to one backend (how a line names the
+ranks' layout) follows the backend the gang reports. The jobs that ask
+for ``gpus_per_process`` themselves (13 (a), 14 (d), (f), 15 (a)-(c))
+keep their backend.
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    port's CUDA kernels from ``raydp_tpu_torch/csrc`` for sm_90a (and, with
@@ -170,12 +185,13 @@
     (``[1.0, 1.0]``, ``[3.0, 3.0]``), with each backend, start wall and the
     card's free memory before, with the ranks and after; (c)
     ``nyctaxi_mlp.py``'s ``main`` with ``--num-workers 2`` at its defaults
-    (two ranks on the card, gloo, eager) against phase 12's single-process
+    (two ranks sharing one card: gloo, eager) against phase 12's
+    single-process
     run on the same rows: every epoch of both, epoch 0's train loss within
     ``GANG_EXAMPLE_RTOL`` (the two visit the rows in different orders; the
     eval losses printed),
     the steady rate, the wall split (gang start, the ranks' store reads,
-    epochs) and the share of a step in ``all_reduce``; then on a
+    epochs) and the host wall of its ``all_reduce`` calls; then on a
     100,000-row ETL session's frames: (b) ``fit_gang(num_workers=1)`` under
     nccl with ``steps_per_dispatch=8``, unshuffled, its chains captured as
     CUDA graphs (replays > 0), against the in-process streaming fit with
@@ -191,7 +207,8 @@
     on phase 13's frames, (a) phase 13 (b)'s 1-rank nccl gang with
     ``mesh_spec=MeshSpec()``, a world-1 mesh: graphs replayed, losses
     bitwise (b)'s; (b) ``NYCTaxiModel`` at full width under
-    ``mesh_spec=dict(fsdp=2)``, two ranks on the card (gloo), unshuffled,
+    ``mesh_spec=dict(fsdp=2)``, two ranks (sharing one card: gloo),
+    unshuffled,
     2 epochs: train losses within ``GANG_RESUME_RTOL`` of 13 (d)'s
     in-process fit on the same rows in the same order, each rank's
     parameters, buffers and Adam moments at most ``SHARD_BYTES_LIMIT`` of
@@ -212,8 +229,8 @@
     ``fit_gbdt(mesh=)`` on two ranks at phase 11's configuration against
     the in-process fit (phase 11's split and margin limits). Each line
     prints the ranks' bytes and ``memory_allocated``, the steady rate, the
-    share of a step in collectives and the gang starts; then the phase's
-    wall;
+    host wall of the collective calls (their time under gloo, their
+    enqueue under nccl) and the gang starts; then the phase's wall;
 15. the seq and stage axes, on two ranks sharing the card (gloo): (a)
     ``ring_attention`` at the flagship shape (B=2, T=8192, H=8, D=128,
     bf16, causal) over ``seq=2``, its output and q/k/v gradients held
@@ -230,20 +247,52 @@
     ``PipelineModel`` against ``fit`` (rtol 5e-4) and the
     ``train_pipeline_stages`` gauge; (e) ``examples/longcontext_lm.py
     --seq-parallel 2``: the loss falls; then the phase's wall;
-16. prints one JSON line of kernel results (with each kernel's launches a
-    rank in 15 (b), ``launches_ring``, and 15 (c), ``launches_pipeline``),
-    then the last line ``{"ok": true, "device": {...}}``.
+16. one card a rank, under nccl (only when named; fails on fewer than
+    ``CARD_RANKS`` = 4 cards): (a) a 4-rank ``gpus_per_process=1`` job,
+    every rank nccl on its own card (four distinct UUIDs), an all_reduce
+    of ones ``[4.0, 4.0]``, and what this process holds on card 0, which
+    rank 0 shares; on phase 13's frames, at ``steps_per_dispatch=8`` with
+    the chains captured, ``CARD_EPOCHS`` = 3 epochs a gang (epoch 1's
+    first chain profiled, so the steady rate is epoch 2's): (b) the
+    replicated NYCTaxi gang of 2 ranks
+    (losses within ``GANG_RESUME_RTOL`` of 13 (d)'s in-process fit); (c)
+    14 (b)'s fsdp=2 gang, replays in every epoch and eager only the
+    warm-up chain and each epoch's remainder, against the same gang at
+    k=1 (eager) within ``SAME_PATH_RTOL`` and the in-process fit within
+    ``GANG_RESUME_RTOL``, each rank's bytes within ``SHARD_BYTES_LIMIT``,
+    peak ``memory_allocated`` captured against eager; (d) the same on
+    ``{"data": 2, "fsdp": 2}`` over four ranks, the one case that needs
+    four cards; (e) 14 (c)'s expert=2 DLRM, captured, within
+    ``SHARD_DLRM_RTOL``; (f) the TransformerLM at bench.py's full width
+    and depth (8 layers, B=2, T=8192) under ``tensor=2``, then ``seq=2``,
+    two Adam steps against the unsharded steps on rank 0's card: the
+    losses within ``TP_LOSS_RTOL``, each step's gradients a parameter
+    within ``TP_PARAM_BF16_STEPS`` times bf16's own distance (from f32
+    flash steps), each rank's
+    flash launches (16 of each under tensor; 16 and 32 under the causal
+    ring); (g) 15 (a)'s ring at the flagship shape; (h) 15 (d)'s staged
+    ``PipelineModel`` in chains of ``PIPE_EST_CHAIN``, captured; (i) 14
+    (e)'s crash and resume, captured, with the retry's wall. Each gang's
+    nccl kernels' share of one replayed chain's device time a rank (a
+    ``torch.profiler`` trace after a host barrier), and (f)'s and (g)'s of
+    a profiled step; then the phase's wall;
+17. prints the cards again, one JSON line of kernel results (with each
+    kernel's launches a rank in 14 (d), ``launches_tensor_parallel``, 15
+    (b), ``launches_ring``, 15 (c), ``launches_pipeline``, and in 16 (f),
+    ``launches_nccl_tensor`` and ``launches_nccl_seq``, for the phases
+    that ran), then the last line ``{"ok": true, "device": {...}}``.
 
 The phases run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
-3, 4: phases 5-15 are bound by the host's kernel launches, so their timed
-fits and requests come before any ``torch.profiler`` session of the
-process, and the profiled epochs of 5-6 (one per model, in fits of their
-own, replaying graphs) and phase 11's profiled round after them. Every
-kernel launch counter is set to 0 just before each driven path (3, both
-modes of 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15) and read just
-after; 5-15 run no attention in this process and must launch none; the
-ranks of 14 (d) and 15 count their own launches, each case's from 0. Any failed check exits non-zero; so does a machine without
-CUDA.
+16, 3, 4: phases 5-16 are bound by the host's kernel launches, so their
+timed fits and requests come before any ``torch.profiler`` session of
+the process (16's traces run in its ranks), and the profiled epochs of
+5-6 (one per model, in fits of their own, replaying graphs) and phase
+11's profiled round after them. Every kernel launch counter is set to 0
+just before each driven path (3, both modes of 4, 5, 6, 7, 8, 9, 10, 11,
+12, 13, 14, 15 and 16) and read just after; 5-16 run no attention in
+this process and must launch none; the ranks of 14 (d), 15 and 16 (f),
+(g) count their own launches, each case's from 0. Any failed check exits
+non-zero; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -259,6 +308,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1848,6 +1898,8 @@ class CallClock:
 
     def __init__(self):
         self.seconds, self.last_args, self._undo = {}, {}, []
+        #: each call's wall, by label, never reset
+        self.calls = {}
 
     def wrap(self, owner, attr: str, label: str, during=None) -> None:
         real = getattr(owner, attr)
@@ -1861,8 +1913,9 @@ class CallClock:
                 with during:
                     return real(*args, **kwargs)
             finally:
-                self.seconds[label] = (self.seconds.get(label, 0.0)
-                                       + time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                self.seconds[label] = self.seconds.get(label, 0.0) + dt
+                self.calls.setdefault(label, []).append(dt)
 
         setattr(owner, attr, timed)
         self._undo.append((owner, attr, real))
@@ -3695,6 +3748,13 @@ def gang_runner(device: str = "cuda") -> dict:
     return out
 
 
+def layout(backend: str) -> str:
+    """How a gang's ranks sat, by the backend it reported (the rule of
+    ``spmd.job.gang_backend``)."""
+    return {"gloo": "sharing the card (gloo, every step eager)",
+            "nccl": "one card each (nccl)"}[backend]
+
+
 def gang_report(label: str, history: list, dispatch=None) -> None:
     for r in history:
         print(f"{label} epoch {r['epoch']}: " + json.dumps(
@@ -3774,6 +3834,8 @@ def gang_example(phase12: dict) -> dict:
         clock.restore()
     wall = time.perf_counter() - t0
     seconds = clock.take()
+    # the job fit_gang started: its backend follows the cards
+    backend = clock.last_args["start"][0].backend
     history = res["history"]
     gang_report("gang example", history)
     single = {"losses": phase12["nyctaxi"]["losses"],
@@ -3801,14 +3863,15 @@ def gang_example(phase12: dict) -> dict:
            "epoch0_eval_rel_diff": abs(history[0]["eval_loss"]
                                        - single["eval_losses"][0])
            / abs(single["eval_losses"][0])}
-    print(f"gang example: 2 ranks on one card (gloo, eager) "
+    print(f"gang example: 2 ranks, {layout(backend)}, "
           f"{out['samples_per_s_steady']:.1f} samples/s steady vs phase 12's "
           f"single process {out['single_samples_per_s_steady']:.1f}; wall "
           f"{wall:.3f} s: gang start {out['start_s']:.3f} s, ranks' store "
           f"reads (epoch 0's decode) {out['store_read_s']:.3f} s, epochs "
           f"{epochs_s:.3f} s, the ranks' whole run {out['run_s']:.3f} s, stop "
-          f"{out['stop_s']:.3f} s; all_reduce {out['allreduce_share']:.1%} "
-          f"of a steady step; epoch 0 train loss differs by "
+          f"{out['stop_s']:.3f} s; host wall in all_reduce calls "
+          f"{out['allreduce_share']:.1%} of a steady step's ({COMM_WALL}); "
+          f"epoch 0 train loss differs by "
           f"{out['epoch0_train_rel_diff']:.3e} (limit {GANG_EXAMPLE_RTOL}), "
           f"eval by {out['epoch0_eval_rel_diff']:.3e} (not gated)")
     require(len(history) == 5 and out["losses"][-1] < out["losses"][0],
@@ -4024,9 +4087,15 @@ def rank_report(label: str, result, replicated_bytes: int) -> list:
     return shares
 
 
+#: what a rank's host wall in collective calls measures
+COMM_WALL = "their time under gloo, their enqueue under nccl"
+
+
 def collective_share(history: list) -> float:
-    """The share of the steady epochs' dispatch wall spent in collectives
-    (the ranks' host wall of them: gloo runs every one on the host)."""
+    """The share of the steady epochs' dispatch wall the ranks' host spent
+    in collective calls: the collectives' time under gloo, which runs every
+    one on the host; under nccl only their enqueue (phase 16 reads the
+    nccl kernels' share from a device trace instead)."""
     steady = history[1:] or history
     return sum(r["allreduce_time_s"] for r in steady) \
         / sum(r["dispatch_time_s"] for r in steady)
@@ -4112,9 +4181,10 @@ def shard_fsdp(train, test, features, phase13: dict) -> dict:
            "specs": {k: v for k, v in state.specs.items()
                      if k.endswith("kernel")},
            "eval_vs_predict_rel_diff": eval_vs_predict}
-    print(f"shard fsdp=2: 2 ranks on one card (gloo, eager) "
-          f"{out['samples_per_s_steady']:.1f} samples/s steady, collectives "
-          f"{out['collective_share']:.1%} of a steady epoch's dispatch; gang "
+    print(f"shard fsdp=2: 2 ranks, {layout(gang.ranks[0]['backend'])}, "
+          f"{out['samples_per_s_steady']:.1f} samples/s steady, host wall in "
+          f"collective calls {out['collective_share']:.1%} of a steady "
+          f"epoch's dispatch ({COMM_WALL}); gang "
           f"start {out['start_s']:.3f} s of fit_gang {wall:.3f} s; kernel "
           f"specs {out['specs']}; train losses differ from the in-process "
           f"fit's by {[f'{v:.3e}' for v in diffs]} (limit "
@@ -4180,8 +4250,9 @@ def shard_dlrm() -> dict:
     print(f"shard dlrm expert=2: every rank holds {rows} rows of every "
           f"table; {out['samples_per_s_steady']:.1f} samples/s steady vs "
           f"in-process {out['single_samples_per_s_steady']:.1f}; "
-          f"collectives {out['collective_share']:.1%} of a steady epoch's "
-          f"dispatch; gang start {out['start_s']:.3f} s of fit_gang "
+          f"host wall in collective calls {out['collective_share']:.1%} of a "
+          f"steady epoch's dispatch ({COMM_WALL}); gang start "
+          f"{out['start_s']:.3f} s of fit_gang "
           f"{wall:.3f} s; train losses differ by "
           f"{[f'{v:.3e}' for v in diffs]} (limit {SHARD_DLRM_RTOL})")
     require(rows == [SHARD_DLRM_VOCAB // 2], f"shard dlrm rows: {out}")
@@ -4313,17 +4384,23 @@ def shard_lm() -> dict:
 
 
 def gbdt_rank(ctx) -> dict:
-    """(f) in one rank: fit_gbdt on this rank's half of the rows."""
+    """(f) in one rank: fit_gbdt on this rank's half of the rows, its
+    backend and graph replays."""
     from raydp_tpu_torch.models import fit_gbdt
     from raydp_tpu_torch.parallel import make_mesh
 
+    import torch.distributed as dist
+
     X, y = gbdt_rows()
+    times = {}
     t0 = time.perf_counter()
     model, margins, _ = fit_gbdt(X, y, num_trees=GBDT_ROUNDS,
                                  max_depth=GBDT_DEPTH, num_bins=256,
-                                 mesh=make_mesh())
+                                 mesh=make_mesh(), timings=times)
     wall = time.perf_counter() - t0
-    return {"model": model, "margins": margins, "fit_s": wall}
+    return {"model": model, "margins": margins, "fit_s": wall,
+            "backend": dist.get_backend(),
+            "graph_replays": times["graph_replays"]}
 
 
 def gbdt_rows():
@@ -4334,9 +4411,10 @@ def gbdt_rows():
 
 
 def shard_gbdt() -> dict:
-    """(f) Row-sharded GBDT: two ranks sharing the card, each with half of
-    the rows, histograms summed with one all_reduce a level, against the
-    in-process fit."""
+    """(f) Row-sharded GBDT: two ranks, each with half of the rows,
+    histograms summed with one all_reduce a level, against the in-process
+    fit: sharing the card under gloo (rounds eager) on one card, one card
+    each under nccl (rounds captured) on more."""
     from raydp_tpu_torch.models import fit_gbdt
     from raydp_tpu_torch.spmd import create_spmd_job
 
@@ -4345,7 +4423,9 @@ def shard_gbdt() -> dict:
     single, margins, _ = fit_gbdt(X, y, num_trees=GBDT_ROUNDS,
                                   max_depth=GBDT_DEPTH, num_bins=256)
     single_s = time.perf_counter() - t0
+    # one card a rank (nccl, rounds captured) where the host has two
     job = create_spmd_job("smoke-gbdt", 2, torch_distributed=True,
+                          gpus_per_process=int(torch.cuda.device_count() >= 2),
                           timeout=180)
     job.start()
     try:
@@ -4354,29 +4434,43 @@ def shard_gbdt() -> dict:
         job.stop()
     agree = forests_agree("shard gbdt 2 ranks", ranks[0]["model"], single,
                           ranks[0]["margins"], margins)
+    backends = [r["backend"] for r in ranks]
     out = {**agree, "fit_s": single_s,
            "rank_fit_s": [r["fit_s"] for r in ranks],
+           "backends": backends,
+           "graph_replays": [r["graph_replays"] for r in ranks],
            "ranks_agree": same_forest(ranks[0]["model"], ranks[1]["model"])}
     print(f"shard gbdt: {GBDT_ROWS} rows, depth {GBDT_DEPTH}, 256 bins, "
-          f"{GBDT_ROUNDS} rounds; in-process fit {single_s:.3f} s, the "
-          f"ranks' {[round(v, 3) for v in out['rank_fit_s']]} s; both ranks "
-          f"hold the same forest: {out['ranks_agree']}")
+          f"{GBDT_ROUNDS} rounds; 2 ranks, {layout(backends[0])}, graph "
+          f"replays {out['graph_replays']}; in-process fit {single_s:.3f} s, "
+          f"the ranks' {[round(v, 3) for v in out['rank_fit_s']]} s; both "
+          f"ranks hold the same forest: {out['ranks_agree']}")
     require(out["ranks_agree"], f"shard gbdt: {out}")
+    # the backend's own branch: rounds replayed under nccl, none under gloo
+    require(all((r > 0) == (b == "nccl")
+                for r, b in zip(out["graph_replays"], backends)),
+            f"shard gbdt replays: {out}")
     return out
 
 
-def shard_resume(train, test, features, tmp: str, phase13: dict) -> dict:
+def shard_resume(train, test, features, tmp: str, phase13: dict,
+                 label: str = "shard resume", chain: int = 1) -> dict:
     """(e) The sharded checkpoint: (b)'s gang for 4 epochs, rank 1 exiting
     at epoch 1 once (max_retries=1), resumed from the sharded multi-writer
-    format; the driver's restore reassembles the whole state."""
+    format; the driver's restore reassembles the whole state. The retry's
+    wall: the failed gang's stop and the second gang's start. With
+    ``chain`` > 1 (phase 16 (i), under nccl) the resumed gang's chains are
+    captured again after the restore: graphs replayed."""
     import glob
     import os
 
     from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+    from raydp_tpu_torch.spmd.job import SPMDJob
     from raydp_tpu_torch.train import checkpoint as ckpt
 
-    flag = os.path.join(tmp, "shard-crashed-once")
-    ckpt_dir = os.path.join(tmp, "shard-resume")
+    tag = "".join(c if c.isalnum() else "-" for c in label)
+    flag = os.path.join(tmp, f"{tag}-crashed-once")
+    ckpt_dir = os.path.join(tmp, tag)
 
     def crash_once(report):
         import torch.distributed as dist
@@ -4390,11 +4484,19 @@ def shard_resume(train, test, features, tmp: str, phase13: dict) -> dict:
                           mesh_spec=dict(fsdp=2))
     est.shuffle, est.callbacks, est.checkpoint_dir = \
         False, [crash_once], ckpt_dir
+    est.steps_per_dispatch = chain
+    clock = CallClock()
+    clock.wrap(SPMDJob, "start", "start")
+    clock.wrap(SPMDJob, "stop", "stop")
     with device_cache(False):
         t0 = time.perf_counter()
-        gang = est.fit_gang(train, test, num_workers=2, max_retries=1)
+        try:
+            gang = est.fit_gang(train, test, num_workers=2, max_retries=1)
+        finally:
+            clock.restore()
         wall = time.perf_counter() - t0
-    gang_report("shard resume", gang.history, gang.dispatch)
+    gang_report(label, gang.history, gang.dispatch)
+    starts, stops = clock.calls["start"], clock.calls["stop"]
     steps = sorted(glob.glob(os.path.join(ckpt_dir, "step_*")),
                    key=lambda p: int(p.rsplit("_", 1)[1]))
     latest = steps[-1]
@@ -4415,8 +4517,17 @@ def shard_resume(train, test, features, tmp: str, phase13: dict) -> dict:
            "latest": os.path.basename(latest), "manifests": manifests,
            "complete": complete, "restored_step": step,
            "restore_bitwise": bitwise, "rel_diffs": diffs,
-           "eval_vs_predict_rel_diff": eval_vs_predict}
-    print(f"shard resume: history {out['history_epochs']}; {out['latest']} "
+           "eval_vs_predict_rel_diff": eval_vs_predict,
+           "backends": [r["backend"] for r in gang.ranks],
+           "replays": [d["graph_replays"] for d in gang.dispatch],
+           "starts_s": starts, "stops_s": stops,
+           # from the failed run's end to the second gang's ranks serving
+           "retry_s": stops[0] + starts[1] if len(starts) > 1 else None}
+    print(f"{label}: backend {out['backends']}, steps_per_dispatch {chain}, "
+          f"the resumed gang's graph replays {out['replays']}; the retry "
+          f"{out['retry_s']} s (the stops {stops} s, the starts {starts} "
+          f"s); "
+          f"history {out['history_epochs']}; {out['latest']} "
           f"holds {manifests} manifests, COMPLETE {complete}; train losses "
           f"differ from the in-process fit's by "
           f"{[f'{v:.3e}' for v in diffs]} (limit {GANG_RESUME_RTOL}); the "
@@ -4424,12 +4535,15 @@ def shard_resume(train, test, features, tmp: str, phase13: dict) -> dict:
           f"bit: {bitwise}; its predict vs the last eval loss "
           f"{eval_vs_predict:.3e} (limit {GANG_EVAL_RTOL}); fit_gang "
           f"{wall:.3f} s")
-    require(out["crashed"], "shard resume: the injected crash never fired")
+    require(out["crashed"], f"{label}: the injected crash never fired")
     require(out["history_epochs"] == list(range(GANG_RESUME_EPOCHS))
-            and manifests == 2 and complete and bitwise,
-            f"shard resume: {out}")
-    require(max(diffs) <= GANG_RESUME_RTOL, f"shard resume: {out}")
-    require(eval_vs_predict <= GANG_EVAL_RTOL, f"shard resume eval: {out}")
+            and manifests == 2 and complete and bitwise
+            and len(starts) == 2, f"{label}: {out}")
+    require(max(diffs) <= GANG_RESUME_RTOL, f"{label}: {out}")
+    require(eval_vs_predict <= GANG_EVAL_RTOL, f"{label} eval: {out}")
+    if chain > 1:
+        require(all(r > 0 for r in out["replays"]),
+                f"{label}: the resumed gang replayed no graph: {out}")
     return out
 
 
@@ -4492,10 +4606,12 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def ring_case(ctx, device) -> dict:
+def ring_case(ctx, device, profile: bool = False) -> dict:
     """(a) in one rank: its block of the flagship q/k/v through the ring
     (forward and backward), gathered whole on every rank; rank 0 holds it
-    against one flash_attention call and the f32 dense run."""
+    against one flash_attention call and the f32 dense run. With
+    ``profile``, one more forward and backward runs under
+    :func:`profiled` (phase 16 (g))."""
     import torch.distributed as dist
 
     from raydp_tpu_torch.ops import flash_attention as fa
@@ -4535,6 +4651,8 @@ def ring_case(ctx, device) -> dict:
     res = {"first_wall_s": first_s, "wall_s": wall,
            "exchange_s": exchange_s, "launches": launches(fa),
            "sent_bytes": gang.COMM.sent_bytes - sent}
+    if profile:
+        _, res["device"] = profiled("ring", ring_once)
     whole = [gather_dim(x, 1, ("seq",), mesh) for x in blocks]
     if ctx.rank == 0:
         def run(fn, dtype):
@@ -4730,10 +4848,14 @@ def long_context_rank(ctx) -> dict:
             "pipeline": pipeline_case(ctx, device)}
 
 
-def pipeline_estimator() -> dict:
+def pipeline_estimator(label: str = "longctx (d)", chain: int = 1,
+                       remat: Optional[str] = None) -> dict:
     """(d) fit_gang(mesh_spec={"stage": 2}) of the reference test's
-    PipelineModel over two ranks sharing the card against fit in this
-    process, unshuffled; the driver's train_pipeline_stages gauge."""
+    PipelineModel over two ranks (sharing the card on one card, one card
+    each on more) against fit in this process, unshuffled; the driver's
+    train_pipeline_stages gauge. With ``chain`` > 1 (phase 16 (h)) the
+    gang's chains are captured under nccl: graphs replayed; ``remat``
+    recomputes every segment (both fits)."""
     import pyarrow as pa
 
     from raydp_tpu_torch import metrics as rdt_metrics
@@ -4777,11 +4899,12 @@ def pipeline_estimator() -> dict:
                               feature_columns=list(data)[:-1],
                               label_column="label", batch_size=64, seed=SEED,
                               shuffle=False, num_epochs=3, accum_steps=4,
-                              **kw)
+                              remat=remat, **kw)
 
     single = est().fit(ds)
     t0 = time.perf_counter()
-    gang = est(mesh_spec={"stage": 2}).fit_gang(ds, num_workers=2)
+    gang = est(mesh_spec={"stage": 2},
+               steps_per_dispatch=chain).fit_gang(ds, num_workers=2)
     wall = time.perf_counter() - t0
     stages = rdt_metrics.snapshot()["gauges"]["train_pipeline_stages"][""]
     diffs = [abs(a - b) / abs(b) for a, b in zip(losses_of(gang),
@@ -4789,9 +4912,13 @@ def pipeline_estimator() -> dict:
     out = {"fit_gang_s": wall, "losses": losses_of(gang),
            "single_losses": losses_of(single), "rel_diffs": diffs,
            "pipeline_stages": stages,
+           "backends": [r["backend"] for r in gang.ranks],
+           "replays": [d["graph_replays"] for d in gang.dispatch],
            "local_shapes": [r["local_shapes"]["stage_stack.Dense_0.kernel"]
                             for r in gang.ranks]}
-    print(f"longctx (d) fit_gang stage=2 of a PipelineModel: train losses "
+    print(f"{label} fit_gang stage=2 of a PipelineModel, backend "
+          f"{out['backends']}, remat {remat}, steps_per_dispatch {chain} "
+          f"(graph replays {out['replays']}): train losses "
           f"{[f'{v:.6f}' for v in out['losses']]} vs fit "
           f"{[f'{v:.6f}' for v in out['single_losses']]} (relative "
           f"{[f'{v:.3e}' for v in diffs]}, limit {PIPE_EST_RTOL}); "
@@ -4799,7 +4926,11 @@ def pipeline_estimator() -> dict:
           f"{out['local_shapes']}; fit_gang {wall:.3f} s")
     require(max(diffs) <= PIPE_EST_RTOL and stages == 2
             and out["local_shapes"] == [(2, dim, dim)] * 2,
-            f"longctx pipeline estimator: {out}")
+            f"{label} pipeline estimator: {out}")
+    if chain > 1:
+        require(all(b == "nccl" for b in out["backends"]),
+                f"{label}: backends {out['backends']}")
+        check_dispatch(label, gang, chain)
     return out
 
 
@@ -4921,6 +5052,656 @@ def run_long_context(fa) -> dict:
     return out
 
 
+# ---- phase 16: one card a rank ------------------------------------------------
+
+#: phase 16's largest gang: (a) and (d) run four ranks, one card each
+CARD_RANKS = 4
+#: (b)-(e): epochs a gang; epoch 1's first chain is profiled, so the
+#: steady rate is epoch 2's
+CARD_EPOCHS = 3
+#: (h): the staged PipelineModel's 4 steps an epoch as two chains of 2
+PIPE_EST_CHAIN = 2
+#: (f): the TransformerLM at bench.py's width and depth (bench.py:628-636),
+#: two Adam steps at phase 4's rate under tensor=2, then under seq=2
+NCCL_LM_STEPS = 2
+
+
+def host_barrier(name: str) -> None:
+    """Every rank of the process group meets here on its store, not on the
+    card: a barrier that launches no kernel, so a profiled window that
+    starts after it holds only the work that follows."""
+    import torch.distributed as dist
+
+    store = dist.distributed_c10d._get_default_store()
+    world = dist.get_world_size()
+    store.add(name, 1)
+    deadline = time.perf_counter() + 120.0
+    while store.add(name, 0) < world:
+        require(time.perf_counter() < deadline, f"host barrier {name}")
+        time.sleep(0.0005)
+
+
+def device_split(prof, wall_s: float) -> dict:
+    """The device time of a profiled window: the union of its kernel and
+    copy intervals (busy), the sum of its kernels' times, and of the
+    ``nccl*`` kernels' (the collectives and exchanges) and their share of
+    the busy time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events()
+              if e.device_type == cuda and not e.is_user_annotation]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    nccl_us = sum(e.time_range.elapsed_us() for e in events
+                  if "nccl" in e.name.lower())
+    kernel_us = sum(e.time_range.elapsed_us() for e in events)
+    return {"wall_ms": wall_s * 1e3, "busy_ms": busy_us / 1e3,
+            "kernel_ms": kernel_us / 1e3, "nccl_ms": nccl_us / 1e3,
+            "nccl_share": nccl_us / busy_us if busy_us else None,
+            "device_ops": len(events)}
+
+
+def profiled(name: str, fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` (started before a host barrier of
+    every rank, so no rank's collective waits for another's profiler to
+    start) and synchronized: (its result, :func:`device_split`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        host_barrier(name)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, device_split(prof, wall)
+
+
+class ProfileOneChain:
+    """Estimator callback, run in every rank of a gang: after epoch 0 the
+    rank's next replayed chain (epoch 1's first) runs under
+    :func:`profiled`; epoch 1's report (the chief's history) carries every
+    rank's split as ``chain_profile``."""
+
+    def __init__(self):
+        self.split = None
+
+    def __call__(self, report: dict) -> None:
+        import torch.distributed as dist
+
+        if report["epoch"] == 0:
+            self._arm()
+        elif report["epoch"] == 1:
+            splits = [None] * dist.get_world_size()
+            dist.all_gather_object(splits, self.split)
+            report["chain_profile"] = splits
+
+    def _arm(self) -> None:
+        from raydp_tpu_torch.train import step_graph
+
+        run = step_graph.StepRunner.__call__
+        callback = self
+
+        def call(runner, inputs, n_steps=1):
+            if runner._graph is None or not runner._fits(inputs):
+                return run(runner, inputs, n_steps)
+            step_graph.StepRunner.__call__ = run
+            _, callback.split = profiled(
+                "chain-profile", lambda: run(runner, inputs, n_steps))
+
+        step_graph.StepRunner.__call__ = call
+
+
+def fmt_shares(values) -> list:
+    """Shares for a print: four places, or "not measured" where the trace
+    held no device time."""
+    return ["not measured" if v is None else round(v, 4) for v in values]
+
+
+def chain_share(history: list) -> list:
+    """Each rank's nccl share of its profiled chain (epoch 1's report)."""
+    splits = history[1].get("chain_profile") if len(history) > 1 else None
+    return [s and s["nccl_share"] for s in splits] if splits else []
+
+
+def gang_of(label: str, est, train, test, num_workers: int, k: int,
+            profile: bool) -> dict:
+    """fit_gang of ``est`` at ``steps_per_dispatch=k`` (a profiled chain a
+    rank when ``profile``), unshuffled: its reports and dispatch, each
+    rank's backend, bytes and memory, the steady rate (the epochs after
+    the first, the profiled one left out) and the wall."""
+    est.shuffle, est.steps_per_dispatch = False, k
+    est.callbacks = [ProfileOneChain()] if profile else []
+    with device_cache(False):
+        t0 = time.perf_counter()
+        result = est.fit_gang(train, test, num_workers=num_workers)
+        wall = time.perf_counter() - t0
+    gang_report(label, [{k_: v for k_, v in r.items()
+                         if k_ != "chain_profile"} for r in result.history],
+                result.dispatch)
+    return {"result": result, "fit_gang_s": wall,
+            "backends": [r["backend"] for r in result.ranks],
+            "samples_per_s_steady": steady_rate(
+                [r for r in result.history[1:] if "chain_profile" not in r]),
+            "losses": losses_of(result),
+            "replays": [d["graph_replays"] for d in result.dispatch],
+            "eager_steps": [d["eager_steps"] for d in result.dispatch],
+            "capture_s": result.dispatch[0]["capture_s"],
+            "memory_allocated": [r["memory_allocated"]
+                                 for r in result.ranks],
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in result.ranks],
+            "chain_nccl_share": chain_share(result.history),
+            "chain_profile": result.history[1].get("chain_profile")
+            if len(result.history) > 1 else None}
+
+
+def card_runner() -> dict:
+    """(a) A 4-rank torch_distributed job, one card a rank: every rank
+    reports nccl and its card's UUID (four distinct), an all_reduce of ones
+    gives [4.0, 4.0]; card 0, which rank 0 shares with this process, has
+    less free memory than rank 1's card by what this process holds there."""
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    def report(ctx):
+        import os
+
+        import torch
+        import torch.distributed as dist
+
+        x = torch.ones(2, device="cuda")
+        dist.all_reduce(x)
+        free, total = torch.cuda.mem_get_info()
+        return {"backend": dist.get_backend(), "sum": x.tolist(),
+                "uuid": str(torch.cuda.get_device_properties(0).uuid),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "free_mib": free / 2 ** 20, "total_mib": total / 2 ** 20}
+
+    job = create_spmd_job("smoke-cards", CARD_RANKS, torch_distributed=True,
+                          gpus_per_process=1, timeout=180)
+    t0 = time.perf_counter()
+    job.start()
+    start_s = time.perf_counter() - t0
+    try:
+        ranks = job.run(report, timeout=180)
+    finally:
+        job.stop()
+    out = {"start_s": start_s, "ranks": ranks,
+           "driver_reserved_mib": torch.cuda.memory_reserved() / 2 ** 20,
+           # what card 0 lacks against rank 1's card: this process's
+           # context and its allocator's cache
+           "driver_on_card0_mib": ranks[1]["free_mib"] - ranks[0]["free_mib"]}
+    uuids = [r["uuid"] for r in ranks]
+    print(f"cards (a): {CARD_RANKS} ranks, backend "
+          f"{[r['backend'] for r in ranks]}, all_reduce "
+          f"{[r['sum'] for r in ranks]}, CUDA_VISIBLE_DEVICES "
+          f"{[r['visible'] for r in ranks]}, card UUIDs {uuids}; start "
+          f"{start_s:.3f} s; free MiB a rank's card "
+          f"{[round(r['free_mib']) for r in ranks]}: card 0, shared with "
+          f"this process, lacks {out['driver_on_card0_mib']:.0f} MiB "
+          f"against rank 1's (this process's allocator reserves "
+          f"{out['driver_reserved_mib']:.0f} MiB, its context the rest)")
+    require(all(r["backend"] == "nccl" and r["sum"] == [4.0, 4.0]
+                for r in ranks) and len(set(uuids)) == CARD_RANKS,
+            f"cards (a): {ranks}")
+    return out
+
+
+def captured_against_eager(label: str, make, train, test, num_workers: int,
+                           single: list, byte_limit: bool) -> dict:
+    """(c), (d): the sharded gang at k=CHAIN, captured (replays > 0, eager
+    only the warm-up chain and each epoch's remainder), against the same
+    gang at k=1 (every step eager) on the same rows within SAME_PATH_RTOL,
+    both within GANG_RESUME_RTOL of the in-process fit; each rank's bytes
+    and peak memory, captured against eager."""
+    graphed = gang_of(f"{label} k={CHAIN}", make(), train, test, num_workers,
+                      CHAIN, profile=True)
+    eager = gang_of(f"{label} k=1", make(), train, test, num_workers, 1,
+                    profile=False)
+    check_dispatch(f"{label} k={CHAIN}", graphed["result"], CHAIN)
+    state = graphed["result"].state
+    from raydp_tpu_torch.parallel import addressable_nbytes
+
+    shares = rank_report(label, graphed["result"],
+                         addressable_nbytes((state.model, state.optimizer)))
+    same = max(abs(a - b) / abs(b)
+               for a, b in zip(graphed["losses"], eager["losses"]))
+    vs_single = [abs(a - b) / abs(b)
+                 for a, b in zip(graphed["losses"], single)]
+    out = {"graphed": {k: v for k, v in graphed.items() if k != "result"},
+           "eager": {k: v for k, v in eager.items() if k != "result"},
+           "byte_shares": shares, "graphed_vs_eager": same,
+           "vs_single": vs_single}
+    print(f"{label}: {num_workers} ranks, one card each, backend "
+          f"{graphed['backends']}; k={CHAIN} captured "
+          f"{graphed['samples_per_s_steady']:.1f} samples/s steady (replays "
+          f"{graphed['replays']}, eager steps {graphed['eager_steps']}, "
+          f"capture {graphed['capture_s']:.3f} s) vs k=1 eager "
+          f"{eager['samples_per_s_steady']:.1f}; losses graphed vs eager "
+          f"{same:.3e} (limit {SAME_PATH_RTOL}), vs the in-process fit "
+          f"{[f'{v:.3e}' for v in vs_single]} (limit {GANG_RESUME_RTOL}); "
+          f"peak memory_allocated a rank captured "
+          f"{graphed['max_memory_allocated']} vs eager "
+          f"{eager['max_memory_allocated']} bytes; nccl kernels "
+          f"{fmt_shares(graphed['chain_nccl_share'])} of a replayed chain's "
+          f"device time a rank")
+    require(all(b == "nccl" for b in graphed["backends"] + eager["backends"]),
+            f"{label}: backends {graphed['backends']} {eager['backends']}")
+    require(all(r > 0 for r in graphed["replays"]),
+            f"{label}: no graph replayed: {graphed['replays']}")
+    require(all(r == 0 for r in eager["replays"]),
+            f"{label} k=1: replays {eager['replays']}")
+    require(same <= SAME_PATH_RTOL, f"{label} graphed vs eager: {out}")
+    require(max(vs_single) <= GANG_RESUME_RTOL, f"{label}: {out}")
+    if byte_limit:
+        require(max(shares) <= SHARD_BYTES_LIMIT, f"{label} bytes: {out}")
+    return out
+
+
+def nccl_replicated(train, test, features, single: list) -> dict:
+    """(b) The replicated NYCTaxi gang, 2 ranks, one card each, at
+    k=CHAIN: graphs replayed, losses within GANG_RESUME_RTOL of the
+    in-process fit."""
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+
+    got = gang_of("cards (b) replicated", build_estimator(
+        features, GANG_BATCH, CARD_EPOCHS, None), train, test, 2, CHAIN,
+        profile=True)
+    check_dispatch("cards (b)", got["result"], CHAIN)
+    diffs = [abs(a - b) / abs(b) for a, b in zip(got["losses"], single)]
+    out = {k: v for k, v in got.items() if k != "result"}
+    out["vs_single"] = diffs
+    print(f"cards (b) replicated NYCTaxi: 2 ranks, one card each, backend "
+          f"{got['backends']}, k={CHAIN} {got['samples_per_s_steady']:.1f} "
+          f"samples/s steady, replays {got['replays']}, capture "
+          f"{got['capture_s']:.3f} s; losses vs the in-process fit "
+          f"{[f'{v:.3e}' for v in diffs]} (limit {GANG_RESUME_RTOL}); nccl "
+          f"kernels {fmt_shares(got['chain_nccl_share'])} of a replayed chain's "
+          f"device time a rank; fit_gang "
+          f"{got['fit_gang_s']:.3f} s")
+    require(all(b == "nccl" for b in got["backends"])
+            and all(r > 0 for r in got["replays"]), f"cards (b): {out}")
+    require(max(diffs) <= GANG_RESUME_RTOL, f"cards (b): {out}")
+    return out
+
+
+def nccl_dlrm() -> dict:
+    """(e) Phase 14 (c)'s expert=2 DLRM on two cards at k=CHAIN, captured:
+    losses within SHARD_DLRM_RTOL of the in-process fit."""
+    from raydp_tpu_torch.data.dataset import BlockMeta, DistributedDataset
+    from raydp_tpu_torch.models import dlrm_param_rules
+    from raydp_tpu_torch.runtime.object_store import get_client
+
+    tables = criteo_tables(DLRM_ROWS, DLRM_BLOCKS, SEED)
+    refs = get_client().put_arrow_many(tables)
+    ds = DistributedDataset([BlockMeta(num_rows=t.num_rows, ref=r)
+                             for t, r in zip(tables, refs)], tables[0].schema)
+    model = dlrm_model(SHARD_DLRM_VOCAB)
+    with device_cache(False):
+        single = losses_of(dlrm_estimator(model, CARD_EPOCHS, [],
+                                          shuffle=False).fit(ds))
+    got = gang_of("cards (e) dlrm expert=2", dlrm_estimator(
+        model, CARD_EPOCHS, [], shuffle=False,
+        mesh_spec=dict(expert=2), param_rules=dlrm_param_rules("expert")),
+        ds, None, 2, CHAIN, profile=True)
+    check_dispatch("cards (e)", got["result"], CHAIN)
+    diffs = [abs(a - b) / abs(b) for a, b in zip(got["losses"], single)]
+    out = {k: v for k, v in got.items() if k != "result"}
+    out["vs_single"] = diffs
+    print(f"cards (e) DLRM expert=2: 2 ranks, one card each, backend "
+          f"{got['backends']}, k={CHAIN} {got['samples_per_s_steady']:.1f} "
+          f"samples/s steady, replays {got['replays']}, eager steps "
+          f"{got['eager_steps']}, capture {got['capture_s']:.3f} s; losses "
+          f"vs the in-process fit {[f'{v:.3e}' for v in diffs]} (limit "
+          f"{SHARD_DLRM_RTOL}); nccl kernels "
+          f"{fmt_shares(got['chain_nccl_share'])} of a replayed chain's device "
+          f"time a rank")
+    require(all(b == "nccl" for b in got["backends"])
+            and all(r > 0 for r in got["replays"]), f"cards (e): {out}")
+    require(max(diffs) <= SHARD_DLRM_RTOL, f"cards (e): {out}")
+    return out
+
+
+def grad_distances(got: dict, want: dict) -> dict:
+    """Each parameter's L2 distance between two steps' gradients, in f32."""
+    return {n: (got[n].float() - w.float()).norm().item()
+            for n, w in want.items()}
+
+
+def worst_ratio(dist: dict, own: dict) -> tuple:
+    """(the largest ``dist[n] / own[n]``, its parameter ``n``)."""
+    return max((dist[n] / own[n] if own[n] else
+                (math.inf if dist[n] else 0.0), n) for n in own)
+
+
+def lm_split_rank(ctx) -> dict:
+    """(f) in one rank of a 2-rank job, one card a rank: rank 0 first takes
+    NCCL_LM_STEPS unsharded Adam steps of the full TransformerLM in bf16,
+    keeping each step's gradients, and the same steps in f32 (the f32
+    flash kernels), whose gradients give bf16's own distance a parameter
+    and step; then both ranks take the steps under tensor=2 and under
+    seq=2, after an untimed forward and backward: the first step timed,
+    the last profiled, each kernel's launches over the steps counted, and
+    each step's reduced gradients gathered whole and measured against the
+    unsharded step's on rank 0."""
+    from raydp_tpu_torch import resolve_device
+    from raydp_tpu_torch.models import (
+        TransformerLM, lm_loss, transformer_param_rules,
+    )
+    from raydp_tpu_torch.ops import flash_attention as fa
+    from raydp_tpu_torch.parallel import ShardedModule, make_mesh
+
+    device = resolve_device()
+
+    def model(dtype, attention="flash", mesh=None):
+        return TransformerLM(VOCAB, dim=DIM, num_heads=HEADS,
+                             num_layers=LAYERS, attention=attention,
+                             mesh=mesh, dtype=dtype, device=device,
+                             generator=torch.Generator(device).manual_seed(
+                                 SEED))
+
+    tokens = torch.randint(0, VOCAB, (BATCH, SEQ), device=device,
+                           generator=torch.Generator(device).manual_seed(
+                               SEED + 1))
+
+    def whole_grads(m) -> dict:
+        """The step's gradients by parameter name, whole: a sharded
+        module's gathered (a collective: every rank calls it)."""
+        if not isinstance(m, ShardedModule):
+            return {n: p.grad for n, p in m.named_parameters()}
+        grads = {n: p.grad for n, p in m.module.named_parameters()}
+        return m.gather_state({"model": grads})["model"]
+
+    def adam_steps(m, tok, mesh=None, profile=None, on_grads=None) -> dict:
+        """The steps on ``m``, ``on_grads(i, whole_grads(m))`` after step
+        ``i`` (untimed); with ``profile`` (a name every rank passes alike)
+        the last runs under :func:`profiled`."""
+        opt = torch.optim.Adam(m.parameters(), lr=LR)
+        losses, walls, split = [], [], None
+        for i in range(NCCL_LM_STEPS):
+            def step():
+                opt.zero_grad(set_to_none=True)
+                loss = lm_loss(m(tok), tok, mesh)
+                loss.backward()
+                if isinstance(m, ShardedModule):
+                    m.reduce_grads()
+                opt.step()
+                return loss
+            if profile and i == NCCL_LM_STEPS - 1:
+                loss, split = profiled(f"lm-{profile}", step)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            on_grads(i, whole_grads(m))
+        return {"losses": losses, "walls": walls, "split": split}
+
+    out, want = {}, []
+    if ctx.rank == 0:
+        ref = model(torch.bfloat16)
+        out["unsharded"] = adam_steps(
+            ref, tokens, on_grads=lambda i, g: want.append(g))
+        del ref
+        free_memory()
+        f32 = model(torch.float32)
+        own = []
+        out["f32"] = adam_steps(
+            f32, tokens,
+            on_grads=lambda i, g: own.append(grad_distances(g, want[i])))
+        out["own"] = own
+        del f32
+        free_memory()
+    for name, spec in (("tensor", dict(tensor=2)), ("seq", dict(seq=2))):
+        mesh = make_mesh(spec)
+        if name == "tensor":
+            sm = ShardedModule(model(torch.bfloat16), mesh,
+                               transformer_param_rules("tensor"))
+            tok, loss_mesh = tokens, None
+        else:
+            sm = ShardedModule(model(torch.bfloat16, "ring", mesh), mesh)
+            c = mesh.coords["seq"]
+            tok = tokens[:, c * SEQ // 2:(c + 1) * SEQ // 2].contiguous()
+            loss_mesh = mesh
+        lm_loss(sm(tok), tok, loss_mesh).backward()
+        sm.zero_grad(set_to_none=True)
+        zero_launches(fa)
+        torch.cuda.reset_peak_memory_stats(device)
+        got = []
+
+        def measured(i, g):
+            if ctx.rank == 0:
+                got.append(grad_distances(g, want[i]))
+
+        res = adam_steps(sm, tok, loss_mesh, profile=name, on_grads=measured)
+        res["launches"] = launches(fa)
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        res["grad_distance"] = got
+        out[name] = res
+        del sm
+        free_memory()
+    return out
+
+
+def nccl_lm() -> dict:
+    """(f) The full TransformerLM under tensor=2, then seq=2, two ranks,
+    one card each: phase 14 (d)'s and 15 (b)'s gates against the unsharded
+    steps on rank 0's card, each kernel's launches a rank (H=4 under
+    tensor, the causal ring's blocks under seq), each step's wall and the
+    nccl kernels' share of its device time.
+
+    14 (d) and 15 (b) hold the parameters after one SGD step, which differ
+    by the learning rate times the gradients' difference. Adam moves every
+    parameter by about its rate a step whatever the gradient, so here each
+    Adam step's gradients are held instead: a parameter's distance from
+    the unsharded step's (L2, in f32) within ``TP_PARAM_BF16_STEPS`` times
+    bf16's own, the f32 step's from the unsharded bf16 step's."""
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    job = create_spmd_job("smoke-lm-cards", 2, torch_distributed=True,
+                          gpus_per_process=1, timeout=180)
+    job.start()
+    try:
+        ranks = job.run(lm_split_rank, timeout=900)
+    finally:
+        job.stop()
+    r0 = ranks[0]
+    out = {"ranks": ranks}
+    want_launches = {"tensor": [LAYERS * NCCL_LM_STEPS] * 2,
+                     # the causal ring: rank 0 folds its own block, rank 1
+                     # both
+                     "seq": [LAYERS * NCCL_LM_STEPS,
+                             2 * LAYERS * NCCL_LM_STEPS]}
+    for name in ("tensor", "seq"):
+        got = [r[name] for r in ranks]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+            got[0]["losses"], r0["unsharded"]["losses"]))
+        ratios = [worst_ratio(d, own)
+                  for d, own in zip(got[0]["grad_distance"], r0["own"])]
+        out[name] = {"loss_rel_diff": loss_rel,
+                     "grad_ratio": [[r, n] for r, n in ratios],
+                     "launches": [g["launches"] for g in got],
+                     "step_s": [g["walls"] for g in got],
+                     "split": [g["split"] for g in got]}
+        print(f"cards (f) TransformerLM {name}=2 (dim {DIM}, {HEADS} heads, "
+              f"{LAYERS} layers, T={SEQ}, {NCCL_LM_STEPS} Adam steps): losses "
+              f"{[f'{v:.6f}' for v in got[0]['losses']]} vs unsharded "
+              f"{[f'{v:.6f}' for v in r0['unsharded']['losses']]} ({loss_rel:.3e}, "
+              f"limit {TP_LOSS_RTOL}; f32 "
+              f"{[f'{v:.6f}' for v in r0['f32']['losses']]}); each step's "
+              f"gradients, the worst parameter's distance from the "
+              f"unsharded step's over bf16's own "
+              f"{[f'{r:.3f} ({n})' for r, n in ratios]} (limit "
+              f"{TP_PARAM_BF16_STEPS}); "
+              f"flash launches a rank {out[name]['launches']}; first step "
+              f"{[round(g['walls'][0], 4) for g in got]} s, the profiled "
+              f"step {[round(g['split']['wall_ms'], 3) for g in got]} ms, "
+              f"nccl kernels {[round(g['split']['nccl_ms'], 3) for g in got]} "
+              f"ms of device busy "
+              f"{[round(g['split']['busy_ms'], 3) for g in got]} ms "
+              f"({fmt_shares(g['split']['nccl_share'] for g in got)}); peak "
+              f"memory {[g['max_memory_allocated'] for g in got]} bytes")
+        require(loss_rel <= TP_LOSS_RTOL, f"cards (f) {name} loss: {out}")
+        require(len(ratios) == NCCL_LM_STEPS
+                and all(r <= TP_PARAM_BF16_STEPS for r, _ in ratios),
+                f"cards (f) {name} gradients: {out[name]}")
+        require(all(g["launches"] == dict.fromkeys(KERNELS, n)
+                    for g, n in zip(got, want_launches[name])),
+                f"cards (f) {name} launches: {out[name]['launches']}, "
+                f"expected {want_launches[name]} of each")
+    return out
+
+
+def ring_rank(ctx) -> dict:
+    """(g) in one rank: phase 15 (a)'s ring, then one more forward and
+    backward profiled."""
+    from raydp_tpu_torch import resolve_device
+
+    return ring_case(ctx, resolve_device(), profile=True)
+
+
+def nccl_ring(phase15: Optional[dict]) -> dict:
+    """(g) The ring at the flagship shape over seq=2, two ranks, one card
+    each: phase 15 (a)'s gates, its wall, the nccl kernels' share of a
+    forward and backward's device time, the bytes a rank sends; beside
+    15 (a)'s gloo ranks sharing card 0 when phase 15 ran in this call."""
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    job = create_spmd_job("smoke-ring-cards", 2, torch_distributed=True,
+                          gpus_per_process=1, timeout=180)
+    job.start()
+    try:
+        ring = job.run(ring_rank, timeout=600)
+    finally:
+        job.stop()
+    r0 = ring[0]
+    gloo = phase15["ring"] if phase15 else None
+    out = {"ranks": ring}
+    print(f"cards (g) ring B,T,H,D={RING_SHAPE} bf16 causal over seq=2, one "
+          f"card a rank: against one flash_attention call, relative L2 "
+          f"{ {k: f'{v:.3e}' for k, v in r0['ring_vs_flash'].items()} } "
+          f"(limit {SPLIT_BF16_STEPS}x bf16's own "
+          f"{ {k: f'{v:.3e}' for k, v in r0['flash_vs_f32'].items()} }); "
+          f"launches a rank {[r['launches'] for r in ring]}; forward+"
+          f"backward {[round(r['wall_s'], 5) for r in ring]} s (the first "
+          f"{[round(r['first_wall_s'], 4) for r in ring]}); profiled "
+          f"{[round(r['device']['wall_ms'], 3) for r in ring]} ms, nccl "
+          f"kernels {[round(r['device']['nccl_ms'], 3) for r in ring]} ms of "
+          f"device busy {[round(r['device']['busy_ms'], 3) for r in ring]} "
+          f"ms ({fmt_shares(r['device']['nccl_share'] for r in ring)}); "
+          f"{[r['sent_bytes'] for r in ring]} bytes sent a rank"
+          + (f"; phase 15 (a)'s gloo ranks sharing card 0 in this call: "
+             f"{[round(r['wall_s'], 4) for r in gloo]} s, of it in the "
+             f"exchanges {[round(r['exchange_s'], 4) for r in gloo]} s"
+             if gloo else ""))
+    require(all(r0["ring_vs_flash"][k]
+                <= SPLIT_BF16_STEPS * r0["flash_vs_f32"][k]
+                for k in r0["ring_vs_flash"]), f"cards (g) ring: {r0}")
+    require([r["launches"] for r in ring] == [
+        dict.fromkeys(KERNELS, 1), dict.fromkeys(KERNELS, 2)],
+        f"cards (g) ring launches: {ring}")
+    return out
+
+
+def run_cards(fa, phase13: dict, phase15: Optional[dict], frames,
+              tmp: str) -> dict:
+    """Phase 16: one card a rank, under nccl — (a) the runner, (b) the
+    replicated gang, (c) fsdp=2, (d) data=2 x fsdp=2 over four cards,
+    (e) expert=2 DLRM, (f) the full TransformerLM under tensor=2 and seq=2,
+    (g) the ring, (h) the staged pipeline, (i) the sharded crash and
+    resume, each gang's chains captured. Needs CARD_RANKS cards; the
+    driver launches no flash kernel, (f) and (g)'s ranks count theirs."""
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+
+    cards = torch.cuda.device_count()
+    require(cards >= CARD_RANKS, f"phase 16 needs {CARD_RANKS} cards, one a "
+            f"rank; {cards} visible")
+    t_phase = time.perf_counter()
+    zero_launches(fa)
+    train, test, features = frames
+    single = phase13["resume"]["single_losses"]
+    out = {"runner": card_runner()}
+    out["replicated"] = nccl_replicated(train, test, features,
+                                        single[:CARD_EPOCHS])
+    for key, label, spec, ranks in (
+            ("fsdp", "cards (c) fsdp=2", dict(fsdp=2), 2),
+            ("data_fsdp", "cards (d) data=2 x fsdp=2", dict(data=2, fsdp=2),
+             4)):
+        out[key] = captured_against_eager(
+            label, lambda spec=spec: build_estimator(
+                features, GANG_BATCH, CARD_EPOCHS, None, mesh_spec=spec),
+            train, test, ranks, single[:CARD_EPOCHS], byte_limit=True)
+    out["dlrm"] = nccl_dlrm()
+    free_memory()
+    out["lm"] = nccl_lm()
+    out["ring"] = nccl_ring(phase15)
+    out["resume"] = shard_resume(train, test, features, tmp, phase13,
+                                 label="cards (i)", chain=CHAIN)
+    # last: the one gang whose captured chain holds point-to-point sends
+    out["pipeline"] = pipeline_estimator("cards (h)", chain=PIPE_EST_CHAIN,
+                                         remat="full")
+    counts = launches(fa)
+    print(f"cards launches of the flash kernels in the driver: {counts}")
+    require(not any(counts.values()), f"phase 16's driver launched {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"cards phase: {out['phase_s']:.3f} s")
+    print("cards " + json.dumps(out, default=str))
+    return out
+
+
+def example_losses() -> dict:
+    """What phase 13 (c) takes from phase 12 when phase 12 did not run in
+    this call: the NYCTaxi example's single-process run at its defaults."""
+    from raydp_tpu_torch.examples import nyctaxi_mlp
+
+    history = nyctaxi_mlp.main([])["history"]
+    out = {"losses": [r["train_loss"] for r in history],
+           "eval_losses": [r["eval_loss"] for r in history],
+           "samples_per_s_steady": steady_rate(history[1:])}
+    print(f"example nyctaxi (for phase 13): losses "
+          f"{[round(v, 6) for v in out['losses']]}, "
+          f"{out['samples_per_s_steady']:.1f} samples/s steady")
+    return {"nyctaxi": out}
+
+
+def gang_inputs(frames, world1: bool) -> dict:
+    """What phases 14 and 16 take from phase 13 when phase 13 did not run
+    in this call: (d)'s in-process fit on the frames and, for phase 14
+    (a) (``world1``), (b)'s 1-rank nccl gang."""
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+
+    train, test, features = frames
+    est = build_estimator(features, GANG_BATCH, GANG_RESUME_EPOCHS, None)
+    est.shuffle = False
+    with device_cache(False):
+        single = est.fit(train, test)
+    out = {"resume": {"single_losses": losses_of(single)}}
+    print(f"gang in-process fit (for phases 14, 16): losses "
+          f"{[round(v, 6) for v in out['resume']['single_losses']]}")
+    if world1:
+        out["nccl"] = gang_nccl(train, test, features)
+    return out
+
+
+#: the phases a run with no --phases runs (16 needs CARD_RANKS cards)
+DEFAULT_PHASES = frozenset(range(2, 16))
+#: a stand-in for a yardstick rate of a phase that did not run in this call
+NOT_RUN = {"samples_per_s_steady": math.nan}
+
+
+def phase_list(text: str) -> frozenset:
+    phases = frozenset(int(p) for p in text.split(",") if p.strip())
+    unknown = sorted(phases - frozenset(range(1, 17)))
+    if unknown:
+        raise ValueError(f"no phase {unknown}: phases are 1-16")
+    return phases
+
+
 def main() -> int:
     import argparse
 
@@ -4930,7 +5711,14 @@ def main() -> int:
         help="another checkout (e.g. the parent commit unpacked with git "
              "archive) whose three kernels are built and timed against "
              "this checkout's at the flagship shape, in turns")
+    parser.add_argument(
+        "--phases", type=phase_list, metavar="N,N,...",
+        help="run phase 1 (the build) and only these phases (default: "
+             "2-15; 16 needs four cards); a phase whose input comes from "
+             "one not named computes that input itself, and a yardstick "
+             "rate from one not named prints as nan")
     args = parser.parse_args()
+    phases = args.phases if args.phases is not None else DEFAULT_PHASES
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
@@ -4938,87 +5726,130 @@ def main() -> int:
     from raydp_tpu_torch import resolve_device
     from raydp_tpu_torch.ops import flash_attention as fa
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card)
+    def card_lines() -> str:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip()
+
+    cards = card_lines()
+    card = cards.splitlines()[0]
+    print(cards)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
+          f"card(s); phases {sorted(phases)}")
     device = resolve_device()
 
     baseline = build_kernels(fa, args.baseline)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    rows = {"flash_attention_fwd": check_kernel(fa, device, gen, baseline),
-            **check_bwd_kernels(fa, device, gen, baseline)}
-    # phases 5-14 are bound by the host's kernel launches: their timed
+    rows = {}
+    if 2 in phases:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        rows = {"flash_attention_fwd": check_kernel(fa, device, gen,
+                                                    baseline),
+                **check_bwd_kernels(fa, device, gen, baseline)}
+    # phases 5-15 are bound by the host's kernel launches: their timed
     # fits and requests run before any torch.profiler session of this
     # process (phases 3-4 profile, and so do 5-6 at their end), so no
     # profiler hook is left in the launch path while they are timed
+    done, profiles = {}, {}
     tmp = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
-        free_memory()
-        nyctaxi, profile_nyctaxi = run_nyctaxi(fa, tmp)
-        free_memory()
-        dlrm, profile_dlrm = run_dlrm(fa)
-        free_memory()
-        store = run_store(fa, card)
-        free_memory()
-        etl = run_etl(fa, nyctaxi, dlrm, tmp)
-        free_memory()
-        dispatch = run_dispatch(fa, tmp)
-        free_memory()
-        serving = run_serving(fa, tmp)
-        free_memory()
-        gbdt, profile_gbdt = run_gbdt(fa, tmp)
-        free_memory()
-        examples = run_examples(fa, etl, tmp)
-        free_memory()
-        gang, (sharding, longctx) = run_gang(
-            fa, examples, tmp,
-            lambda phase13, frames: (run_sharding(fa, phase13, frames, tmp),
-                                     run_long_context(fa)))
+        if 5 in phases:
+            free_memory()
+            done["nyctaxi"], profiles["nyctaxi"] = run_nyctaxi(fa, tmp)
+        if 6 in phases:
+            free_memory()
+            done["dlrm"], profiles["dlrm"] = run_dlrm(fa)
+        if 7 in phases:
+            free_memory()
+            done["store"] = run_store(fa, card)
+        if 8 in phases:
+            free_memory()
+            done["etl"] = run_etl(
+                fa, done.get("nyctaxi", {"f32_resident": NOT_RUN}),
+                done.get("dlrm", {"bf16_streaming": NOT_RUN}), tmp)
+        if 9 in phases:
+            free_memory()
+            done["dispatch"] = run_dispatch(fa, tmp)
+        if 10 in phases:
+            free_memory()
+            done["serving"] = run_serving(fa, tmp)
+        if 11 in phases:
+            free_memory()
+            done["gbdt"], profiles["gbdt"] = run_gbdt(fa, tmp)
+        if 12 in phases:
+            free_memory()
+            done["examples"] = run_examples(
+                fa, done.get("etl", {"nyctaxi": NOT_RUN}), tmp)
+
+        def later(phase13, frames):
+            """Phases 14-16 on phase 13's frames, before their session
+            stops."""
+            if 14 in phases:
+                done["sharding"] = run_sharding(fa, phase13, frames, tmp)
+            if 15 in phases:
+                done["longctx"] = run_long_context(fa)
+            if 16 in phases:
+                free_memory()
+                done["cards"] = run_cards(fa, phase13, done.get("longctx"),
+                                          frames, tmp)
+
+        if 13 in phases:
+            free_memory()
+            done["gang"], _ = run_gang(
+                fa, done.get("examples") or example_losses(), tmp, later)
+        elif phases & {14, 16}:
+            free_memory()
+            with gang_frames(tmp) as frames:
+                later(gang_inputs(frames, 14 in phases), frames)
+        elif 15 in phases:
+            done["longctx"] = run_long_context(fa)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the profiled epochs replay graphs: the idle share of a graphed epoch
-    nyctaxi["profile"] = profile_nyctaxi()
-    dlrm["profile"] = profile_dlrm()
-    gbdt["profile"] = profile_gbdt()
-    print("main path " + json.dumps({"nyctaxi": nyctaxi, "dlrm": dlrm,
-                                     "store": store, "etl": etl,
-                                     "dispatch": dispatch,
-                                     "serving": serving, "gbdt": gbdt,
-                                     "examples": examples, "gang": gang,
-                                     "sharding": sharding,
-                                     "longctx": longctx}, default=str))
-    free_memory()
-    lm = run_lm(fa, device)
-    free_memory()
-    train = run_train(fa, device)
-    free_memory()
-    check_grads(device)
+    for name, profile in profiles.items():
+        done[name]["profile"] = profile()
+    print("main path " + json.dumps(done, default=str))
+    lm = train = None
+    if 3 in phases:
+        free_memory()
+        lm = run_lm(fa, device)
+    if 4 in phases:
+        free_memory()
+        train = run_train(fa, device)
+        free_memory()
+        check_grads(device)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": train["launches"][name],
-            **{k: rows[name][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "tflops", "bound_share", "baseline_ms",
-                "speedup") if k in rows[name]}})
-    kernels[0]["launches_inference"] = lm["launches"]
-    for k in kernels:
-        # phase 14 (d): each tensor rank's attention at HEADS / 2 heads
-        k["launches_tensor_parallel"] = [
-            r["launches"][k["name"]] for r in sharding["lm"]["ranks"]]
-        # phase 15 (b) and (c), a rank: the TransformerLM's step over
-        # seq=2 (the ring) and pipeline_apply over stage=2
-        k["launches_ring"] = [r["launches"][k["name"]]
-                              for r in longctx["lm"]["ranks"]]
-        k["launches_pipeline"] = [r["launches"][k["name"]]
-                                  for r in longctx["pipeline"]]
-    print(card)
+        k = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces,
+             "launches": train["launches"][name] if train else None,
+             **{key: rows[name][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "tflops", "bound_share", "baseline_ms",
+                 "speedup") if name in rows and key in rows[name]}}
+        if "sharding" in done:
+            # phase 14 (d): each tensor rank's attention at HEADS / 2 heads
+            k["launches_tensor_parallel"] = [
+                r["launches"][name] for r in done["sharding"]["lm"]["ranks"]]
+        if "longctx" in done:
+            # phase 15 (b) and (c), a rank: the TransformerLM's step over
+            # seq=2 (the ring) and pipeline_apply over stage=2
+            k["launches_ring"] = [r["launches"][name]
+                                  for r in done["longctx"]["lm"]["ranks"]]
+            k["launches_pipeline"] = [r["launches"][name]
+                                      for r in done["longctx"]["pipeline"]]
+        if "cards" in done:
+            # phase 16 (f), a rank on a card of its own: the full
+            # TransformerLM's steps under tensor=2 and under seq=2
+            for mesh in ("tensor", "seq"):
+                k[f"launches_nccl_{mesh}"] = [
+                    r[name] for r in done["cards"]["lm"][mesh]["launches"]]
+        kernels.append(k)
+    if lm:
+        kernels[0]["launches_inference"] = lm["launches"]
+    print(cards)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -440,12 +440,15 @@ def fit_gbdt(
     add nothing to any histogram or leaf), each rank keeps its block, and
     each level's histograms and the leaves' sums are summed over the data
     ranks with one ``all_reduce`` each, so every rank holds the same split
-    tables; the rounds then run eagerly. The margins returned are every
+    tables; the rounds are then captured with their all-reduces under
+    ``nccl`` and run eagerly under ``gloo``
+    (:func:`~raydp_tpu_torch.train.step_graph.graphs_allowed`). The
+    margins returned are every
     row's, gathered from the ranks. On a world-1 mesh the fit is the
     unsharded fit, bit for bit."""
     from raydp_tpu_torch.parallel.mesh import data_axes
     from raydp_tpu_torch.parallel.shard import gather_dim
-    from raydp_tpu_torch.train.step_graph import StepRunner
+    from raydp_tpu_torch.train.step_graph import StepRunner, graphs_allowed
 
     if objective not in OBJECTIVES:
         raise ValueError(
@@ -527,9 +530,10 @@ def fit_gbdt(
 
     state = _Boosting(Xb_d, y_d, w_d, pred, num_trees, build, objective,
                       max_depth, evals_d)
-    # a round whose histograms cross ranks runs eagerly
+    # a round whose histograms cross ranks is captured with its
+    # all-reduces under nccl, and runs eagerly under gloo
     runner = StepRunner(state.round, dev, "gbdt boosting round",
-                        capture=reduce is None)
+                        capture=reduce is None or graphs_allowed(mesh))
 
     evals_result: Dict[str, List[float]] = {}
     best_iteration = None

@@ -24,9 +24,16 @@ rank alone, and the collective is the identity.
 Whether a fit is a gang's is decided by its caller (``fit_gang``'s ranks),
 never read from the process's state: a plain ``fit`` inside a rank of a
 process group (one fit a rank, a sweep) stays a fit of its own.
-:data:`COMM` keeps the host wall of the collectives called eagerly (under
-``gloo`` every one of them: gloo's collectives are synchronous), which a
-gang's epoch report carries as ``allreduce_time_s``.
+
+Every function here posts its collective without reading a device value
+on the host, so a step that calls them can be captured into a CUDA graph
+under ``nccl`` (:func:`~raydp_tpu_torch.train.step_graph.graphs_allowed`).
+:data:`COMM` keeps the host wall of the collectives as they are called,
+which a gang's epoch report carries as ``allreduce_time_s``. Under
+``gloo`` that is their whole time (gloo's collectives are synchronous).
+Under ``nccl`` it is only the time to enqueue them, and a captured
+collective counts once, at the capture: it is no share of a step there,
+which only a device trace shows.
 """
 
 from __future__ import annotations
@@ -74,8 +81,9 @@ def batch_rows(model: nn.Module, mask: Optional[torch.Tensor]):
 
 
 class CommClock:
-    """Host seconds spent in the gang's collectives since the last
-    :meth:`take` (a capture's collectives count once, at the capture)."""
+    """Host seconds spent calling the gang's collectives since the last
+    :meth:`take`: their time under ``gloo``, their enqueue under ``nccl``
+    (a capture's collectives count once, at the capture)."""
 
     def __init__(self):
         self.seconds = 0.0

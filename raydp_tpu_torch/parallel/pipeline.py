@@ -5,9 +5,10 @@ The reference runs one compiled SPMD program under ``shard_map``: the
 per-layer parameters stacked on a leading axis and split over ``stage``,
 the microbatches marching through a ``lax.scan`` of ticks, activations
 hopping stage → stage+1 with ``lax.ppermute``. The port's ranks hold one
-device each and run the same schedule eagerly: each rank applies its
-stage's contiguous run of layers, and each tick hops the activations with
-the differentiable neighbour exchange
+device each and run the same schedule (eagerly, or captured in a CUDA
+graph under ``nccl``): each rank applies its stage's contiguous run of
+layers, and each tick hops the activations with the differentiable
+neighbour exchange
 (:func:`~raydp_tpu_torch.parallel.shard.ppermute`), whose backward is the
 opposite hop — so autograd of the tick loop IS the reverse pipeline, and
 one ``backward()`` trains the whole pipeline. Every rank runs every tick
@@ -105,7 +106,8 @@ def _gpipe(fn, stage_params, x_micro, mesh, stage_axis: str):
     # stage 0 injects microbatch t; the others take what arrived on the
     # last hop. A select (not a branch) on every rank keeps both operands
     # in the graph, so every exchange's backward runs everywhere
-    first = torch.tensor(s == 0, device=x_micro.device)
+    # (a fill, not a host copy: a CUDA graph can capture it)
+    first = torch.full((), s == 0, dtype=torch.bool, device=x_micro.device)
     state = torch.zeros_like(x_micro[0])
     ticks = n_micro + n_stages - 1
     outs = []

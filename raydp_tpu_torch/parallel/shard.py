@@ -47,6 +47,11 @@ does not split — what the gather's backward has not summed yet — with one
 collective per group. An
 explicit spec that does not divide its dim raises, as the reference's
 ``device_put`` does; the role policy never produces one.
+
+Nothing here reads a device value on the host or branches on one: every
+shape, block and peer is the mesh's, known on the host, so a sharded step
+can be captured into a CUDA graph under ``nccl`` with its collectives
+inside (``tests/test_torch_sharded_capture.py`` guards it on the CPU).
 """
 
 from __future__ import annotations
@@ -70,6 +75,9 @@ BATCH_AXES = ("data", "fsdp")
 # ---- collectives along one dim of a tensor ----------------------------------
 
 def _timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its host wall added to
+    :data:`~raydp_tpu_torch.parallel.gang.COMM` (under ``nccl`` the
+    enqueue only)."""
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     gang.COMM.seconds += time.perf_counter() - t0

@@ -440,6 +440,13 @@ class SPMDJob:
         return dict(self._services)
 
     def stop(self) -> None:
+        """End every rank: each is asked to leave its process group and
+        exit, and one still alive after 5 s is SIGKILLed with its process
+        group. A survivor of a crashed rank may be blocked in a collective
+        (under ``nccl`` possibly inside a graph replay, where it would wait
+        out the process group's timeout, 10 min by default): it exits at
+        once (a function still running skips the group's teardown) or is
+        killed, so a gang's retry starts in seconds under either backend."""
         for rank, stub in list(self._stubs.items()):
             try:
                 stub.submit("stop")

@@ -27,14 +27,22 @@ The body updates its state in place: the model and optimizer, and the
 pass's sums in :class:`Accumulators`. An optimizer whose state a graph
 would freeze is made capturable, or refused, by :func:`prepare_optimizer`.
 
-In a training gang the step holds collectives (the gradient's all-reduce,
-BatchNorm's statistics). Under ``nccl`` they are captured with the rest:
-the fit's first step is eager, and the rank's process group made its
-communicator when it joined, so both exist before the capture. Under
-``gloo`` no collective can be captured (gloo runs them on the host), so
-:func:`graphs_allowed` is false and the estimator calls the step or chain
-directly, every step eager — decided from the backend before the fit's
-first step, never by a capture that failed.
+In a training gang the step holds collectives: the gradient's all-reduce,
+BatchNorm's statistics, and in a sharded step (any ``fsdp``, ``expert``,
+``tensor`` or ``stage`` extent above 1) the gathers before each use, the
+gradient reduce-scatters, the Megatron sums and the pipeline's neighbour
+exchanges. Under ``nccl`` they run on the card and are captured with the
+rest, sharded or not: the fit's first step is eager and posts every
+collective the chain replays, and each rank bound its card when it joined
+(``init_process_group(device_id=)``), so every group of the mesh made its
+communicator when :func:`~raydp_tpu_torch.parallel.mesh.make_mesh` created
+it; both exist before the capture. Under ``gloo`` no collective can be captured (gloo runs them
+on the host), and the estimator calls the step or chain directly, every
+step eager. :func:`graphs_allowed` decides it from the process group's
+backend before the fit's first step, never from a capture that failed;
+every rank of a gang reads the same backend, so all capture or none do
+(one rank capturing while another runs eagerly would post collectives in
+other orders and hang).
 """
 
 from __future__ import annotations
@@ -50,12 +58,14 @@ from raydp_tpu_torch import metrics as rdt_metrics
 from raydp_tpu_torch import profiler
 
 
-def graphs_allowed(in_gang: bool) -> bool:
-    """Whether a fit's steps may be captured: not a gang's under ``gloo``,
-    whose collectives run on the host."""
+def graphs_allowed(mesh) -> bool:
+    """Whether a fit's steps may be captured: a fit of one process may, and
+    so may a gang's (``mesh`` given: this process is a rank of its process
+    group) under ``nccl``, sharded or replicated; a gang's under ``gloo``,
+    whose collectives run on the host, may not."""
     import torch.distributed as dist
 
-    return not (in_gang and dist.get_backend() == "gloo")
+    return mesh is None or dist.get_backend() != "gloo"
 
 
 def prepare_optimizer(optimizer: torch.optim.Optimizer, graphed: bool) -> None:

@@ -45,7 +45,8 @@ after the fit's first (eager) step and replayed once a step or chain
 streaming eval, ragged batches and ``partial_fit`` run eagerly, as the
 reference dispatches them one jitted step at a time. On the CPU the same
 runners call the step directly. A gang under ``nccl`` captures its chains
-with the collectives inside; under ``gloo`` every step runs eagerly
+with the collectives inside, sharded or replicated; under ``gloo`` every
+step runs eagerly
 (:func:`~raydp_tpu_torch.train.step_graph.graphs_allowed`).
 
 How the reference's pieces map:
@@ -91,8 +92,10 @@ first, then the role policy), feeds each rank its block of every global
 batch over data × fsdp (:func:`~raydp_tpu_torch.data.feed.
 process_local_batch_rows`; the whole batch under pure ``expert`` or
 ``tensor``), sums the step's row counts, gradients, BatchNorm statistics
-and epoch sums over exactly the ranks that saw different rows, runs every
-step eagerly, and checkpoints in the sharded multi-writer format; the
+and epoch sums over exactly the ranks that saw different rows, captures
+its ``k``-step chains under ``nccl`` as a replicated gang does (the gathers,
+reduce-scatters and exchanges inside the graph; every step eager under
+``gloo``), and checkpoints in the sharded multi-writer format; the
 driver gets the gathered state, and ``get_state()`` its specs. A ragged
 train tail pads and masks when ``drop_last=False`` (``RDT_TRAIN_PAD_TAIL``;
 BatchNorm's statistics count the real rows only). A plain ``fit`` runs on
@@ -195,10 +198,12 @@ class TrainingResult:
     #: those replays ran), ``eager_steps``, ``capture_s`` of a capture made
     #: in the epoch, ``eval_replays``
     dispatch: List[Dict[str, float]] = field(default_factory=list)
-    #: a gang's ranks, in rank order: ``param_bytes`` (the parameters,
-    #: buffers and optimizer state the rank held: its shards),
-    #: ``memory_allocated`` (the rank's CUDA bytes at the fit's end, None
-    #: on the CPU) and ``local_shapes`` (its shard of each parameter)
+    #: a gang's ranks, in rank order: ``backend`` (its process group's),
+    #: ``param_bytes`` (the parameters, buffers and optimizer state the
+    #: rank held: its shards), ``memory_allocated`` and
+    #: ``max_memory_allocated`` (the rank's CUDA bytes at the fit's end and
+    #: at their peak, None on the CPU) and ``local_shapes`` (its shard of
+    #: each parameter)
     ranks: List[Dict[str, Any]] = field(default_factory=list)
 
 
@@ -1047,14 +1052,15 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         step). The backend follows the gang's rule
         (:func:`~raydp_tpu_torch.spmd.job.gang_backend`): on CUDA, when the
         node has a card for every rank, each rank takes one (``nccl``, the
-        chains captured as CUDA graphs); otherwise the ranks share the
-        visible cards, or run on the CPU, under ``gloo`` (every step
-        eager). A dead or failing rank fails the whole gang; the driver
-        then restarts it, and every rank resumes from the last checkpoint
-        — up to ``max_retries`` restarts. Afterwards ``predict``,
-        ``get_model``, ``export_serving`` and ``partial_fit`` work as after
-        ``fit``: the chief's trained state is loaded into a model here,
-        and this process's ``train_accum_steps`` and
+        chains captured as CUDA graphs, sharded or replicated); otherwise
+        the ranks share the visible cards, or run on the CPU, under
+        ``gloo`` (every step eager). A dead or failing rank fails the whole
+        gang; the driver then ends every rank (survivors blocked in a
+        collective included) and restarts it, and every rank resumes from
+        the last checkpoint — up to ``max_retries`` restarts. Afterwards
+        ``predict``, ``get_model``, ``export_serving`` and ``partial_fit``
+        work as after ``fit``: the chief's trained state is loaded into a
+        model here, and this process's ``train_accum_steps`` and
         ``train_pipeline_stages`` gauges take the chief's values.
 
         ``worker_env`` adds/overrides rank-process environment (a ``None``
@@ -1174,10 +1180,15 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         state, history, dispatch = self._fit_on_mesh(
             mesh, train_ds, eval_ds, ckpt_dir, resume=True, max_retries=0)
         out: Dict[str, Any] = {"history": history, "dispatch": dispatch}
+        cuda = self.device.type == "cuda"
         out["rank"] = {
+            "backend": torch.distributed.get_backend(),
             "param_bytes": addressable_nbytes((state.model, state.optimizer)),
             "memory_allocated": torch.cuda.memory_allocated(self.device)
-            if self.device.type == "cuda" else None,
+            if cuda else None,
+            "max_memory_allocated":
+                torch.cuda.max_memory_allocated(self.device) if cuda
+                else None,
             "local_shapes": {n: tuple(p.shape) for n, p in
                              state.model.state_dict().items()}}
         # the fit's geometry, which the driver's gauges then report
@@ -1240,9 +1251,10 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         process is a rank of a process group laid out as ``mesh`` — the
         step sums its gradient over the ranks that saw other rows,
         BatchNorm takes the global batch's statistics, the epoch's sums are
-        summed over those ranks, a ``fsdp``/``expert``/``tensor`` extent
-        above 1 shards the model (every step eager), and the checkpoints
-        are the gang's."""
+        summed over those ranks, a ``fsdp``/``expert``/``tensor``/``stage``
+        extent above 1 shards the model, and the checkpoints are the
+        gang's. Chains are captured unless the gang runs under ``gloo``
+        (:func:`graphs_allowed`, decided before the first step)."""
         if self.checkpoint_dir and not resume:
             ckpt.warn_if_reused_dir(ckpt_dir)
         loss_fn = _resolve_loss(self._loss)
@@ -1253,9 +1265,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         sharded = _sharded(mesh)
         batch_group = mesh.group(data_axes(mesh)) if in_gang else None
         # the optimizer steps in a graph on the resident and chained paths,
-        # unless a gloo gang's collectives, or a sharded state's, keep
-        # every step eager
-        capture = graphs_allowed(in_gang) and not sharded
+        # unless a gloo gang's collectives keep every step eager
+        capture = graphs_allowed(mesh)
         graphed = device.type == "cuda" and capture \
             and (cache is not None or chain > 1)
 
@@ -1451,7 +1462,9 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                         report[f"eval_{m.name}"] = m.compute(_host_stats(s))
                 if in_gang:
                     # the host wall of the epoch's collectives called
-                    # eagerly (all of them under gloo)
+                    # eagerly: all of them under gloo; under nccl only the
+                    # time to enqueue them, and a captured one counts once,
+                    # at the capture
                     report["allreduce_time_s"] = gang.COMM.take()
 
                 dispatch.append(_dispatch_record(

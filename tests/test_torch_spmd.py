@@ -264,6 +264,34 @@ def test_rank_sees_its_bundle_card(monkeypatch):
         shutdown_runtime()
 
 
+def test_four_ranks_on_a_four_card_node_take_four_cards(monkeypatch):
+    """A node that declares 4 ``GPU``: a 4-rank ``gpus_per_process=1`` gang
+    is an nccl gang (the backend rule), and its ranks see four distinct
+    cards, each one of the driver's own list. (Nothing here opens a card:
+    the ranks only report their environment.)"""
+    runtime = init_runtime(virtual_nodes=[{"CPU": 8.0, "GPU": 4.0,
+                                           "memory": float(2 << 30)}])
+    try:
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3,1,6,2")
+        assert create_spmd_job("t-four", 4, torch_distributed=True,
+                               gpus_per_process=1).backend \
+            == gang_backend(1) == "nccl"
+        job = create_spmd_job("t-four", world_size=4, gpus_per_process=1,
+                              timeout=60)
+        job.start()
+        try:
+            got = job.run(lambda ctx: os.environ["CUDA_VISIBLE_DEVICES"])
+            group = runtime.resource_manager.get_group(
+                job._placement_group_id)
+            assert sorted(b.gpu_ids[0] for b in group.bundles) \
+                == [0, 1, 2, 3]
+        finally:
+            job.stop()
+        assert sorted(got) == ["1", "2", "3", "6"]
+    finally:
+        shutdown_runtime()
+
+
 def test_spmd_job_example_means_and_counts_every_row():
     """``examples/spmd_job.py``: two gloo ranks average their values with
     one all_reduce and count the rows of an ETL frame from the store."""
