@@ -184,8 +184,9 @@ keep their backend.
     job whose ranks share the card (gloo) each all-reduce CUDA tensors
     (``[1.0, 1.0]``, ``[3.0, 3.0]``), with each backend, start wall and the
     card's free memory before, with the ranks and after; (c)
-    ``nyctaxi_mlp.py``'s ``main`` with ``--num-workers 2`` at its defaults
-    (two ranks sharing one card: gloo, eager) against phase 12's
+    ``nyctaxi_mlp.py``'s ``main`` with ``--num-workers 2`` at its defaults,
+    ``--epochs 2`` on one card (two ranks sharing it: gloo, eager; the cut
+    keeps the default run inside 900 s) against phase 12's
     single-process
     run on the same rows: every epoch of both, epoch 0's train loss within
     ``GANG_EXAMPLE_RTOL`` (the two visit the rows in different orders; the
@@ -197,7 +198,11 @@ keep their backend.
     CUDA graphs (replays > 0), against the in-process streaming fit with
     the same k (losses within 1e-6); (d) a 2-rank gang whose rank 1 exits
     at epoch 1, once (``max_retries=1``, 4 epochs, unshuffled, with the
-    eval set): history ``[0, 1, 2, 3]``, the checkpoint's sidecar holds the
+    eval set), rank 1 spawned by a node agent on this host (SPREAD over
+    the head's node and the agent's; on more than one card the agent holds
+    the last one): the agent is rank 1's parent and spawns the crashed
+    rank again, rank 0 is this process's child, the agent's join wall is
+    printed; history ``[0, 1, 2, 3]``, the checkpoint's sidecar holds the
     pre-crash epochs, the train losses equal an in-process fit's on the
     same rows and order within ``GANG_RESUME_RTOL``, the last eval loss
     equals the driver's ``predict`` with the returned state within
@@ -222,9 +227,10 @@ keep their backend.
     step against the replicated step (loss within ``TP_LOSS_RTOL``, the
     parameters within ``TP_PARAM_BF16_STEPS`` × bf16's own distance from
     it), a q kernel of 4 heads a rank and each rank's flash kernels
-    launched at H=4; (e) (b)'s gang for 4 epochs, crashed once at epoch 1
-    and resumed from the sharded multi-writer checkpoint (2 manifests,
-    ``COMPLETE``, history ``[0, 1, 2, 3]``, the driver's restore bitwise
+    launched at H=4; (e) (b)'s gang for 4 epochs (3 on one card, where
+    its ranks share it under gloo), crashed once at epoch 1 and resumed
+    from the sharded multi-writer checkpoint (2 manifests, ``COMPLETE``,
+    history ``[0, 1, 2, 3]`` or ``[0, 1, 2]``, the driver's restore bitwise
     the gang's state and its ``predict`` against the last eval); (f)
     ``fit_gbdt(mesh=)`` on two ranks at phase 11's configuration against
     the in-process fit (phase 11's split and margin limits). Each line
@@ -255,7 +261,11 @@ keep their backend.
     the chains captured, ``CARD_EPOCHS`` = 3 epochs a gang (epoch 1's
     first chain profiled, so the steady rate is epoch 2's): (b) the
     replicated NYCTaxi gang of 2 ranks
-    (losses within ``GANG_RESUME_RTOL`` of 13 (d)'s in-process fit); (c)
+    (losses within ``GANG_RESUME_RTOL`` of 13 (d)'s in-process fit), then
+    (j), run next: (b)'s gang again with rank 1 on a node agent that holds
+    card 3 (``CUDA_VISIBLE_DEVICES=3``, ``--resource GPU=1``): rank 1 the
+    agent's child on card 3's UUID, rank 0 on another card, replays, and
+    the train losses bitwise (b)'s; (c)
     14 (b)'s fsdp=2 gang, replays in every epoch and eager only the
     warm-up chain and each epoch's remainder, against the same gang at
     k=1 (eager) within ``SAME_PATH_RTOL`` and the in-process fit within
@@ -263,7 +273,8 @@ keep their backend.
     peak ``memory_allocated`` captured against eager; (d) the same on
     ``{"data": 2, "fsdp": 2}`` over four ranks, the one case that needs
     four cards; (e) 14 (c)'s expert=2 DLRM, captured, within
-    ``SHARD_DLRM_RTOL``; (f) the TransformerLM at bench.py's full width
+    ``SHARD_DLRM_RTOL``; (f) the TransformerLM at
+    bench.py's full width
     and depth (8 layers, B=2, T=8192) under ``tensor=2``, then ``seq=2``,
     two Adam steps against the unsharded steps on rank 0's card: the
     losses within ``TP_LOSS_RTOL``, each step's gradients a parameter
@@ -3653,6 +3664,11 @@ def run_examples(fa, phase8: dict, tmp: str) -> dict:
 #: phase 13's rows, batch and epochs: the NYCTaxi example's defaults
 GANG_ROWS, GANG_BATCH = 100_000, 1024
 GANG_EPOCHS, GANG_RESUME_EPOCHS = 2, 4
+#: on one card, where the two ranks of (c) and of phase 14 (e) share it
+#: under gloo (every step eager, ≈ 2.7 and 6 s an epoch): the epochs they
+#: run there, cut from the example's default 5 and GANG_RESUME_EPOCHS to
+#: keep the default one-card run near 900 s with 13 (d)'s node agent
+GLOO_EXAMPLE_EPOCHS, GLOO_RESUME_EPOCHS = 2, 3
 #: (c): the 2-rank example against phase 12's single-process one, epoch 0's
 #: train loss. The two visit the rows in different orders (phase 12's
 #: resident fit permutes them with torch.randperm on the card, the gang
@@ -3815,11 +3831,11 @@ def gang_nccl(train, test, features) -> dict:
 
 
 def gang_example(phase12: dict) -> dict:
-    """(c) nyctaxi_mlp.main(["--num-workers", "2"]) at its defaults: two
-    ranks sharing the card under gloo, every step eager, against phase 12's
-    single-process run on the same rows (the same seeded CSV): every epoch
-    of both, the steady rate, the wall split and the share of a step spent
-    in all_reduce."""
+    """(c) nyctaxi_mlp.main(["--num-workers", "2"]) at its defaults (on
+    one card ``--epochs GLOO_EXAMPLE_EPOCHS``): two ranks sharing the card
+    under gloo, every step eager, against phase 12's single-process run on
+    the same rows (the same seeded CSV): every epoch of both, the steady
+    rate, the wall split and the share of a step spent in all_reduce."""
     from raydp_tpu_torch.examples import nyctaxi_mlp
     from raydp_tpu_torch.spmd.job import SPMDJob
 
@@ -3827,9 +3843,11 @@ def gang_example(phase12: dict) -> dict:
     clock.wrap(SPMDJob, "start", "start")
     clock.wrap(SPMDJob, "run", "run")
     clock.wrap(SPMDJob, "stop", "stop")
+    epochs = GLOO_EXAMPLE_EPOCHS if torch.cuda.device_count() < 2 else 5
     t0 = time.perf_counter()
     try:
-        res = nyctaxi_mlp.main(["--num-workers", "2"])
+        res = nyctaxi_mlp.main(["--num-workers", "2", "--epochs",
+                                str(epochs)])
     finally:
         clock.restore()
     wall = time.perf_counter() - t0
@@ -3874,7 +3892,7 @@ def gang_example(phase12: dict) -> dict:
           f"epoch 0 train loss differs by "
           f"{out['epoch0_train_rel_diff']:.3e} (limit {GANG_EXAMPLE_RTOL}), "
           f"eval by {out['epoch0_eval_rel_diff']:.3e} (not gated)")
-    require(len(history) == 5 and out["losses"][-1] < out["losses"][0],
+    require(len(history) == epochs and out["losses"][-1] < out["losses"][0],
             f"gang example: {out['losses']}")
     require(all(math.isfinite(v) for v in out["eval_losses"]),
             f"gang example eval: {out['eval_losses']}")
@@ -3883,11 +3901,140 @@ def gang_example(phase12: dict) -> dict:
     return out
 
 
+class NodeAgent:
+    """A node agent on this host, joined to this process's runtime head as
+    a node of its own (``python -m raydp_tpu_torch.runtime.node_agent
+    --head <url> --cpus 4``, in a session of its own, as
+    ``tests/test_node_agent.py`` starts one). With ``card`` it holds that
+    one card: it runs under ``CUDA_VISIBLE_DEVICES=<card>`` with
+    ``--resource GPU=1``."""
+
+    def __init__(self, rt, log_path: str, card: Optional[str] = None):
+        import os
+
+        self.rt = rt
+        env = dict(os.environ)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (here, env.get("PYTHONPATH")) if p)
+        argv = [sys.executable, "-m", "raydp_tpu_torch.runtime.node_agent",
+                "--head", rt.server.url, "--cpus", "4"]
+        if card is not None:
+            env["CUDA_VISIBLE_DEVICES"] = card
+            argv += ["--resource", "GPU=1"]
+        before = set(rt.node_agents)
+        t0 = time.perf_counter()
+        with open(log_path, "ab") as log:
+            self.proc = subprocess.Popen(argv, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT,
+                                         start_new_session=True)
+        self.node_id = None
+        deadline = time.monotonic() + 60
+        while self.node_id is None and time.monotonic() < deadline \
+                and self.proc.poll() is None:
+            joined = set(rt.node_agents) - before
+            self.node_id = joined.pop() if joined else None
+            time.sleep(0.05)
+        self.start_s = time.perf_counter() - t0
+        self.card = card
+        if self.node_id is None:
+            self.stop()
+            require(False, f"the node agent never joined (see {log_path})")
+
+    @property
+    def pid(self) -> int:
+        return self.proc.pid
+
+    def spread_from_head(self) -> None:
+        """Make the next SPREAD group's bundle 0 land on this process's
+        node and bundle 1 on the agent's: the resource manager hands
+        bundles to the alive nodes round-robin, so draw empty allocations
+        until one lands on the agent's node."""
+        rm = self.rt.resource_manager
+        nodes = [n.node_id for n in rm.nodes()]
+        require(len(nodes) == 2 and self.node_id in nodes,
+                f"SPREAD over the head's node and the agent's: {nodes}")
+        for _ in range(2):
+            if rm.allocate({}) == self.node_id:
+                return
+        require(False, "no empty allocation landed on the agent's node")
+
+    def stop(self) -> None:
+        """Kill the agent's process group and report its node dead to the
+        head (nothing of the agent's is left for the head's supervision to
+        find dead), so that no later placement picks the node."""
+        import os
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        if self.node_id is not None:
+            self.rt.remove_node(self.node_id)
+            alive = [n.node_id for n in self.rt.resource_manager.nodes()]
+            require(self.node_id not in alive,
+                    f"the killed agent's node {self.node_id} is still "
+                    f"placeable: {alive}")
+
+
+def last_card(cards: int) -> str:
+    """The last of this process's ``cards`` cards, by the name its own
+    ``CUDA_VISIBLE_DEVICES`` gives it (``"3"`` of four without one)."""
+    import os
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return visible.split(",")[cards - 1] if visible else str(cards - 1)
+
+
+def rank_parents(records_dir: str) -> dict:
+    """``{rank: [(pid, ppid, card uuid), ...]}``, one entry a rank process,
+    from the files :func:`record_rank` wrote."""
+    import os
+
+    out: dict = {}
+    for name in sorted(os.listdir(records_dir)):
+        with open(os.path.join(records_dir, name)) as f:
+            rec = json.load(f)
+        out.setdefault(rec["rank"], []).append(
+            (rec["pid"], rec["ppid"], rec["uuid"]))
+    return out
+
+
+def record_rank(records_dir: str):
+    """A fit callback that writes, in every rank once an epoch, its rank,
+    pid, parent's pid and its card's UUID (None on the CPU) into
+    ``records_dir`` — one file a rank process."""
+
+    def record(report):
+        import json as json_
+        import os
+
+        import torch as torch_
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+        uuid = (str(torch_.cuda.get_device_properties(0).uuid)
+                if torch_.cuda.is_available() else None)
+        path = os.path.join(records_dir, f"rank{rank}-pid{os.getpid()}")
+        with open(path, "w") as f:
+            json_.dump({"rank": rank, "pid": os.getpid(),
+                        "ppid": os.getppid(), "uuid": uuid}, f)
+
+    return record
+
+
 def gang_resume(train, test, features, tmp: str, device: str = "cuda"
                 ) -> dict:
     """(d) Crash and resume, held against one process: rank 1 exits at
     epoch 1, once; the gang (two ranks on the card, gloo) restarts with
-    max_retries=1 and resumes from rank 0's checkpoint. The history is
+    max_retries=1 and resumes from rank 0's checkpoint. Rank 1 runs under a
+    node agent on this host (SPREAD placement over the head's node and the
+    agent's): the agent is rank 1's parent, and the crashed rank is spawned
+    again through it. On more than one card the gang takes a card a rank
+    (nccl), and the agent holds the last card (``CUDA_VISIBLE_DEVICES`` of
+    it, ``--resource GPU=1``), so rank 1 runs on it. The history is
     [0, 1, 2, 3], the checkpoint's sidecar holds the pre-crash epochs, and
     the gang's unshuffled train losses equal an in-process fit's on the
     same rows in the same order within GANG_RESUME_RTOL (the global batch's
@@ -3907,8 +4054,12 @@ def gang_resume(train, test, features, tmp: str, device: str = "cuda"
     from raydp_tpu_torch.spmd.job import SPMDJob
     from raydp_tpu_torch.train import checkpoint as ckpt
 
+    from raydp_tpu_torch.runtime import get_runtime
+
     flag = os.path.join(tmp, "gang-crashed-once")
     ckpt_dir = os.path.join(tmp, "gang-resume")
+    records = os.path.join(tmp, "gang-resume-ranks")
+    os.makedirs(records)
 
     def crash_once(report):
         import torch.distributed as dist
@@ -3930,19 +4081,29 @@ def gang_resume(train, test, features, tmp: str, device: str = "cuda"
                     for x, y in zip(a.history, b.history)]
                 for k in ("train_loss", "eval_loss")}
 
+    cards = torch.cuda.device_count() if device == "cuda" else 0
     with device_cache(False):
         single = estimator().fit(train, test)
         reordered = estimator(shuffle=True).fit(train, test)
-        clock = CallClock()
-        clock.wrap(SPMDJob, "start", "start")
-        t0 = time.perf_counter()
-        est = estimator([crash_once], ckpt_dir)
+        agent = NodeAgent(get_runtime(), os.path.join(tmp, "agent-d.log"),
+                          card=last_card(cards) if cards > 1 else None)
         try:
-            gang = est.fit_gang(train, test, num_workers=2, max_retries=1)
+            agent.spread_from_head()
+            clock = CallClock()
+            clock.wrap(SPMDJob, "start", "start")
+            t0 = time.perf_counter()
+            est = estimator([record_rank(records), crash_once], ckpt_dir)
+            try:
+                gang = est.fit_gang(train, test, num_workers=2,
+                                    max_retries=1)
+            finally:
+                clock.restore()
+            wall = time.perf_counter() - t0
         finally:
-            clock.restore()
-        wall = time.perf_counter() - t0
+            agent.stop()
     gang_report("gang resume", gang.history, gang.dispatch)
+    parents = rank_parents(records)
+    rank1 = parents.get(1, [])
     epochs = [r["epoch"] for r in gang.history]
     extra = ckpt.restore_extra(ckpt_dir)
     diffs, order = rel_diffs(gang, single), rel_diffs(reordered, single)
@@ -3965,7 +4126,15 @@ def gang_resume(train, test, features, tmp: str, device: str = "cuda"
                                      for r in reordered.history],
            "rel_diffs": diffs, "max_rel_diff": worst,
            "order_rel_diffs": order, "predict_eval_loss": predicted,
-           "eval_vs_predict_rel_diff": eval_vs_predict}
+           "eval_vs_predict_rel_diff": eval_vs_predict,
+           "agent": {"pid": agent.pid, "card": agent.card,
+                     "start_s": agent.start_s,
+                     "rank_parents": {str(r): v
+                                      for r, v in parents.items()}}}
+    print(f"gang resume: node agent pid {agent.pid} joined in "
+          f"{agent.start_s:.3f} s (card {agent.card}); rank 1's processes "
+          f"(pid, parent, card) {rank1}, rank 0's {parents.get(0, [])}; "
+          f"this process {os.getpid()}")
     print(f"gang resume: history {epochs}, the second gang ran epochs "
           f"{out['second_gang_epochs']}, checkpoint sidecar epochs "
           f"{out['restored_epochs']}; fit_gang {wall:.3f} s with two gang "
@@ -3981,6 +4150,14 @@ def gang_resume(train, test, features, tmp: str, device: str = "cuda"
           f"{predicted:.6f}: {eval_vs_predict:.3e} of it (limit "
           f"{GANG_EVAL_RTOL})")
     require(out["crashed"], "gang resume: the injected crash never fired")
+    require(len(rank1) == 2 and len({p for p, _, _ in rank1}) == 2
+            and all(pp == agent.pid for _, pp, _ in rank1),
+            f"gang resume: rank 1 and its respawn are not the agent's "
+            f"children: {out['agent']}")
+    require(parents.get(0) and all(pp == os.getpid()
+                                   for _, pp, _ in parents[0]),
+            f"gang resume: rank 0 is not this process's child: "
+            f"{out['agent']}")
     require(epochs == list(range(GANG_RESUME_EPOCHS)) and out["restored_epochs"],
             f"gang resume: {out}")
     require(worst <= GANG_RESUME_RTOL, f"gang resume: {out}")
@@ -4454,8 +4631,9 @@ def shard_gbdt() -> dict:
 
 
 def shard_resume(train, test, features, tmp: str, phase13: dict,
-                 label: str = "shard resume", chain: int = 1) -> dict:
-    """(e) The sharded checkpoint: (b)'s gang for 4 epochs, rank 1 exiting
+                 label: str = "shard resume", chain: int = 1,
+                 epochs: int = GANG_RESUME_EPOCHS) -> dict:
+    """(e) The sharded checkpoint: (b)'s gang for ``epochs``, rank 1 exiting
     at epoch 1 once (max_retries=1), resumed from the sharded multi-writer
     format; the driver's restore reassembles the whole state. The retry's
     wall: the failed gang's stop and the second gang's start. With
@@ -4480,7 +4658,7 @@ def shard_resume(train, test, features, tmp: str, phase13: dict,
             open(flag, "w").close()
             os._exit(1)
 
-    est = build_estimator(features, GANG_BATCH, GANG_RESUME_EPOCHS, None,
+    est = build_estimator(features, GANG_BATCH, epochs, None,
                           mesh_spec=dict(fsdp=2))
     est.shuffle, est.callbacks, est.checkpoint_dir = \
         False, [crash_once], ckpt_dir
@@ -4536,7 +4714,7 @@ def shard_resume(train, test, features, tmp: str, phase13: dict,
           f"{eval_vs_predict:.3e} (limit {GANG_EVAL_RTOL}); fit_gang "
           f"{wall:.3f} s")
     require(out["crashed"], f"{label}: the injected crash never fired")
-    require(out["history_epochs"] == list(range(GANG_RESUME_EPOCHS))
+    require(out["history_epochs"] == list(range(epochs))
             and manifests == 2 and complete and bitwise
             and len(starts) == 2, f"{label}: {out}")
     require(max(diffs) <= GANG_RESUME_RTOL, f"{label}: {out}")
@@ -4560,7 +4738,10 @@ def run_sharding(fa, phase13: dict, frames, tmp: str) -> dict:
     out["dlrm"] = shard_dlrm()
     free_memory()
     out["lm"] = shard_lm()
-    out["resume"] = shard_resume(train, test, features, tmp, phase13)
+    out["resume"] = shard_resume(
+        train, test, features, tmp, phase13,
+        epochs=GLOO_RESUME_EPOCHS if torch.cuda.device_count() < 2
+        else GANG_RESUME_EPOCHS)
     out["gbdt"] = shard_gbdt()
     counts = launches(fa)
     print(f"shard launches of the flash kernels in the driver: {counts}")
@@ -5168,13 +5349,14 @@ def chain_share(history: list) -> list:
 
 
 def gang_of(label: str, est, train, test, num_workers: int, k: int,
-            profile: bool) -> dict:
+            profile: bool, callbacks=()) -> dict:
     """fit_gang of ``est`` at ``steps_per_dispatch=k`` (a profiled chain a
-    rank when ``profile``), unshuffled: its reports and dispatch, each
-    rank's backend, bytes and memory, the steady rate (the epochs after
-    the first, the profiled one left out) and the wall."""
+    rank when ``profile``, then ``callbacks``), unshuffled: its reports and
+    dispatch, each rank's backend, bytes and memory, the steady rate (the
+    epochs after the first, the profiled one left out) and the wall."""
     est.shuffle, est.steps_per_dispatch = False, k
-    est.callbacks = [ProfileOneChain()] if profile else []
+    est.callbacks = ([ProfileOneChain()] if profile else []) \
+        + list(callbacks)
     with device_cache(False):
         t0 = time.perf_counter()
         result = est.fit_gang(train, test, num_workers=num_workers)
@@ -5325,6 +5507,63 @@ def nccl_replicated(train, test, features, single: list) -> dict:
     require(all(b == "nccl" for b in got["backends"])
             and all(r > 0 for r in got["replays"]), f"cards (b): {out}")
     require(max(diffs) <= GANG_RESUME_RTOL, f"cards (b): {out}")
+    return out
+
+
+def nccl_agent_gang(train, test, features, replicated: dict,
+                    tmp: str) -> dict:
+    """(j) (b)'s replicated gang with rank 1 on a node agent of this host
+    that holds the last card (``CUDA_VISIBLE_DEVICES=3``, ``--resource
+    GPU=1``), rank 0 on this process's node (SPREAD): each rank on a card
+    of its own under nccl, rank 1's the agent's card (its UUID), the chains
+    replayed, and the train losses bitwise (b)'s (a sum of two gradients
+    does not depend on their order, so the pair of cards cannot move a
+    bit)."""
+    import os
+
+    from raydp_tpu_torch.examples.nyctaxi_mlp import build_estimator
+    from raydp_tpu_torch.runtime import get_runtime
+
+    cards = torch.cuda.device_count()
+    card = last_card(cards)
+    want_uuid = str(torch.cuda.get_device_properties(cards - 1).uuid)
+    records = os.path.join(tmp, "cards-j-ranks")
+    os.makedirs(records)
+    agent = NodeAgent(get_runtime(), os.path.join(tmp, "agent-j.log"),
+                      card=card)
+    try:
+        agent.spread_from_head()
+        got = gang_of("cards (j) agent", build_estimator(
+            features, GANG_BATCH, CARD_EPOCHS, None), train, test, 2, CHAIN,
+            profile=False, callbacks=[record_rank(records)])
+    finally:
+        agent.stop()
+    check_dispatch("cards (j)", got["result"], CHAIN)
+    parents = rank_parents(records)
+    uuids = [parents.get(r, [(None, None, None)])[0][2] for r in (0, 1)]
+    out = {k: v for k, v in got.items() if k != "result"}
+    out.update({"agent": {"pid": agent.pid, "card": card,
+                          "start_s": agent.start_s},
+                "rank_parents": {str(r): v for r, v in parents.items()},
+                "uuids": uuids, "card_uuid": want_uuid,
+                "bitwise_b": got["losses"] == replicated["losses"]})
+    print(f"cards (j) replicated NYCTaxi with rank 1 on a node agent that "
+          f"holds card {card} (joined in {agent.start_s:.3f} s): backend "
+          f"{got['backends']}, rank (pid, parent, card) {parents}, card "
+          f"{card}'s UUID {want_uuid}; k={CHAIN} "
+          f"{got['samples_per_s_steady']:.1f} samples/s steady vs (b)'s "
+          f"{replicated['samples_per_s_steady']:.1f}, replays "
+          f"{got['replays']}; train losses bitwise (b)'s: "
+          f"{out['bitwise_b']}; fit_gang {got['fit_gang_s']:.3f} s")
+    require(all(b == "nccl" for b in got["backends"])
+            and all(r > 0 for r in got["replays"]), f"cards (j): {out}")
+    require(len(parents.get(1, [])) == 1
+            and parents[1][0][1] == agent.pid
+            and all(pp == os.getpid() for _, pp, _ in parents.get(0, [])),
+            f"cards (j): rank 1 is not the agent's child: {out}")
+    require(None not in uuids and uuids[0] != uuids[1]
+            and uuids[1] == want_uuid, f"cards (j) cards: {out}")
+    require(out["bitwise_b"], f"cards (j) losses: {out}")
     return out
 
 
@@ -5611,7 +5850,8 @@ def nccl_ring(phase15: Optional[dict]) -> dict:
 def run_cards(fa, phase13: dict, phase15: Optional[dict], frames,
               tmp: str) -> dict:
     """Phase 16: one card a rank, under nccl — (a) the runner, (b) the
-    replicated gang, (c) fsdp=2, (d) data=2 x fsdp=2 over four cards,
+    replicated gang, (j) the same with rank 1 on a node agent that holds
+    card 3, (c) fsdp=2, (d) data=2 x fsdp=2 over four cards,
     (e) expert=2 DLRM, (f) the full TransformerLM under tensor=2 and seq=2,
     (g) the ring, (h) the staged pipeline, (i) the sharded crash and
     resume, each gang's chains captured. Needs CARD_RANKS cards; the
@@ -5628,6 +5868,8 @@ def run_cards(fa, phase13: dict, phase15: Optional[dict], frames,
     out = {"runner": card_runner()}
     out["replicated"] = nccl_replicated(train, test, features,
                                         single[:CARD_EPOCHS])
+    out["agent"] = nccl_agent_gang(train, test, features, out["replicated"],
+                                   tmp)
     for key, label, spec, ranks in (
             ("fsdp", "cards (c) fsdp=2", dict(fsdp=2), 2),
             ("data_fsdp", "cards (d) data=2 x fsdp=2", dict(data=2, fsdp=2),

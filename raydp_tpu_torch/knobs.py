@@ -5,7 +5,9 @@ serving plane, the SPMD gang). Every entry is the reference's entry of the
 same name, field for field, except ``RDT_WARM_IMPORTS``, whose default names
 ``torch`` where the reference's names ``jax``, and ``RDT_SPMD_COORDINATOR``
 and ``RDT_SPMD_JAX_DISTRIBUTED``, whose docs name ``torch.distributed``'s
-``init_process_group`` where the reference's name ``jax.distributed``.
+``init_process_group`` where the reference's name ``jax.distributed``. One
+entry is the port's own: ``RDT_SPMD_GPU_IDS``, a gang rank's card ids on
+its node (the reference's TPU ranks take a whole host and name no card).
 
 Every runtime read goes through :func:`get`, and the knob tables under
 ``raydp_tpu_torch/doc/`` are GENERATED from this registry
@@ -434,6 +436,10 @@ _ALL = [
     _k("RDT_SPMD_JAX_DISTRIBUTED", "bool", False, PROCESS_START, "spmd",
        "Whether a rank worker calls "
        "torch.distributed.init_process_group().", internal=True),
+    _k("RDT_SPMD_GPU_IDS", "str", None, PROCESS_START, "spmd",
+       "A gang rank's card ids on its node (its placement bundle's), which "
+       "the process that spawns the rank there (the driver or the node's "
+       "agent) maps through its own CUDA_VISIBLE_DEVICES.", internal=True),
 ]
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}

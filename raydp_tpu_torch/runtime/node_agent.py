@@ -33,6 +33,7 @@ from typing import Dict, Optional
 
 from raydp_tpu_torch import knobs
 from raydp_tpu_torch.log import get_logger, init_logging
+from raydp_tpu_torch.runtime.placement import set_visible_cards
 from raydp_tpu_torch.runtime.rpc import MethodDispatcher, RpcServer, connect_with_retry
 
 logger = get_logger("node_agent")
@@ -266,6 +267,9 @@ class NodeAgent:
                 env.pop(k, None)
             else:
                 env[k] = v
+        # a gang rank's card ids are this node's: name them through this
+        # agent's own CUDA_VISIBLE_DEVICES
+        set_visible_cards(env)
         if self.store_isolated:
             # children write payloads into THIS machine's plane and read
             # same-machine objects zero-copy; explicit overrides win

@@ -13,7 +13,11 @@ asks for ``GPU`` takes whole cards — a fractional ``GPU`` bundle is refused
 as a fractional ``TPU`` one is. Placing the group hands each such bundle the
 ids of the cards it holds on its node (``Bundle.gpu_ids``, indexes into the
 node's visible cards), which the SPMD gang turns into each rank's
-``CUDA_VISIBLE_DEVICES``; removing the group gives them back.
+``CUDA_VISIBLE_DEVICES``; removing the group gives them back. The ids are
+the node's own, so only a process on that node can name the cards: a rank
+is spawned with its ids (:data:`ENV_GPU_IDS`), and the process that spawns
+it — the driver, or the node agent that holds the bundle — reads them
+through its own ``CUDA_VISIBLE_DEVICES`` (:func:`set_visible_cards`).
 
 Nodes here are *logical*: a single machine can register several virtual nodes to
 simulate multi-host topologies in tests, the same trick the reference's test suite
@@ -24,10 +28,31 @@ from __future__ import annotations
 
 import enum
 import itertools
+import os
 import threading
 import uuid
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+
+#: a spawned rank's card ids on its node (``Bundle.gpu_ids``, comma-joined)
+ENV_GPU_IDS = "RDT_SPMD_GPU_IDS"
+
+
+def set_visible_cards(env: Dict[str, str]) -> None:
+    """Set a child environment's ``CUDA_VISIBLE_DEVICES`` from its
+    :data:`ENV_GPU_IDS`: the ids index the cards THIS process sees — its
+    own ``CUDA_VISIBLE_DEVICES`` when it has one, else the node's cards
+    ``0..n-1``. The one rule of a rank spawned by the driver and of one
+    spawned by a node agent; an environment without ids is left as it
+    is."""
+    ids = env.get(ENV_GPU_IDS)
+    if not ids:
+        return
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    names = visible.split(",") if visible else None
+    env["CUDA_VISIBLE_DEVICES"] = ",".join(
+        names[int(i)] if names else str(int(i)) for i in ids.split(","))
 
 
 class PlacementStrategy(str, enum.Enum):

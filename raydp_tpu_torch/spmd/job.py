@@ -44,6 +44,7 @@ import cloudpickle
 from concurrent.futures import Future, InvalidStateError
 
 from raydp_tpu_torch.log import get_logger
+from raydp_tpu_torch.runtime.placement import ENV_GPU_IDS, set_visible_cards
 from raydp_tpu_torch.runtime.rpc import (
     DeferredReply, MethodDispatcher, RpcClient, RpcServer)
 
@@ -117,8 +118,11 @@ class SPMDJob:
 
     ``gpus_per_process`` (whole cards; 0, the default, asks for none): each
     rank's placement bundle asks for that many ``GPU`` and the rank sees
-    exactly its bundle's cards (``CUDA_VISIBLE_DEVICES``); without a live
-    runtime rank ``r`` takes the driver's visible cards ``r·g .. r·g+g-1``.
+    exactly its bundle's cards (``CUDA_VISIBLE_DEVICES``), named by the
+    process that spawns it on the bundle's node: this one, or the node's
+    agent (:func:`~raydp_tpu_torch.runtime.placement.set_visible_cards`);
+    without a live runtime rank ``r`` takes the driver's visible cards
+    ``r·g .. r·g+g-1``.
     """
 
     def __init__(
@@ -355,7 +359,10 @@ class SPMDJob:
         env_overrides[ENV_WORLD] = str(self.world_size)
         env_overrides[ENV_TORCH_DIST] = "1" if self.torch_distributed else "0"
         if self.gpus_per_process:
-            env_overrides["CUDA_VISIBLE_DEVICES"] = self._rank_cards(rank)
+            # ids on the bundle's node: whoever spawns the rank there (this
+            # process, or the node's agent) names the cards
+            env_overrides[ENV_GPU_IDS] = ",".join(
+                str(i) for i in self._rank_card_ids(rank))
         driver_path = [p for p in sys.path if p]
         if env_overrides.get("PYTHONPATH"):  # user extra_env path first
             driver_path.insert(0, env_overrides["PYTHONPATH"])
@@ -382,6 +389,7 @@ class SPMDJob:
                 env.pop(k, None)
             else:
                 env[k] = v
+        set_visible_cards(env)
         out = open(self._log_path(rank), "ab")
         proc = subprocess.Popen(
             [sys.executable, "-u", "-m", "raydp_tpu_torch.spmd.worker"],
@@ -390,22 +398,18 @@ class SPMDJob:
         out.close()
         return proc
 
-    def _rank_cards(self, rank: int) -> str:
-        """The rank's ``CUDA_VISIBLE_DEVICES``: its bundle's card ids (or,
-        without a runtime, ``rank·g .. rank·g+g-1``), read through the
-        driver's own ``CUDA_VISIBLE_DEVICES`` when it has one."""
+    def _rank_card_ids(self, rank: int) -> List[int]:
+        """The rank's card ids on its node: its bundle's ``gpu_ids`` (or,
+        without a runtime, ``rank·g .. rank·g+g-1`` of this node)."""
         from raydp_tpu_torch.runtime import head as head_mod
 
         g = self.gpus_per_process
-        ids = list(range(rank * g, (rank + 1) * g))
         if self._placement_group_id is not None \
                 and head_mod.runtime_initialized():
             group = head_mod.get_runtime().resource_manager.get_group(
                 self._placement_group_id)
-            ids = group.bundles[rank].gpu_ids
-        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-        names = visible.split(",") if visible else None
-        return ",".join(names[i] if names else str(i) for i in ids)
+            return list(group.bundles[rank].gpu_ids)
+        return list(range(rank * g, (rank + 1) * g))
 
     # -- execution ------------------------------------------------------------
     def run(self, fn: Callable[[WorkerContext], Any],

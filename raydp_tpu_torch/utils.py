@@ -1,7 +1,8 @@
-"""Shared utilities — the port's copy of the parts of :mod:`raydp_tpu.utils`
-it uses: ``random_split`` (reference utils.py:67-90), memory-size parsing
-(utils.py:125-146) and the balanced block→rank sharding kernel
-``divide_blocks`` (utils.py:149-222). Semantics match the reference's tests
+"""Shared utilities — the port's copy of :mod:`raydp_tpu.utils`:
+``random_split`` (reference utils.py:67-90), memory-size parsing and
+printing (utils.py:125-146), the balanced block→rank sharding kernel
+``divide_blocks`` (utils.py:149-222) and node-address and free-port
+discovery (utils.py:34-58). Semantics match the reference's tests
 (python/raydp/tests/test_spark_utils.py).
 """
 
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import math
 import re
+import socket
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +46,14 @@ def parse_memory_size(memory_size) -> int:
         raise ValueError(f"cannot parse memory size: {memory_size!r}")
     number, unit = m.group(1), m.group(2)
     return int(float(number) * _MEMORY_UNITS[unit])
+
+
+def memory_string(num_bytes: int) -> str:
+    for unit in ("T", "G", "M", "K"):
+        q = _MEMORY_UNITS[unit]
+        if num_bytes >= q and num_bytes % q == 0:
+            return f"{num_bytes // q}{unit}B"
+    return str(int(num_bytes))
 
 
 def divide_blocks(
@@ -100,3 +110,19 @@ def divide_blocks(
             size += take
         results[rank] = selected
     return results
+
+
+def get_node_address() -> str:
+    """Best-effort primary IP of this node (reference utils.py:34-58 uses psutil)."""
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.connect(("8.8.8.8", 80))
+            return s.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+
+
+def find_free_port(host: str = "127.0.0.1") -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]

@@ -15,9 +15,9 @@ literal, must each break the fence.
 
 Then the registries the lint reads: every port knob is the reference's entry
 of the same name, field for field (``RDT_WARM_IMPORTS``'s default and the
-two gang knobs whose docs name ``torch.distributed`` aside), the one knob
-the port lacks is the sharded state's, and the generated tables regenerate
-to themselves.
+two gang knobs whose docs name ``torch.distributed`` aside), the port's
+one knob of its own is a gang rank's card ids, and the generated tables
+regenerate to themselves.
 """
 
 import dataclasses
@@ -1336,6 +1336,10 @@ PORT_KNOB_DOCS = {
         "Whether a rank worker calls "
         "torch.distributed.init_process_group().",
 }
+#: the port's own knobs, with no reference entry: a gang rank's card ids
+#: on its node, which the spawning driver or node agent names (the
+#: reference's TPU ranks take whole hosts)
+PORT_ONLY_KNOBS = {"RDT_SPMD_GPU_IDS"}
 #: the reference's telemetry the port does not emit yet: none
 TELEMETRY_NOT_PORTED = set()
 
@@ -1368,9 +1372,15 @@ def test_every_port_knob_is_the_reference_entry_field_for_field():
         == [f.name for f in dataclasses.fields(ref.Knob)]
     assert (port.PER_ACTION, port.PROCESS_START) \
         == (ref.PER_ACTION, ref.PROCESS_START)
-    assert len(port.KNOBS) == 98
+    assert len(port.KNOBS) == 98 + len(PORT_ONLY_KNOBS)
     for name, knob in port.KNOBS.items():
         got = dataclasses.asdict(knob)
+        if name in PORT_ONLY_KNOBS:
+            # the gang plumbing's shape: set by the driver for its ranks
+            sibling = dataclasses.asdict(ref.KNOBS["RDT_SPMD_RANK"])
+            for key in ("scope", "category", "internal"):
+                assert got[key] == sibling[key], (name, key)
+            continue
         want = dataclasses.asdict(ref.KNOBS[name])
         want["doc"] = _port_named(want["doc"])
         if name in PORT_KNOB_DOCS:
@@ -1390,7 +1400,7 @@ def test_the_knobs_the_port_lacks_are_the_gang_and_sharding_ones():
     ref = _standalone("raydp_tpu", "knobs")
     port = _standalone("raydp_tpu_torch", "knobs")
     assert set(ref.KNOBS) - set(port.KNOBS) == KNOBS_NOT_PORTED
-    assert not set(port.KNOBS) - set(ref.KNOBS)
+    assert set(port.KNOBS) - set(ref.KNOBS) == PORT_ONLY_KNOBS
 
 
 def test_every_port_telemetry_entry_is_the_reference_s():
