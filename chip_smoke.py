@@ -173,11 +173,22 @@ keep their backend.
     dump, stop), the merged trace's flow events and actor lanes; the loss
     falls and the trace and the metrics dump are written; then
     ``stroke_pipeline.py`` at its defaults (6,000 rows, 6 epochs, batch
-    256) through ``python -m raydp_tpu_torch.cli.submit`` as a child
-    process on the card, then on the CPU: each exits 0, its last line shows
+    256) through ``python -m raydp_tpu_torch.cli.submit`` as two child
+    processes side by side, one on the card and one on the CPU: each exits
+    0, its last line shows
     the train loss fell, its wall and final losses are printed, and the
     card's losses are within 1e-3 of the CPU's (the example draws its
-    weights on the host);
+    weights on the host); then the DLRM tutorial notebook
+    (``raydp_tpu_torch/examples/dlrm_tutorial.ipynb``) at its defaults
+    (40,000 rows, 2 executors of 2 cores, DLRM embedding 16, Adagrad 1e-2,
+    batch 2048, 2 epochs), its code cells exec'd in order in this process
+    with ``NB_DEVICE`` unset:
+    what it printed, its history and steady samples/s, the wall split
+    (generate, init, pre_process with its 26 collects, fit_on_frame,
+    get_model, stop); the loss falls and stays finite, the model trained
+    on the card, its parameter count is the reference's
+    (``NOTEBOOK_PARAMS``), no flash launch, no segment left after its
+    ``stop()``;
 13. the gang (``raydp_tpu_torch.spmd`` and ``TorchEstimator.fit_gang``):
     (a) the runner: a 2-rank plain job runs, stops and restarts; a 1-rank
     ``torch_distributed`` job with a card of its own (nccl) and a 2-rank
@@ -3124,9 +3135,10 @@ def run_serving(fa, tmp: str) -> dict:
 GBDT_ROWS, GBDT_ROUNDS, GBDT_DEPTH = 200_000, 10, 6
 GBDT_EXAMPLE_ROUNDS = 100
 # binary:logistic and multi:softprob (labels from fare quantiles) on the
-# same features; the early-stopping fit stops at most after 30 rounds
-# (about 18 at this configuration on the CPU)
-GBDT_OBJECTIVE_ROUNDS, GBDT_CLASSES = 20, 4
+# same features, 10 rounds (cut from 20, where their CPU fits took 51.7 s
+# of the default run, to keep it under 1000 s); the early-stopping fit
+# stops at most after 30 rounds (about 18 at this configuration on the CPU)
+GBDT_OBJECTIVE_ROUNDS, GBDT_CLASSES = 10, 4
 GBDT_EARLY_STOP, GBDT_EARLY_STOP_ROUNDS = 3, 30
 # card vs CPU: the reference's own rule for a different reduction order
 # (tests/test_gbdt.py's sharded fit): the card's histograms sum each
@@ -3592,13 +3604,11 @@ def nyctaxi_example(phase8: dict) -> dict:
     return out
 
 
-def stroke_child(tmp: str, where: str) -> dict:
+def run_stroke_child(tmp: str, where: str):
     """raydp_tpu_torch/examples/stroke_pipeline.py at its defaults through
     ``python -m raydp_tpu_torch.cli.submit``, as a child process training
-    on ``where``: it exits 0 and its last line shows the train loss
-    fell."""
+    on ``where``; returns the finished process and its wall."""
     import os
-    import re
 
     repo = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "raydp_tpu_torch.cli.submit",
@@ -3609,7 +3619,14 @@ def stroke_child(tmp: str, where: str) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
                           text=True, timeout=600)
-    wall = time.perf_counter() - t0
+    return proc, time.perf_counter() - t0
+
+
+def stroke_child(where: str, proc, wall: float) -> dict:
+    """The stroke child's report: it exited 0 and its last line shows the
+    train loss fell."""
+    import re
+
     lines = proc.stdout.strip().splitlines()
     for line in lines:
         print(f"  child on {where}: {line}")
@@ -3628,10 +3645,16 @@ def stroke_child(tmp: str, where: str) -> dict:
 
 
 def stroke_example(tmp: str) -> dict:
-    """The stroke pipeline submitted twice, training on the card and on the
-    CPU: both start from the same host-drawn weights, so their final
-    losses agree within STROKE_CPU_ATOL."""
-    out = {where: stroke_child(tmp, where) for where in ("cuda", "cpu")}
+    """The stroke pipeline submitted twice at once, training on the card
+    and on the CPU (two child sessions side by side; run one after the
+    other they took 61-65 s of the default run's wall): both start from
+    the same host-drawn weights, so their final losses agree within
+    STROKE_CPU_ATOL."""
+    with ThreadPoolExecutor(2) as pool:
+        runs = {where: pool.submit(run_stroke_child, tmp, where)
+                for where in ("cuda", "cpu")}
+        out = {where: stroke_child(where, *run.result())
+               for where, run in runs.items()}
     diff = max(abs(out["cuda"][k] - out["cpu"][k])
                for k in ("first_train_loss", "train_loss", "eval_loss"))
     out["card_vs_cpu_max_abs_diff"] = diff
@@ -3642,10 +3665,129 @@ def stroke_example(tmp: str) -> dict:
     return out
 
 
+#: the DLRM tutorial notebook, run at its defaults (40,000 rows, 2 epochs)
+NOTEBOOK = ("raydp_tpu_torch", "examples", "dlrm_tutorial.ipynb")
+NOTEBOOK_ROWS, NOTEBOOK_EPOCHS = 40_000, 2
+#: the trained parameter count the notebook must print at its defaults: the
+#: reference's Flax DLRM at the notebook's widths over the reference's
+#: pre_process cardinalities of the same 40,000 generated rows
+#: (tests/test_torch_notebook.py takes it from the reference on the CPU)
+NOTEBOOK_PARAMS = 459_281
+
+
+def dlrm_notebook(fa, tmp: str) -> dict:
+    """raydp_tpu_torch/examples/dlrm_tutorial.ipynb on the card: its code
+    cells exec'd in order in one namespace (the card's machine has no
+    nbconvert), with ``NB_DEVICE``, ``NB_ROWS`` and ``NB_EPOCHS`` unset, so
+    the notebook trains on the card at its defaults. Prints what the
+    notebook printed, its rows, first eight cardinalities, history, steady
+    samples/s and trained parameter count, the wall split (generate, init,
+    pre_process with its 26 collects, fit_on_frame, get_model, stop), the
+    flash launches (none) and the session's segments left after its
+    stop."""
+    import contextlib
+    import io
+    import os
+
+    import raydp_tpu_torch
+    from raydp_tpu_torch.etl.frame import DataFrame
+    from raydp_tpu_torch.examples import dlrm_criteo
+    from raydp_tpu_torch.runtime import get_runtime
+    from raydp_tpu_torch.train import TorchEstimator
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, *NOTEBOOK)) as f:
+        cells = [("".join(c["source"]), c["id"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    clock = CallClock()
+    clock.wrap(dlrm_criteo, "generate_criteo", "generate")
+    clock.wrap(raydp_tpu_torch, "init", "init")
+    clock.wrap(dlrm_criteo, "pre_process", "pre_process")
+    clock.wrap(DataFrame, "to_pandas", "collect")
+    clock.wrap(DataFrame, "withColumn", "with_column")
+    clock.wrap(TorchEstimator, "fit_on_frame", "fit_on_frame")
+    clock.wrap(TorchEstimator, "get_model", "get_model")
+    clock.wrap(raydp_tpu_torch, "stop", "stop")
+    knobs = {k: os.environ.pop(k) for k in ("NB_DEVICE", "NB_ROWS",
+                                            "NB_EPOCHS") if k in os.environ}
+    tempdir, tempfile.tempdir = tempfile.tempdir, tmp
+    ns, printed, prefix = {"__name__": "__notebook__"}, io.StringIO(), None
+    zero_launches(fa)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            for source, cell in cells:
+                try:
+                    prefix = f"rdt{get_runtime().session_id[:8]}"
+                except RuntimeError:
+                    pass  # no session yet, or stopped
+                exec(compile(source, f"<notebook cell {cell}>", "exec"), ns)
+    finally:
+        wall = time.perf_counter() - t0
+        tempfile.tempdir = tempdir
+        os.environ.update(knobs)
+        clock.restore()
+        for line in printed.getvalue().splitlines():
+            print(f"  notebook: {line}")
+    counts = launches(fa)
+    left = [f for f in os.listdir("/dev/shm")
+            if prefix and f.startswith(prefix)]
+    collects = clock.calls.get("collect", [])
+    with_columns = clock.calls.get("with_column", [])
+    seconds = clock.take()
+    split = {"generate_s": seconds["generate"], "init_s": seconds["init"],
+             "pre_process_s": seconds["pre_process"],
+             "fit_on_frame_s": seconds["fit_on_frame"],
+             "get_model_s": seconds["get_model"], "stop_s": seconds["stop"]}
+    split["rest_s"] = wall - sum(split.values())
+    history = ns["result"].history
+    losses = [r["train_loss"] for r in history]
+    rows = int(printed.getvalue().split("rows:")[1].split()[0])
+    out = {"rows": rows, "cardinalities": ns["cat_sizes"][:8],
+           "history": [{k: v for k, v in r.items()
+                        if k in ("epoch", "train_loss", "steps",
+                                 "samples_per_s", "epoch_time_s")}
+                       for r in history],
+           "samples_per_s_steady": steady_rate(history[1:]),
+           "params": ns["n_params"],
+           "device": str(next(ns["model"].parameters()).device),
+           "wall_s": wall, "split": split, "collects": len(collects),
+           "collects_s": sum(collects), "with_columns": len(with_columns),
+           "with_columns_s": sum(with_columns), "launches": counts,
+           "segments_left": left}
+    print(f"example dlrm notebook: {rows} rows, cardinalities (first 8) "
+          f"{out['cardinalities']}; history {json.dumps(out['history'])}; "
+          f"{out['samples_per_s_steady']:.1f} samples/s steady; "
+          f"{out['params']} trained parameters on {out['device']}")
+    print(f"example dlrm notebook: wall {wall:.3f} s, split " + json.dumps(
+        {k: round(v, 4) for k, v in split.items()}) + f"; pre_process ran "
+        f"{len(collects)} collects, {out['collects_s']:.3f} s, and "
+        f"{len(with_columns)} withColumn calls (each probes the schema), "
+        f"{out['with_columns_s']:.3f} s")
+    print(f"example dlrm notebook launches of the flash kernels: {counts}")
+    print(f"example dlrm notebook: after stop(), segments of the session "
+          f"left: {left}")
+    require(rows == NOTEBOOK_ROWS and len(history) == NOTEBOOK_EPOCHS,
+            f"the notebook ran {rows} rows, {len(history)} epochs")
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"the notebook's loss did not fall or is not finite: {losses}")
+    require(out["params"] == NOTEBOOK_PARAMS, f"the notebook trained "
+            f"{out['params']} parameters, the reference's DLRM "
+            f"{NOTEBOOK_PARAMS}")
+    require(out["device"].startswith("cuda"),
+            f"the notebook trained on {out['device']}")
+    require(len(collects) == len(dlrm_criteo.CAT_COLS),
+            f"pre_process ran {len(collects)} collects")
+    require(not any(counts.values()), f"the notebook launched {counts}")
+    require(prefix is not None and not left,
+            f"segments left after the notebook's stop: {left}")
+    return out
+
+
 def run_examples(fa, phase8: dict, tmp: str) -> dict:
-    """Phase 12: the port's two headline examples on the card, NYCTaxi in
-    this process and the stroke pipeline through rdt-submit-torch; neither
-    launches a flash kernel."""
+    """Phase 12: the port's headline examples on the card, NYCTaxi in this
+    process, the stroke pipeline through rdt-submit-torch and the DLRM
+    tutorial notebook in this process; none launches a flash kernel."""
     t_phase = time.perf_counter()
     zero_launches(fa)
     out = {"nyctaxi": nyctaxi_example(phase8)}
@@ -3653,6 +3795,8 @@ def run_examples(fa, phase8: dict, tmp: str) -> dict:
     print(f"example launches of the flash kernels: {counts}")
     require(not any(counts.values()), f"the examples launched {counts}")
     out["stroke"] = stroke_example(tmp)
+    free_memory()
+    out["notebook"] = dlrm_notebook(fa, tmp)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"examples phase: {out['phase_s']:.3f} s")
     print("examples phase " + json.dumps(out))

@@ -2,8 +2,9 @@
 the port's copy of ``examples/stroke_pipeline.py``.
 
 The reference's tutorials walk a healthcare stroke CSV through Spark
-preprocessing into estimator training on one cluster; the reference's
-``doc/tutorial_data_processing.md`` narrates this pipeline step by step.
+preprocessing into estimator training on one cluster;
+``raydp_tpu_torch/doc/tutorial_data_processing.md`` narrates this pipeline
+step by step.
 Here the same pipeline runs on the port: the ETL on host executors, then a
 ``TorchEstimator`` fit of a small MLP on the CUDA card (``--device cpu``
 trains on the CPU). The data is generated, with the reference's seed, so
