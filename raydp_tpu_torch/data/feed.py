@@ -35,9 +35,9 @@ with ``torch.randperm`` from a ``torch.Generator`` seeded with
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -221,19 +221,11 @@ class HostBatchIterator:
         buffers: Dict[str, List[np.ndarray]] = {n: [] for n in self.columns}
         buffered = 0
         for block_idx, off, length in parts:
-            full_block = off == 0 and length == self._block_rows(block_idx)
-            if full_block or block_idx in self._decoded:
-                arrays = self._decode_block(block_idx)
-                if self.shuffle and length > 1:
-                    idx = off + rng.permutation(length)
-                    sel = {n: a[idx] for n, a in arrays.items()}
-                else:
-                    sel = {n: a[off:off + length] for n, a in arrays.items()}
-            else:
-                sel = self._decode_slice(block_idx, off, length)
-                if self.shuffle and length > 1:
-                    idx = rng.permutation(length)
-                    sel = {n: a[idx] for n, a in sel.items()}
+            cached = block_idx in self._decoded
+            with profiler.timed("feed:block", profiler.tracing(),
+                                category="feed", block=block_idx,
+                                rows=length, cached=int(cached)):
+                sel = self._block_selection(rng, block_idx, off, length)
             for name in self.columns:
                 buffers[name].append(sel[name])
             buffered += length
@@ -245,6 +237,23 @@ class HostBatchIterator:
             batch = {n: np.concatenate(v, axis=0) for n, v in buffers.items()}
             yield pad_batch(batch, self.batch_size) \
                 if self.pad_remainder else batch
+
+    def _block_selection(self, rng, block_idx: int, off: int,
+                         length: int) -> Dict[str, np.ndarray]:
+        """The rows ``[off, off+length)`` of a block, decoded or from the
+        cache, in the epoch's order."""
+        full_block = off == 0 and length == self._block_rows(block_idx)
+        if full_block or block_idx in self._decoded:
+            arrays = self._decode_block(block_idx)
+            if self.shuffle and length > 1:
+                idx = off + rng.permutation(length)
+                return {n: a[idx] for n, a in arrays.items()}
+            return {n: a[off:off + length] for n, a in arrays.items()}
+        sel = self._decode_slice(block_idx, off, length)
+        if self.shuffle and length > 1:
+            idx = rng.permutation(length)
+            sel = {n: a[idx] for n, a in sel.items()}
+        return sel
 
     def _cut_batch(self, buffers, buffered):
         joined = {n: (np.concatenate(v, axis=0) if len(v) > 1 else v[0])
@@ -557,8 +566,9 @@ class DeviceEpochCache:
             return False
 
 
-class PipelineTimings:
-    """Thread-safe per-phase wall accumulator for the feed pipeline.
+class PipelineTimings(profiler.Walls):
+    """Thread-safe per-phase wall accumulator for the feed pipeline: the
+    sums of the feed's :class:`~raydp_tpu_torch.profiler.timed` spans.
 
     Phases (surfaced per epoch as ``decode_time_s``/``stage_time_s``/
     ``h2d_time_s`` by the estimator):
@@ -575,24 +585,16 @@ class PipelineTimings:
 
     KEYS = ("decode", "stage", "h2d")
 
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._acc = {k: 0.0 for k in self.KEYS}
-
     def add(self, key: str, dt: float) -> None:
-        with self._lock:
-            self._acc[key] += dt
+        super().add(key, dt)
         # the registry twin: metrics_report() sees the feed's phases
         # without the estimator re-publishing its epoch dicts
         metrics.observe("feed_phase_seconds", dt, label=key)
 
-    def take(self) -> Dict[str, float]:
-        """Snapshot AND reset — each epoch reports its own split."""
-        with self._lock:
-            out = dict(self._acc)
-            for k in self._acc:
-                self._acc[k] = 0.0
-        return out
+
+#: the span each :class:`PipelineTimings` phase is timed under
+PHASE_SPANS = {"decode": "feed:decode", "stage": "feed:stage",
+               "h2d": "feed:h2d"}
 
 
 class DevicePrefetcher:
@@ -641,20 +643,15 @@ class DevicePrefetcher:
         try:
             src = iter(self._src)
             while not self._stop.is_set():
-                t0 = time.perf_counter()
+                on = profiler.tracing()
                 try:
-                    item = next(src)
+                    with self._phase(self._pull_key, on):
+                        item = next(src)
                 except StopIteration:
                     break
-                if self._timings is not None and self._pull_key:
-                    self._timings.add(self._pull_key,
-                                      time.perf_counter() - t0)
                 if self._fn is not None:
-                    t1 = time.perf_counter()
-                    item = self._fn(item)
-                    if self._timings is not None and self._work_key:
-                        self._timings.add(self._work_key,
-                                          time.perf_counter() - t1)
+                    with self._phase(self._work_key, on):
+                        item = self._fn(item)
                 if not self._put(item):
                     break
             self._put(self._DONE)  # no-op if stopped
@@ -666,6 +663,13 @@ class DevicePrefetcher:
                 # after its join timeout if THIS thread was mid-fn), so the
                 # upstream close falls to us
                 self._close_src()
+
+    def _phase(self, key: Optional[str], on: bool):
+        """The span ``key``'s phase is timed under (nothing for no key)."""
+        if self._timings is None or not key:
+            return contextlib.nullcontext()
+        return profiler.timed(PHASE_SPANS[key], on, self._timings, key,
+                              "feed")
 
     def _put(self, item) -> bool:
         """Blocking put that stays responsive to :meth:`close` (the timeout
@@ -805,34 +809,32 @@ class DeviceFeed:
     def _place(self, batch: Dict[str, np.ndarray]):
         """``(tensors, ready)``: the batch on the device and the CUDA event
         its copy records (None on the CPU)."""
+        on = profiler.tracing()
         if self.device.type != "cuda":
-            t0 = time.perf_counter()
-            out = {n: torch.tensor(a) for n, a in batch.items()}
-            self.timings.add("h2d", time.perf_counter() - t0)
+            with profiler.timed("feed:h2d", on, self.timings, "h2d", "feed"):
+                out = {n: torch.tensor(a) for n, a in batch.items()}
             return out, None
         with self.placement_lock:
-            t0 = time.perf_counter()
-            pinned = {}
-            for n, a in batch.items():
-                host = torch.empty(a.shape, dtype=torch_dtype(a.dtype),
-                                   pin_memory=True)
-                np.copyto(host.numpy(), a)
-                pinned[n] = host
-            t1 = time.perf_counter()
-            with torch.cuda.device(self.device):
-                if self._copy_stream is None:
-                    self._copy_stream = torch.cuda.Stream()
-                with torch.cuda.stream(self._copy_stream):
-                    # the caching host allocator keeps each pinned block
-                    # until the copy reading it has completed
-                    out = {n: h.to(self.device, non_blocking=True)
-                           for n, h in pinned.items()}
-                    ready = torch.cuda.Event()
-                    ready.record(self._copy_stream)
-            del pinned  # the host allocator's release, under the lock too
-            t2 = time.perf_counter()
-        self.timings.add("stage", t1 - t0)
-        self.timings.add("h2d", t2 - t1)
+            with profiler.timed("feed:stage", on, self.timings, "stage",
+                                "feed"):
+                pinned = {}
+                for n, a in batch.items():
+                    host = torch.empty(a.shape, dtype=torch_dtype(a.dtype),
+                                       pin_memory=True)
+                    np.copyto(host.numpy(), a)
+                    pinned[n] = host
+            with profiler.timed("feed:h2d", on, self.timings, "h2d", "feed"):
+                with torch.cuda.device(self.device):
+                    if self._copy_stream is None:
+                        self._copy_stream = torch.cuda.Stream()
+                    with torch.cuda.stream(self._copy_stream):
+                        # the caching host allocator keeps each pinned
+                        # block until the copy reading it has completed
+                        out = {n: h.to(self.device, non_blocking=True)
+                               for n, h in pinned.items()}
+                        ready = torch.cuda.Event()
+                        ready.record(self._copy_stream)
+                del pinned  # the host allocator's release, under the lock
         return out, ready
 
     def _consume(self, item) -> Dict[str, torch.Tensor]:
@@ -892,9 +894,9 @@ class DeviceFeed:
             return next(iter(b.values())).shape[0]
 
         def _stack(buf):
-            t0 = time.perf_counter()
-            stacked = {n: np.stack([b[n] for b in buf]) for n in buf[0]}
-            self.timings.add("stage", time.perf_counter() - t0)
+            with profiler.timed("feed:stage", profiler.tracing(),
+                                self.timings, "stage", "feed"):
+                stacked = {n: np.stack([b[n] for b in buf]) for n in buf[0]}
             return stacked, len(buf)
 
         def _stacks():

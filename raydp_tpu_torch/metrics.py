@@ -355,6 +355,37 @@ _ALL_SPANS = [
        "Compilation + activation-residency analysis of the pipelined "
        "(stage-stacked shard_map GPipe) train step — the train:accum twin "
        "for stage>1 fits."),
+    # ---- the port's train loop and feed (profiler.timed; every span but
+    # train:epoch is recorded only while a torch profiler runs) ---------------
+    _s("train:epoch", "training",
+       "One epoch of the train loop, start to the loss read that ends it "
+       "(epoch_time_s); recorded whenever the profiler is enabled."),
+    _s("train:feed_wait", "training",
+       "The loop's wait for its next batch or stack from the streaming "
+       "feed; the sum is the epoch report's feed_time_s."),
+    _s("train:dispatch", "training",
+       "One dispatch: a step runner call (replay, capture or warm-up) or a "
+       "step or chain run eagerly; the sum is dispatch_time_s."),
+    _s("train:sync", "training",
+       "The epoch's loss read (and a gang's all-reduce of its sums), which "
+       "waits for the card; sync_time_s. On the resident path the first "
+       "read, inside the dispatch window, counts into dispatch_time_s."),
+    _s("train:eval", "training",
+       "The epoch's evaluation pass."),
+    _s("train:checkpoint", "training",
+       "The epoch's checkpoint save."),
+    _s("feed:decode", "feed",
+       "One host batch pulled from the host iterator on the feed's thread "
+       "(the decode phase)."),
+    _s("feed:block", "feed",
+       "One block's decode or decoded-cache hit plus its row permutation "
+       "(args: block, rows, cached)."),
+    _s("feed:stage", "feed",
+       "A batch's copy into pinned host memory, or a chain's stacking (the "
+       "stage phase)."),
+    _s("feed:h2d", "feed",
+       "Enqueueing a batch's host-to-device copy on the side stream (the "
+       "h2d phase)."),
 ]
 
 SPANS: Dict[str, Span] = {s.name: s for s in _ALL_SPANS}

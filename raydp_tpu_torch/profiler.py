@@ -27,6 +27,13 @@ per-process lanes:
 - :func:`torch_trace` — wraps ``torch.profiler`` so host and device
   activity (a Chrome trace) lands in the session directory next to the
   span trace.
+- :class:`timed` — the one timing primitive of the train loop's epoch
+  report and the feed's phases: it always adds the body's wall into the
+  sums the report reads (:class:`Walls`), and only while :func:`tracing`
+  also records it as a span. While a ``torch.profiler`` runs in the
+  process, :func:`trace` and :class:`timed` also open a profiler range of
+  the span's name, so the program's spans lie in the device trace, on that
+  trace's clock.
 
 Span/metric/event *names* are registered in ``raydp_tpu_torch/metrics.py`` and
 statically checked by rdtlint's ``telemetry-registry`` rule; the registry
@@ -41,6 +48,7 @@ import contextvars
 import json
 import os
 import secrets
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -97,6 +105,33 @@ def thread_names() -> Dict[int, str]:
 def set_enabled(value: bool) -> None:
     global _enabled
     _enabled = value
+
+
+# ---- the torch profiler bridge ----------------------------------------------
+
+def _torch_profiling() -> bool:
+    """Whether a ``torch.profiler`` runs in this process (none can before
+    torch is imported; the flag read costs about 0.1 us)."""
+    ap = sys.modules.get("torch.autograd.profiler")
+    return ap is not None and ap._is_profiler_enabled
+
+
+def tracing() -> bool:
+    """Whether :class:`timed` records its spans: the profiler is enabled
+    (:func:`set_enabled`) and a ``torch.profiler`` runs in the process.
+    Callers read it once per epoch or pull, not per span."""
+    return _enabled and _torch_profiling()
+
+
+def _open_range(name: str, args: Optional[Dict[str, Any]] = None):
+    """An entered ``torch.profiler`` range named ``name`` (call only while
+    a profiler runs: an unconditional range costs about 10 us)."""
+    ap = sys.modules["torch.autograd.profiler"]
+    text = None if not args else \
+        " ".join(f"{k}={v}" for k, v in args.items())
+    rf = ap.record_function(name, text)
+    rf.__enter__()
+    return rf
 
 
 # ---- trace context -----------------------------------------------------------
@@ -212,11 +247,88 @@ def trace(name: str, category: str = "app", **args):
         return
     span = open_span(name, category, **args)
     token = _ctx.set(span_context(span))
+    rf = _open_range(name, args) if _torch_profiling() else None
     try:
         yield
     finally:
+        if rf is not None:
+            rf.__exit__(None, None, None)
         _ctx.reset(token)
         close_span(span)
+
+
+class Walls:
+    """Sums of :class:`timed` walls by key, thread-safe: what an epoch
+    report reads. :meth:`take` snapshots AND resets, so each epoch reports
+    its own."""
+
+    KEYS: Tuple[str, ...] = ()
+
+    def __init__(self, keys: Tuple[str, ...] = ()):
+        self._lock = threading.Lock()
+        self._acc = dict.fromkeys(keys or self.KEYS, 0.0)
+
+    def add(self, key: str, dt: float) -> None:
+        with self._lock:
+            self._acc[key] = self._acc.get(key, 0.0) + dt
+
+    def take(self) -> Dict[str, float]:
+        with self._lock:
+            out = dict(self._acc)
+            for k in self._acc:
+                self._acc[k] = 0.0
+        return out
+
+
+class timed:
+    """The timing primitive of the train loop and the feed:
+    ``with timed(name, on, walls, key) as t:`` measures the body's wall on
+    ``time.perf_counter`` (``t.t0`` its start, ``t.dt`` its length) and
+    adds it into ``walls`` under ``key`` (when given), whatever ``on`` says.
+
+    Only when ``on`` (:func:`tracing`, read by the caller) does it also
+    record the body as a ring span, with parent and trace id as
+    :func:`trace`'s and the same wall as its duration (whole us), and open
+    a ``torch.profiler`` range of the same name. ``ring=True`` records the
+    ring span whenever the profiler is enabled, traced or not (one a
+    train epoch). ``args`` ride on both the span and the range."""
+
+    __slots__ = ("name", "on", "walls", "key", "category", "ring", "args",
+                 "t0", "dt", "_span", "_token", "_range")
+
+    def __init__(self, name: str, on: bool, walls: Optional[Walls] = None,
+                 key: Optional[str] = None, category: str = "training",
+                 ring: bool = False, **args):
+        self.name = name
+        self.on = on
+        self.walls = walls
+        self.key = key
+        self.category = category
+        self.ring = ring
+        self.args = args
+        self.t0 = self.dt = 0.0
+        self._span = self._token = self._range = None
+
+    def __enter__(self) -> "timed":
+        if _enabled and (self.on or self.ring):
+            self._span = open_span(self.name, self.category, **self.args)
+            self._token = _ctx.set(span_context(self._span))
+        if self.on:
+            self._range = _open_range(self.name, self.args)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.dt = time.perf_counter() - self.t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        if self._span is not None:
+            _ctx.reset(self._token)
+            self._span["dur"] = int(round(self.dt * 1e6))
+            _append(self._span)
+        if self.walls is not None:
+            self.walls.add(self.key, self.dt)
+        return False
 
 
 def spans() -> List[Dict[str, Any]]:
@@ -444,13 +556,29 @@ def collect_chrome_trace(path: Optional[str] = None,
     return out
 
 
+def _all_threads_config():
+    """The ``torch.profiler`` option that records every thread's ranges
+    (``profile_all_threads``), or None where the installed torch lacks it:
+    without it a profiler sees no range of a thread started after it began,
+    such as the feed's."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 @contextlib.contextmanager
 def torch_trace(log_dir: Optional[str] = None, device=None):
     """Capture a ``torch.profiler`` trace around the body: CPU activity
     always, CUDA activity when ``device`` is a card (``None`` means the
-    card, as every entry point of the port). The Chrome trace is written on
-    exit to ``<log_dir>/torch-<pid>-<n>.json``; ``log_dir`` defaults to
-    ``<session>/traces/torch``. Yields ``log_dir``."""
+    card, as every entry point of the port), and every thread's ranges
+    where the installed torch offers it, so the feed threads' spans lie
+    beside the train loop's and the card's kernels on one timeline. The
+    Chrome trace is written on exit to ``<log_dir>/torch-<pid>-<n>.json``;
+    ``log_dir`` defaults to ``<session>/traces/torch``. Yields
+    ``log_dir``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -466,7 +594,9 @@ def torch_trace(log_dir: Optional[str] = None, device=None):
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    config = _all_threads_config()
+    kwargs = {} if config is None else {"experimental_config": config}
+    with profile(activities=activities, **kwargs) as prof:
         yield log_dir
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -25,8 +25,8 @@ conventions):
   planes; result-ref keys stay in sync with ``engine._result_refs``.
 - ``exc-contract`` — every ``RemoteError.exc_type`` string comparison names
   a real exception class (repo, builtin, or allowlisted external).
-- ``telemetry-registry`` — every literal ``profiler.trace(...)`` span name,
-  ``metrics.*`` metric name (with the right kind), and flight-recorder
+- ``telemetry-registry`` — every literal ``profiler.trace(...)`` or
+  ``profiler.timed(...)`` span name, ``metrics.*`` metric name (with the right kind), and flight-recorder
   event kind is declared in ``raydp_tpu_torch/metrics.py``, and the generated
   tables in raydp_tpu_torch/doc/observability.md are fresh.
 

@@ -6,7 +6,8 @@ with the right kind, and the generated tables in
 Five checks:
 
 1. **Span names** — a literal first argument of ``profiler.trace(...)`` /
-   ``profiler.open_span(...)`` must be a registered span name (or fall
+   ``profiler.open_span(...)`` / ``profiler.timed(...)`` must be a
+   registered span name (or fall
    under a registered dynamic family prefix like ``task:``). F-string span
    names are skipped — the registry documents their family via the prefix
    rows.
@@ -38,7 +39,7 @@ RULE = "telemetry-registry"
 
 _METRIC_FUNCS = {"inc": "counter", "set_gauge": "gauge",
                  "observe": "histogram"}
-_SPAN_FUNCS = ("trace", "open_span")
+_SPAN_FUNCS = ("trace", "open_span", "timed")
 _REGEN = "python -m raydp_tpu_torch.metrics --write-docs"
 
 

@@ -156,6 +156,63 @@ class Accumulators:
                 t.copy_(new[k])
 
 
+class DispatchTimes:
+    """Timing CUDA events on the compute stream at the start and end of each
+    dispatch of an epoch (a :class:`StepRunner` call, or a step or chain the
+    loop runs eagerly), taken from a pool kept across epochs. The loop
+    records them only while tracing (:func:`~raydp_tpu_torch.profiler.
+    tracing`) and reads them (:meth:`read`) after the epoch's loss read has
+    waited for the card, so they add no synchronisation."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._pool: List[tuple] = []
+        #: the optimizer steps of each dispatch recorded this epoch
+        self._steps: List[int] = []
+        self._stream = None
+
+    def begin(self) -> None:
+        """Start an epoch: forget the last one's dispatches."""
+        self._steps = []
+        self._stream = torch.cuda.current_stream(self.device)
+
+    def start(self) -> None:
+        i = len(self._steps)
+        if i == len(self._pool):
+            self._pool.append((torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+        self._pool[i][0].record(self._stream)
+
+    def end(self, n_steps: int) -> None:
+        self._pool[len(self._steps)][1].record(self._stream)
+        self._steps.append(n_steps)
+
+    def read(self) -> Dict[str, float]:
+        """``device_s``: the dispatches' device time, each end less its
+        start; ``gap_s``: the card's idle between one dispatch's end and the
+        next one's start, summed (the host was late); ``step_device_max_ms``:
+        the slowest dispatch's device time per optimizer step. Empty when no
+        dispatch was recorded.
+
+        One stream orders the events, so each gap is the next start less
+        the last end, never negative, and their sum is the first start to
+        the last end less ``device_s``: one elapsed-time read a dispatch,
+        not two (each read costs about 10 us under a profiler, while the
+        card waits for the next epoch). A start is recorded before its
+        dispatch is launched: where the card had run dry, a slow launch
+        counts as the dispatch's device time."""
+        pairs = self._pool[:len(self._steps)]
+        if not pairs:
+            return {}
+        times = [a.elapsed_time(b) for a, b in pairs]
+        device = sum(times)
+        span = pairs[0][0].elapsed_time(pairs[-1][1])
+        return {"device_s": device / 1e3,
+                "gap_s": max(0.0, span - device) / 1e3,
+                "step_device_max_ms": max(
+                    t / n for t, n in zip(times, self._steps))}
+
+
 class StepRunner:
     """See the module docstring. ``body(inputs)`` runs one call's steps on
     ``inputs`` (a dict of tensors, maybe empty: a resident step reads its
@@ -174,7 +231,9 @@ class StepRunner:
     replays on CUDA, direct calls on the CPU) and ``replayed_steps``, the
     optimizer steps they ran; ``eager_steps``, the steps of calls run on
     their own inputs (the warm-up, and calls of another shape);
-    ``capture_s``, the capture's wall."""
+    ``capture_s``, the capture's wall. ``events``, a
+    :class:`DispatchTimes` the loop sets while tracing (None otherwise),
+    times each call on the card."""
 
     def __init__(self, body: Callable[[Dict[str, torch.Tensor]], None],
                  device: torch.device, label: str,
@@ -198,11 +257,21 @@ class StepRunner:
         self._graph = None
         self._host_steps: List[torch.Tensor] = []
         self._pending_steps = 0
+        self.events: Optional[DispatchTimes] = None
 
     def __call__(self, inputs: Dict[str, torch.Tensor],
                  n_steps: int = 1) -> None:
         """Run one call of the body; ``n_steps`` is how many optimizer
         steps it takes (the host step counters' advance per replay)."""
+        events = self.events
+        if events is None:
+            self._call(inputs, n_steps)
+            return
+        events.start()
+        self._call(inputs, n_steps)
+        events.end(n_steps)
+
+    def _call(self, inputs: Dict[str, torch.Tensor], n_steps: int) -> None:
         if self._static is None:
             if self.eager_steps == 0:
                 self.body(inputs)      # the warm-up: the fit's first step

@@ -127,7 +127,6 @@ import inspect
 import math
 import os
 import tempfile
-import time
 from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -162,7 +161,8 @@ from raydp_tpu_torch.train.estimator import (
 )
 from raydp_tpu_torch.train.metrics import Metric, build_metrics
 from raydp_tpu_torch.train.step_graph import (
-    Accumulators, StepRunner, graphs_allowed, prepare_optimizer,
+    Accumulators, DispatchTimes, StepRunner, graphs_allowed,
+    prepare_optimizer,
 )
 
 logger = get_logger("train.torch_estimator")
@@ -536,15 +536,18 @@ def _counts(*runners) -> tuple:
 
 
 def _dispatch_record(epoch: int, before: tuple, after: tuple,
-                     loop_eager_steps: int) -> Dict[str, float]:
+                     loop_eager_steps: int,
+                     timing: Dict[str, float]) -> Dict[str, float]:
     """How one epoch dispatched: the train and eval runners' counters
-    after it less before it, plus the steps the loop ran eagerly itself."""
+    after it less before it, plus the steps the loop ran eagerly itself,
+    and ``timing``: ``lead_s`` always, and while traced on a card
+    :meth:`DispatchTimes.read`'s keys."""
     (r0, s0, e0, c0), (er0, *_) = before
     (r1, s1, e1, c1), (er1, *_) = after
     return {"epoch": epoch, "graph_replays": r1 - r0,
             "graph_steps": s1 - s0,
             "eager_steps": e1 - e0 + loop_eager_steps,
-            "capture_s": c1 - c0, "eval_replays": er1 - er0}
+            "capture_s": c1 - c0, "eval_replays": er1 - er0, **timing}
 
 
 def _materialize_optimizer_state(state: TrainState) -> None:
@@ -1363,61 +1366,90 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             _materialize_optimizer_state(state)
             if adopt(None):
                 logger.info("resuming from checkpoint step %d", epoch - 1)
+        times = DispatchTimes(device) if device.type == "cuda" else None
         while epoch < self.num_epochs:
             try:
                 rule = faults.check("estimator.epoch", key=str(epoch))
                 if rule is not None:  # chaos provokes the retry path here
                     faults.apply(rule, "estimator.epoch")
-                t0 = time.perf_counter()
-                gang.COMM.take()
-                acc.reset()
-                before = _counts(run_train, run_eval)
-                steps, samples, eager_steps = 0, 0, 0
-                t_feed = t_disp = 0.0
-                if plan is not None:
-                    td = time.perf_counter()
-                    plan.begin(epoch_seed(self.seed, epoch))
-                    for _ in range(plan.steps):
-                        run_train({})
-                    # the loss read INSIDE this window, so dispatch_time_s
-                    # carries the epoch's device time
-                    acc.loss.item()
-                    t_disp = time.perf_counter() - td
-                    steps = plan.steps
-                    samples = plan.steps * self.batch_size
-                else:
-                    feed.set_epoch(epoch)
-                    it = feed.chained(chain)
-                    while True:
-                        tf = time.perf_counter()
-                        item = next(it, None)
-                        t_feed += time.perf_counter() - tf
-                        if item is None:
-                            break
-                        td = time.perf_counter()
-                        stack, k = item
-                        if run_train is not None:
-                            run_train(stack, n_steps=k)
-                        elif chain > 1:
-                            _chain(step)(stack)
-                            eager_steps += k
-                        else:
-                            step(stack)
-                            eager_steps += 1
-                        t_disp += time.perf_counter() - td
-                        steps += k
-                        samples += self.batch_size * k
+                # spans and the card's dispatch times only while a torch
+                # profiler runs: read once an epoch
+                on = profiler.tracing()
+                events = times if on else None
+                if events is not None:
+                    events.begin()
                 if run_train is not None:
-                    run_train.flush()
-                # the one host read of the epoch's loss: it waits for the
-                # device, so the epoch wall includes the device work; a gang
-                # first sums its ranks' shares
-                ts = time.perf_counter()
-                if in_gang:
-                    _all_reduce_sums(acc, batch_group)
-                train_loss = float(acc.loss) / steps if steps else math.nan
-                t_sync = time.perf_counter() - ts
-                dt = time.perf_counter() - t0
+                    run_train.events = events
+                #: the epoch report's walls: sums of the loop's timed spans
+                walls = profiler.Walls(("feed", "dispatch", "sync"))
+                first = None  # the first dispatch's start
+                with profiler.timed("train:epoch", on, ring=True,
+                                    epoch=epoch) as ep:
+                    gang.COMM.take()
+                    acc.reset()
+                    before = _counts(run_train, run_eval)
+                    steps, samples, eager_steps = 0, 0, 0
+                    if plan is not None:
+                        plan.begin(epoch_seed(self.seed, epoch))
+                        for _ in range(plan.steps):
+                            with profiler.timed("train:dispatch", on, walls,
+                                                "dispatch") as d:
+                                run_train({})
+                            if first is None:
+                                first = d.t0
+                        # the loss read INSIDE the dispatch wall, so
+                        # dispatch_time_s carries the epoch's device time
+                        with profiler.timed("train:sync", on, walls,
+                                            "dispatch"):
+                            acc.loss.item()
+                        steps = plan.steps
+                        samples = plan.steps * self.batch_size
+                    else:
+                        feed.set_epoch(epoch)
+                        it = feed.chained(chain)
+                        while True:
+                            with profiler.timed("train:feed_wait", on, walls,
+                                                "feed"):
+                                item = next(it, None)
+                            if item is None:
+                                break
+                            stack, k = item
+                            with profiler.timed("train:dispatch", on, walls,
+                                                "dispatch") as d:
+                                if run_train is not None:
+                                    run_train(stack, n_steps=k)
+                                else:
+                                    if events is not None:
+                                        events.start()
+                                    if chain > 1:
+                                        _chain(step)(stack)
+                                    else:
+                                        step(stack)
+                                    if events is not None:
+                                        events.end(k)
+                                    eager_steps += k
+                            if first is None:
+                                first = d.t0
+                            steps += k
+                            samples += self.batch_size * k
+                    if run_train is not None:
+                        run_train.flush()
+                    # the one host read of the epoch's loss: it waits for
+                    # the device, so the epoch wall includes the device
+                    # work; a gang first sums its ranks' shares
+                    with profiler.timed("train:sync", on, walls, "sync"):
+                        if in_gang:
+                            _all_reduce_sums(acc, batch_group)
+                        train_loss = float(acc.loss) / steps if steps \
+                            else math.nan
+                dt = ep.dt
+                wall = walls.take()
+                # the card's idle before the epoch's first dispatch: the
+                # last epoch ended in a loss read that waited for it
+                timing = {"lead_s": first - ep.t0 if first is not None
+                          else dt}
+                if events is not None:
+                    timing.update(events.read())
                 rdt_metrics.observe("train_epoch_seconds", dt)
                 # the optimizer makes its state at its first step
                 rdt_metrics.set_gauge(
@@ -1432,30 +1464,31 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                     "steps": steps,
                     "samples_per_s": samples / dt if dt > 0 else 0.0,
                     "epoch_time_s": dt,
-                    "feed_time_s": t_feed,
+                    "feed_time_s": wall["feed"],
                     "decode_time_s": pipe.get("decode", 0.0),
                     "stage_time_s": pipe.get("stage", 0.0),
                     "h2d_time_s": pipe.get("h2d", 0.0),
-                    "dispatch_time_s": t_disp,
-                    "sync_time_s": t_sync,
+                    "dispatch_time_s": wall["dispatch"],
+                    "sync_time_s": wall["sync"],
                 }
                 for m, s in zip(metrics, acc.stats):
                     report[f"train_{m.name}"] = m.compute(_host_stats(s))
 
                 if eval_feed is not None or eval_plan is not None:
-                    eacc.reset()
-                    if eval_plan is not None:
-                        eval_plan.begin(0)  # unused: shuffle=False
-                        for _ in range(eval_plan.steps):
-                            run_eval({})
-                        if eval_tail is not None:
-                            estep(eval_tail)
-                    else:
-                        for batch in eval_feed:
-                            estep(batch)
-                    if in_gang:
-                        _all_reduce_sums(eacc, batch_group)
-                    rows = float(eacc.count)  # real rows only
+                    with profiler.timed("train:eval", on):
+                        eacc.reset()
+                        if eval_plan is not None:
+                            eval_plan.begin(0)  # unused: shuffle=False
+                            for _ in range(eval_plan.steps):
+                                run_eval({})
+                            if eval_tail is not None:
+                                estep(eval_tail)
+                        else:
+                            for batch in eval_feed:
+                                estep(batch)
+                        if in_gang:
+                            _all_reduce_sums(eacc, batch_group)
+                        rows = float(eacc.count)  # real rows only
                     report["eval_loss"] = (float(eacc.loss) / rows) if rows \
                         else math.nan
                     for m, s in zip(metrics, eacc.stats):
@@ -1468,7 +1501,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                     report["allreduce_time_s"] = gang.COMM.take()
 
                 dispatch.append(_dispatch_record(
-                    epoch, before, _counts(run_train, run_eval), eager_steps))
+                    epoch, before, _counts(run_train, run_eval), eager_steps,
+                    timing))
                 history.append(report)
                 for cb in self.callbacks:
                     cb(report)
@@ -1477,10 +1511,11 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                              for k, v in report.items()})
                 if save_epoch_now(epoch, self.checkpoint_interval,
                                   self.num_epochs):
-                    ckpt.save(ckpt_dir, state.state_dict(), step=epoch,
-                              extra={"history": history}, gang=in_gang,
-                              layout=_layout(state, mesh) if sharded
-                              else None)
+                    with profiler.timed("train:checkpoint", on):
+                        ckpt.save(ckpt_dir, state.state_dict(), step=epoch,
+                                  extra={"history": history}, gang=in_gang,
+                                  layout=_layout(state, mesh) if sharded
+                                  else None)
                     last_written_step = epoch
                 epoch += 1
             except (KeyboardInterrupt, SystemExit):
@@ -1532,15 +1567,16 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                           device=self.device, shuffle=False,
                           drop_remainder=False,
                           prefetch_to_device=self.prefetch_to_device)
-        t0 = time.perf_counter()
-        acc = o["acc"]
-        acc.reset()
-        steps = 0
-        for batch in feed:
-            o["step"](batch)
-            steps += 1
-        train_loss = float(acc.loss) / steps if steps else math.nan
-        dt = time.perf_counter() - t0
+        with profiler.timed("train:epoch", profiler.tracing(), ring=True,
+                            epoch=epoch) as ep:
+            acc = o["acc"]
+            acc.reset()
+            steps = 0
+            for batch in feed:
+                o["step"](batch)
+                steps += 1
+            train_loss = float(acc.loss) / steps if steps else math.nan
+        dt = ep.dt
         pipe = feed.timings.take()
         report = {
             "epoch": epoch,
