@@ -30,7 +30,12 @@ keep their backend.
    port never calls, PyTorch's ``scaled_dot_product_attention`` (its
    backward for the two backward kernels); with ``--baseline DIR`` it also
    times DIR's three kernels against this checkout's at the flagship shape,
-   in turns;
+   in turns; then the row-sparse table update (``csrc/row_sparse.cu``) at
+   the DLRM cell's step (26 tables, 32,768 zipf(1.3) lookups each, one id
+   looked up 20,000 times) against the update in f64 within f32's
+   summation bound, two runs bitwise equal, rows not looked up unmoved,
+   and its time beside its byte bound and beside ``index_add_`` a table
+   (``kernel row_sparse_apply``);
 3. full-width TransformerLM inference (dim 1024, 8 heads, 8 layers, vocab
    32768, bf16 activations, f32 params from a seeded generator) on three
    batches of B=2, T=8192 tokens through ``attention="flash"``; checks
@@ -58,7 +63,10 @@ keep their backend.
    rows, embedding 32, bottom 512-128-32, top 1024-1024-512-256-1,
    BCE-with-logits, the ``optax.adagrad(1e-2)`` mapping, bf16): 120,000
    seeded Criteo-shaped rows, batch 4096, 4 resident and 2 streaming
-   epochs, the same lines and the falling loss;
+   epochs, the same lines and the falling loss; then 4 resident epochs
+   under plain SGD (lr 0.1), every table on the row-sparse path, and a
+   profiled SGD epoch whose device trace holds one launch of each
+   row-sparse kernel a step (``row_sparse_apply``'s ``launches``);
 7. the main path fed from the object store: the port's runtime (head and
    two actors, the arena of 1 GiB in /dev/shm required, its g++ build
    included) is started and timed, with one cold and one warm-forked actor
@@ -416,7 +424,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "raydp_tpu/ops/flash_attention.py:190"),
     "flash_attention_bwd_dq": ("raydp_tpu_torch/csrc/flash_attention_bwd.cu",
                                "raydp_tpu/ops/flash_attention.py:227"),
+    "row_sparse_apply": ("raydp_tpu_torch/csrc/row_sparse.cu",
+                         "none: XLA's dense table update under optax"),
 }
+#: the kernels :func:`launches` counts
+FLASH_KERNELS = tuple(KERNELS)[:3]
 
 
 def require(ok: bool, what: str) -> None:
@@ -470,7 +482,9 @@ def rates(bound: dict, ms: float) -> dict:
             "bound_share": bound["bound_ms"] / ms}
 
 
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "row_sparse")
+#: the sources ``--baseline`` builds from the other checkout
+BASELINE_SOURCES = SOURCES[:2]
 # the bf16 kernels that must run on the tensor cores, per source
 TC_KERNELS = {"flash_attention_fwd": ("fwd_tc_kernel",),
               "flash_attention_bwd": ("dkdv_tc_kernel", "dq_tc_kernel")}
@@ -490,7 +504,7 @@ def build_kernels(fa, baseline_root=None):
     jobs = [(_build.build, name) for name in SOURCES]
     if baseline_root is not None:
         jobs += [(lambda name: build_baseline(baseline_root, name), name)
-                 for name in SOURCES]
+                 for name in BASELINE_SOURCES]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda job: timed(*job), jobs))
     for i, ((_, name), (lib, seconds)) in enumerate(zip(jobs, built)):
@@ -498,7 +512,9 @@ def build_kernels(fa, baseline_root=None):
         if i < len(SOURCES):             # this checkout's: ptxas, SASS
             log = lib.with_suffix(".log").read_text().strip()
             print(log)
-            check_tensor_cores(name, log, mma_counts(lib))
+            counts = mma_counts(lib)
+            if name in TC_KERNELS:
+                check_tensor_cores(name, log, counts)
     fa._fwd_entry()
     fa._bwd_entries()
     if baseline_root is None:
@@ -741,6 +757,102 @@ def check_bwd_kernels(fa, device, gen, baseline=None) -> dict:
         del q3, k3, v3, do, out, lse, delta, dq, dk, dv, q4, k4, v4, out4
         torch.cuda.empty_cache()
     return main
+
+
+#: phase 2's row-sparse check: the DLRM cell's step (26 tables of 128
+#: columns, 32,768 zipf(1.3) lookups each) on tables of ROW_SPARSE_ROWS rows,
+#: a few cut to 1, 2 and 8 rows as the cell's smallest are, and table 0's
+#: first 20,000 lookups one id
+ROW_SPARSE_TABLES, ROW_SPARSE_BATCH, ROW_SPARSE_DIM = 26, 32768, 128
+ROW_SPARSE_ROWS, ROW_SPARSE_HOT = 200_000, 20_000
+
+
+def check_row_sparse(device) -> dict:
+    """Phase 2: the row-sparse update (``ops/row_sparse.py``,
+    ``csrc/row_sparse.cu``) at the DLRM cell's step against the update in
+    f64, within f32's summation bound for any order of the sums
+    (``_rounding_bound``: the kernel sums in chunks of 64 lookups, the
+    reference in order); two runs bitwise equal; timed: the kernel pair on
+    the sorted keys beside its byte bound (each looked-up gradient row, key
+    and position read once, each distinct table row read and written once,
+    at 3.35 TB/s), the whole update (key packing, the one sort, the pair),
+    the plain version on the card, and ``index_add_``, the one PyTorch call
+    a table that computes the same update (``library_ms``)."""
+    from raydp_tpu_torch.ops import row_sparse as rs
+
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    sizes = [ROW_SPARSE_ROWS] * ROW_SPARSE_TABLES
+    sizes[5], sizes[12], sizes[8] = 1, 2, 8
+    weights = [torch.randn(r, ROW_SPARSE_DIM, device=device, generator=gen)
+               for r in sizes]
+    indices = []
+    for t, r in enumerate(sizes):
+        ids = (rng.zipf(1.3, ROW_SPARSE_BATCH) - 1) % r
+        if t == 0:
+            ids[:ROW_SPARSE_HOT] = r // 2
+        indices.append(torch.from_numpy(ids).long().to(device))
+    values = [torch.randn(ROW_SPARSE_BATCH, ROW_SPARSE_DIM, device=device,
+                          generator=gen) for _ in sizes]
+    alphas = [-0.1] * ROW_SPARSE_TABLES
+    exact = [w.double() for w in weights]
+    rs._apply_plain(exact, indices, [v.double() for v in values], alphas)
+    bounds = rs._rounding_bound(exact, indices, values, alphas)
+    runs = []
+    for _ in range(2):
+        got = [w.clone() for w in weights]
+        rs.apply_rows(got, indices, values, alphas)
+        runs.append(got)
+    torch.cuda.synchronize()
+    tol_used = 0.0
+    for g, e, b in zip(runs[0], exact, bounds):
+        # an exact element uses none of its bound, even a bound of 0 (a
+        # weight drawn as 0.0 that no lookup moved)
+        gap = (g.double() - e).abs()
+        tol_used = max(tol_used,
+                       float(torch.where(gap == 0, 0.0, gap / b).max()))
+    repeatable = all(torch.equal(a, b) for a, b in zip(*runs))
+    untouched = True
+    for w, g, i in zip(weights, runs[0], indices):
+        keep = torch.ones(len(w), dtype=torch.bool, device=device)
+        keep[i] = False
+        untouched = untouched and torch.equal(g[keep], w[keep])
+    del exact, bounds, runs
+    args = rs._prepare(weights, indices, values, alphas)
+    n = ROW_SPARSE_TABLES * ROW_SPARSE_BATCH
+    distinct = int(torch.unique(args[1]).numel())
+    # the one sort, of the packed keys
+    packed = torch.cat([i + (t << args[3]) for t, i in enumerate(indices)])
+    sort_ms = time_ms(lambda: torch.sort(packed, stable=True))
+    nbytes = (n * ROW_SPARSE_DIM * 4 + 16 * n
+              + 2 * distinct * ROW_SPARSE_DIM * 4)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    kernel_ms = time_ms(lambda: rs._run(*args))
+    ms = time_ms(lambda: rs.apply_rows(weights, indices, values, alphas))
+    plain_ms = time_ms(lambda: rs._apply_plain(weights, indices, values,
+                                               alphas), reps=3)
+
+    def library():
+        # one PyTorch call a table (atomic adds: no fixed order)
+        for w, i, v, a in zip(weights, indices, values, alphas):
+            w.index_add_(0, i, v, alpha=a)
+
+    library_ms = time_ms(library)
+    row = {"tables": ROW_SPARSE_TABLES, "batch": ROW_SPARSE_BATCH,
+           "dim": ROW_SPARSE_DIM, "lookups": n, "distinct_rows": distinct,
+           "hot_run": ROW_SPARSE_HOT, "tol_used": tol_used,
+           "repeatable": repeatable, "untouched_rows_equal": untouched,
+           "kernel_ms": kernel_ms, "sort_ms": sort_ms, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_share": bound_ms / kernel_ms,
+           "gb_per_s": nbytes / kernel_ms * 1e-6}
+    print("kernel row_sparse_apply " + json.dumps(row))
+    require(tol_used <= 1.0, f"row-sparse update outside its bound: {row}")
+    require(repeatable, f"two row-sparse updates differ: {row}")
+    require(untouched, f"the row-sparse update moved a row not looked up: "
+                       f"{row}")
+    return row
 
 
 def build_baseline(root: str, name: str):
@@ -1141,14 +1253,17 @@ class EpochProfile:
             self.wall_s = time.perf_counter() - self.t0
             self.prof.stop()
 
-    def summary(self, label: str, steady_wall_s: float) -> dict:
+    def summary(self, label: str, steady_wall_s: float,
+                count=()) -> dict:
         """Print the window's wall, the device's busy time (the union of
         its kernel and copy intervals; user annotations such as
         ``Optimizer.step#Adam.step`` span gaps between kernels and are left
         out), the idle share against the window and against
         ``steady_wall_s`` (an unprofiled epoch's wall: the profiler's own
         host work lengthens the window) and the top kernels; return the
-        numbers."""
+        numbers, with ``launches``: for each name in ``count``, the
+        launches of the kernels whose name holds it (a graph's replays
+        included)."""
         cuda = torch.autograd.DeviceType.CUDA
         events = [e for e in self.prof.events() if e.device_type == cuda]
         notes = {e.name for e in events if e.is_user_annotation}
@@ -1173,7 +1288,9 @@ class EpochProfile:
                "steady_wall_ms": steady_wall_s * 1e3,
                "idle_share_steady": 1.0 - busy_ms / (steady_wall_s * 1e3),
                "kernel_ms": total_us / 1e3,
-               "device_ops": sum(e.count for e in kernels)}
+               "device_ops": sum(e.count for e in kernels),
+               "launches": {name: sum(e.count for e in kernels
+                                      if name in e.key) for name in count}}
         print(f"profile {label}: wall {wall_ms:.3f} ms (unprofiled epoch "
               f"{out['steady_wall_ms']:.3f} ms), device busy {busy_ms:.3f} "
               f"ms, idle {100 * out['idle_share']:.1f} % of the window, "
@@ -1249,11 +1366,12 @@ def steady_rate(epochs: list) -> float:
 def fit_and_report(label: str, make_estimator, dataset, epochs: int,
                    *, cache: bool = True, profile_epoch=None,
                    steady_wall_s=None, max_retries: int = 0,
-                   frame_kw=None):
+                   frame_kw=None, count_kernels=()):
     """One TorchEstimator fit on the card, the residency gate forced
     (``cache``); prints each epoch's report, the peak device memory and,
     with ``profile_epoch``, that epoch's profile (its idle share also
-    against ``steady_wall_s``, an unprofiled epoch's wall). With
+    against ``steady_wall_s``, an unprofiled epoch's wall; the launches of
+    the kernels named in ``count_kernels``). With
     ``frame_kw`` (a dict, maybe empty) ``dataset`` is an ETL DataFrame and
     the fit is ``fit_on_frame(dataset, **frame_kw)``. Returns (estimator,
     result, numbers)."""
@@ -1304,7 +1422,7 @@ def fit_and_report(label: str, make_estimator, dataset, epochs: int,
     if prof is not None:
         numbers["profile"] = prof.summary(
             f"{label} epoch {profile_epoch}",
-            steady_wall_s or numbers["steady_epoch_s"])
+            steady_wall_s or numbers["steady_epoch_s"], count_kernels)
     return est, result, numbers
 
 
@@ -1529,16 +1647,17 @@ def dlrm_model(vocab: int = DLRM_VOCAB):
                 device="cpu", generator=torch.Generator().manual_seed(SEED))
 
 
-def dlrm_estimator(model, epochs, callbacks, shuffle=True, **kw):
+def dlrm_estimator(model, epochs, callbacks, shuffle=True, optimizer=None,
+                   **kw):
     """bench.py's DLRM estimator: BCE with logits, the optax.adagrad(1e-2)
-    mapping, bf16 compute, batch 4096 (``kw``: more estimator
-    arguments)."""
+    mapping unless ``optimizer`` is given, bf16 compute, batch 4096 (``kw``:
+    more estimator arguments)."""
     from raydp_tpu_torch.models import criteo_batch_preprocessor
     from raydp_tpu_torch.train import TorchEstimator
 
     return TorchEstimator(
-        model=model, optimizer=lambda p: torch.optim.Adagrad(
-            p, lr=1e-2, initial_accumulator_value=0.1, eps=0.0),
+        model=model, optimizer=optimizer or (lambda p: torch.optim.Adagrad(
+            p, lr=1e-2, initial_accumulator_value=0.1, eps=0.0)),
         loss="bce_with_logits", feature_columns=DLRM_DENSE + DLRM_CATS,
         label_column="_c0", feature_dtype=np.float64,
         batch_size=DLRM_BATCH, num_epochs=epochs, shuffle=shuffle,
@@ -1547,10 +1666,18 @@ def dlrm_estimator(model, epochs, callbacks, shuffle=True, **kw):
         callbacks=list(callbacks), checkpoint_interval=epochs, **kw)
 
 
+#: the row-sparse update's kernels, as the device trace names them
+ROW_SPARSE_KERNELS = ("segment_sum_kernel", "combine_kernel")
+
+
 def run_dlrm(fa):
     """Phase 6: DLRM at bench.py's widths through TorchEstimator, bf16
-    compute, the optax.adagrad(1e-2) mapping. Returns the numbers and a
-    function that profiles one steady resident epoch."""
+    compute, the optax.adagrad(1e-2) mapping; then resident under plain SGD
+    (lr 0.1), whose tables take the row-sparse path (every epoch's dispatch
+    record: 26 row-sparse tables, none dense). Returns the numbers and a
+    function that profiles one steady resident epoch of each: under SGD it
+    counts the row-sparse kernels' launches on the device trace, one pair
+    a step, replays included (``row_sparse_launches``)."""
     from raydp_tpu_torch.data import TableDataset
 
     dataset = TableDataset(criteo_tables(DLRM_ROWS, DLRM_BLOCKS, SEED))
@@ -1564,6 +1691,10 @@ def run_dlrm(fa):
     def make(epochs):
         return lambda cb: dlrm_estimator(model, epochs, cb)
 
+    def make_sgd(epochs):
+        return lambda cb: dlrm_estimator(
+            model, epochs, cb, optimizer=lambda p: torch.optim.SGD(p, lr=0.1))
+
     out = {"params": n_params}
     zero_launches(fa)
     _, _, out["bf16_resident"] = fit_and_report(
@@ -1571,15 +1702,36 @@ def run_dlrm(fa):
     _, _, out["bf16_streaming"] = fit_and_report(
         "dlrm bf16 streaming", make(DLRM_STREAM_EPOCHS), dataset,
         DLRM_STREAM_EPOCHS, cache=False)
+    _, sgd, out["bf16_resident_sgd"] = fit_and_report(
+        "dlrm bf16 resident sgd", make_sgd(DLRM_EPOCHS), dataset, DLRM_EPOCHS)
+    tables = [(d["row_sparse_tables"], d["dense_tables"])
+              for d in sgd.dispatch]
+    print(f"dlrm sgd tables (row-sparse, dense) an epoch: {tables}")
+    require(tables == [(len(DLRM_CATS), 0)] * DLRM_EPOCHS,
+            f"dlrm sgd tables: {tables}")
     counts = launches(fa)
     require(not any(counts.values()), f"dlrm launched {counts}")
 
     def profile():
-        return fit_and_report(
+        adagrad = fit_and_report(
             "dlrm bf16 resident profiled", make(2), dataset, 2,
             profile_epoch=1,
             steady_wall_s=out["bf16_resident"]["steady_epoch_s"])[2][
                 "profile"]
+        _, result, numbers = fit_and_report(
+            "dlrm bf16 resident sgd profiled", make_sgd(2), dataset, 2,
+            profile_epoch=1,
+            steady_wall_s=out["bf16_resident_sgd"]["steady_epoch_s"],
+            count_kernels=ROW_SPARSE_KERNELS)
+        epoch = result.dispatch[1]
+        steps = epoch["graph_steps"] + epoch["eager_steps"]
+        counted = numbers["profile"].get("launches")
+        out["row_sparse_launches"] = {"steps": steps, "launches": counted}
+        print(f"dlrm sgd profiled epoch: {steps} steps, row-sparse kernel "
+              f"launches {counted}")
+        require(counted == dict.fromkeys(ROW_SPARSE_KERNELS, steps),
+                f"dlrm sgd row-sparse launches: {out['row_sparse_launches']}")
+        return adagrad
 
     return out, profile
 
@@ -5321,7 +5473,7 @@ def run_long_context(fa) -> dict:
                 for k in r0["ring_vs_flash"]), f"longctx ring: {r0}")
     # the causal skip: rank 0 folds its own block, rank 1 both
     require([r["launches"] for r in ring] == [
-        dict.fromkeys(KERNELS, 1), dict.fromkeys(KERNELS, 2)],
+        dict.fromkeys(FLASH_KERNELS, 1), dict.fromkeys(FLASH_KERNELS, 2)],
         f"longctx ring launches: {ring}")
 
     lm = [r["lm"] for r in ranks]
@@ -5363,7 +5515,7 @@ def run_long_context(fa) -> dict:
     require(p0["out_steps_used"] <= 1.0 and p0["grad_rel_l2"]
             <= PIPE_GRAD_REL, f"longctx pipeline: {p0}")
     ticks = PIPE_MICRO + 1
-    require(all(r["launches"] == dict.fromkeys(KERNELS, ticks)
+    require(all(r["launches"] == dict.fromkeys(FLASH_KERNELS, ticks)
                 for r in pipe), f"longctx pipeline launches: {pipe}")
 
     out["estimator"] = pipeline_estimator()
@@ -5933,7 +6085,7 @@ def nccl_lm() -> dict:
         require(len(ratios) == NCCL_LM_STEPS
                 and all(r <= TP_PARAM_BF16_STEPS for r, _ in ratios),
                 f"cards (f) {name} gradients: {out[name]}")
-        require(all(g["launches"] == dict.fromkeys(KERNELS, n)
+        require(all(g["launches"] == dict.fromkeys(FLASH_KERNELS, n)
                     for g, n in zip(got, want_launches[name])),
                 f"cards (f) {name} launches: {out[name]['launches']}, "
                 f"expected {want_launches[name]} of each")
@@ -5986,7 +6138,7 @@ def nccl_ring(phase15: Optional[dict]) -> dict:
                 <= SPLIT_BF16_STEPS * r0["flash_vs_f32"][k]
                 for k in r0["ring_vs_flash"]), f"cards (g) ring: {r0}")
     require([r["launches"] for r in ring] == [
-        dict.fromkeys(KERNELS, 1), dict.fromkeys(KERNELS, 2)],
+        dict.fromkeys(FLASH_KERNELS, 1), dict.fromkeys(FLASH_KERNELS, 2)],
         f"cards (g) ring launches: {ring}")
     return out
 
@@ -6133,6 +6285,7 @@ def main() -> int:
         rows = {"flash_attention_fwd": check_kernel(fa, device, gen,
                                                     baseline),
                 **check_bwd_kernels(fa, device, gen, baseline)}
+        rows["row_sparse_apply"] = check_row_sparse(device)
     # phases 5-15 are bound by the host's kernel launches: their timed
     # fits and requests run before any torch.profiler session of this
     # process (phases 3-4 profile, and so do 5-6 at their end), so no
@@ -6210,11 +6363,16 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         k = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
-             "launches": train["launches"][name] if train else None,
              **{key: rows[name][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "tflops", "bound_share", "baseline_ms",
                  "speedup") if name in rows and key in rows[name]}}
+        if name not in FLASH_KERNELS:
+            # phase 6's profiled SGD epoch: launches against its steps
+            k["launches"] = done.get("dlrm", {}).get("row_sparse_launches")
+            kernels.append(k)
+            continue
+        k["launches"] = train["launches"][name] if train else None
         if "sharding" in done:
             # phase 14 (d): each tensor rank's attention at HEADS / 2 heads
             k["launches_tensor_parallel"] = [

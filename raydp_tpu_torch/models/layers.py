@@ -85,9 +85,14 @@ class _Dense(nn.Module):
 class _Embed(nn.Module):
     """Flax ``Embed``: an f32 table, rows returned in ``dtype``. ``split``
     (set by :class:`~raydp_tpu_torch.parallel.shard.ShardedModule` on a
-    table split by rows or columns) looks the ids up in the rank's shard."""
+    table split by rows or columns) looks the ids up in the rank's shard.
+    ``row_sparse`` (set by :func:`~raydp_tpu_torch.train.step_graph.
+    use_row_sparse` while the estimator trains a table that a row-wise SGD
+    updates) makes the table's gradient a sparse COO tensor of the
+    looked-up rows instead of a dense one of the whole table."""
 
     split = None
+    row_sparse = False
 
     def __init__(self, num: int, dim: int, dtype: Optional[torch.dtype],
                  device: torch.device):
@@ -101,7 +106,8 @@ class _Embed(nn.Module):
             self.embedding.shape[1]), generator=generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        rows = (F.embedding(tokens, self.embedding) if self.split is None
+        rows = (F.embedding(tokens, self.embedding, sparse=self.row_sparse)
+                if self.split is None
                 else self.split.lookup(tokens, self.embedding))
         return rows if self.dtype is None else rows.to(self.dtype)
 

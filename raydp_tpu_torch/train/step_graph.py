@@ -26,6 +26,8 @@ refused; nothing falls back to eager.
 The body updates its state in place: the model and optimizer, and the
 pass's sums in :class:`Accumulators`. An optimizer whose state a graph
 would freeze is made capturable, or refused, by :func:`prepare_optimizer`.
+An embedding table that a row-wise SGD updates takes a row-sparse gradient,
+applied by the optimizer's step (:func:`use_row_sparse`).
 
 In a training gang the step holds collectives: the gradient's all-reduce,
 BatchNorm's statistics, and in a sharded step (any ``fsdp``, ``expert``,
@@ -49,13 +51,15 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from raydp_tpu_torch import metrics as rdt_metrics
 from raydp_tpu_torch import profiler
+from raydp_tpu_torch.models.layers import _Embed
+from raydp_tpu_torch.ops.row_sparse import apply_rows, takes
 
 
 def graphs_allowed(mesh) -> bool:
@@ -109,6 +113,91 @@ def prepare_optimizer(optimizer: torch.optim.Optimizer, graphed: bool) -> None:
         f"'capturable' option, and the port does not know its host state; "
         f"use an optimizer with one (Adam, AdamW, RMSprop, ...), Adagrad "
         f"with lr_decay=0, or SGD")
+
+
+def _row_wise_sgd(group: Dict) -> bool:
+    """Whether an SGD param group moves a parameter by ``lr`` times its
+    gradient and nothing else, so that a row whose gradient is zero does
+    not move: no momentum, weight decay or Nesterov (``maximize`` flips the
+    sign), and a float ``lr``."""
+    return (group["momentum"] == 0 and group["weight_decay"] == 0
+            and not group["nesterov"] and not torch.is_tensor(group["lr"]))
+
+
+def use_row_sparse(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                   accum: int) -> Tuple[_Embed, ...]:
+    """Put each :class:`~raydp_tpu_torch.models.layers._Embed` table of
+    ``model`` whose update is row-wise on the row-sparse path and return
+    them: their lookups then make sparse COO gradients of the step's rows
+    (their ``row_sparse`` set, :func:`set_row_sparse`), and a step pre-hook
+    (:class:`RowSparseStep`, registered after the hooks the optimizer
+    already has) applies them. A table qualifies when the step takes one
+    microbatch (``accum`` 1), the table is whole (``split`` None) and
+    trainable, and its param group belongs to a ``torch.optim.SGD`` that
+    :func:`_row_wise_sgd` accepts; the path engages when the kernel takes
+    every qualifying table (:func:`~raydp_tpu_torch.ops.row_sparse.takes`:
+    at most 64 f32 tables of one width, a multiple of 4). Every other table
+    keeps its dense gradient and the optimizer's own update; the caller
+    decides for a fit of one process only (a gang sums dense gradients
+    over its ranks)."""
+    if accum != 1 or type(optimizer) is not torch.optim.SGD:
+        return ()
+    group_of = {p: g for g in optimizer.param_groups for p in g["params"]}
+    tables = tuple(m for m in model.modules() if isinstance(m, _Embed)
+                   and m.split is None and m.embedding.requires_grad
+                   and m.embedding in group_of
+                   and _row_wise_sgd(group_of[m.embedding]))
+    if not tables or not takes([m.embedding for m in tables]):
+        return ()
+    set_row_sparse(tables, True)
+    optimizer.register_step_pre_hook(
+        RowSparseStep([m.embedding for m in tables]))
+    return tables
+
+
+def set_row_sparse(tables: Sequence[_Embed], on: bool) -> None:
+    """The row-sparse lookup of ``tables`` (:func:`use_row_sparse`'s) on
+    while the estimator trains them, off once a fit hands them back: the
+    user may train the module under another optimizer."""
+    for m in tables:
+        m.row_sparse = on
+
+
+def table_counts(model: torch.nn.Module) -> Dict[str, int]:
+    """The ``_Embed`` tables of ``model`` on the row-sparse path and those
+    left dense."""
+    flags = [m.row_sparse for m in model.modules() if isinstance(m, _Embed)]
+    return {"row_sparse_tables": sum(flags),
+            "dense_tables": len(flags) - sum(flags)}
+
+
+class RowSparseStep:
+    """The step pre-hook of an optimizer that holds row-sparse tables
+    (:func:`use_row_sparse`): every table's sparse gradient applied in one
+    call of :func:`~raydp_tpu_torch.ops.row_sparse.apply_rows`, with the
+    step ``-lr`` (``+lr`` under ``maximize``) of the table's group, read at
+    each call (a replay keeps the one read at the capture, as SGD's own
+    pass keeps its float ``lr``); then the gradient is dropped, so that
+    SGD's pass, which follows, updates the other parameters only. A table
+    whose gradient is dense (the zero step that makes an optimizer's state
+    before a restore) is left to SGD."""
+
+    def __init__(self, tables: Sequence[torch.nn.Parameter]):
+        self.tables = list(tables)
+
+    @torch.no_grad()
+    def __call__(self, optimizer, args, kwargs) -> None:
+        live = [p for p in self.tables
+                if p.grad is not None and p.grad.is_sparse]
+        if not live:
+            return
+        group_of = {p: g for g in optimizer.param_groups for p in g["params"]}
+        steps = [group_of[p]["lr"] * (1.0 if group_of[p]["maximize"] else -1.0)
+                 for p in live]
+        apply_rows(live, [p.grad._indices()[0] for p in live],
+                   [p.grad._values() for p in live], steps)
+        for p in live:
+            p.grad = None
 
 
 def _host_step_counters(optimizer) -> List[torch.Tensor]:

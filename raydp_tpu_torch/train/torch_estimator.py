@@ -162,7 +162,7 @@ from raydp_tpu_torch.train.estimator import (
 from raydp_tpu_torch.train.metrics import Metric, build_metrics
 from raydp_tpu_torch.train.step_graph import (
     Accumulators, DispatchTimes, StepRunner, graphs_allowed,
-    prepare_optimizer,
+    prepare_optimizer, set_row_sparse, table_counts, use_row_sparse,
 )
 
 logger = get_logger("train.torch_estimator")
@@ -173,11 +173,14 @@ class TrainState:
     """The trained module and its optimizer. After a sharded fit, ``specs``
     maps each parameter to the spec it was trained under (the reference's
     vocabulary, ``.sharding.spec`` as a tuple; each rank's shard is in
-    ``TrainingResult.ranks``)."""
+    ``TrainingResult.ranks``). ``row_sparse``: the embedding tables the
+    optimizer updates row-sparse (``step_graph.use_row_sparse``), their
+    sparse lookup on only while the estimator trains the state."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     specs: Optional[Dict[str, tuple]] = None
+    row_sparse: Tuple[nn.Module, ...] = ()
 
     def state_dict(self) -> Dict[str, Any]:
         return {"model": self.model.state_dict(),
@@ -196,7 +199,9 @@ class TrainingResult:
     #: how each epoch that ran dispatched its steps (retried epochs
     #: included): ``graph_replays`` and ``graph_steps`` (the train steps
     #: those replays ran), ``eager_steps``, ``capture_s`` of a capture made
-    #: in the epoch, ``eval_replays``
+    #: in the epoch, ``eval_replays``, ``row_sparse_tables`` and
+    #: ``dense_tables`` (the model's embedding tables on the row-sparse
+    #: path and those left dense)
     dispatch: List[Dict[str, float]] = field(default_factory=list)
     #: a gang's ranks, in rank order: ``backend`` (its process group's),
     #: ``param_bytes`` (the parameters, buffers and optimizer state the
@@ -540,8 +545,8 @@ def _dispatch_record(epoch: int, before: tuple, after: tuple,
                      timing: Dict[str, float]) -> Dict[str, float]:
     """How one epoch dispatched: the train and eval runners' counters
     after it less before it, plus the steps the loop ran eagerly itself,
-    and ``timing``: ``lead_s`` always, and while traced on a card
-    :meth:`DispatchTimes.read`'s keys."""
+    and ``timing``: ``lead_s`` always, while traced on a card
+    :meth:`DispatchTimes.read`'s keys, and the model's table counts."""
     (r0, s0, e0, c0), (er0, *_) = before
     (r1, s1, e1, c1), (er1, *_) = after
     return {"epoch": epoch, "graph_replays": r1 - r0,
@@ -925,12 +930,15 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
 
     # ------------------------------------------------------------------ build
     def _init_state(self, graphed: bool = False,
-                    mesh: Optional[Mesh] = None) -> TrainState:
+                    mesh: Optional[Mesh] = None,
+                    in_gang: bool = False) -> TrainState:
         """A fresh model (a copy of ``model``, or ``model_creator()``) placed
         on the fit's device under the ``train:place`` span — as this rank's
         shards of ``mesh`` when given (:class:`ShardedModule`) — and its
         optimizer from the factory over them, made capturable on CUDA
-        (``graphed``: the fit will capture its steps); the
+        (``graphed``: the fit will capture its steps); in a fit of one
+        process (no ``mesh``, not ``in_gang``) the tables that a row-wise
+        SGD updates take row-sparse gradients (:func:`use_row_sparse`); the
         ``train_param_bytes_per_process`` gauge is read after it."""
         with profiler.trace("train:place", "training"):
             model = copy.deepcopy(self._model) if self._model is not None \
@@ -945,10 +953,13 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             optimizer = factory(model.parameters())
             if self.device.type == "cuda":
                 prepare_optimizer(optimizer, graphed)
+            tables = use_row_sparse(model, optimizer, self._resolve_accum()) \
+                if mesh is None and not in_gang else ()
         rdt_metrics.set_gauge("train_param_bytes_per_process",
                               addressable_nbytes((model, optimizer)))
         return TrainState(model, optimizer,
-                          specs=None if mesh is None else model.specs)
+                          specs=None if mesh is None else model.specs,
+                          row_sparse=tables)
 
     def _columns(self) -> Dict:
         if self.columns_spec is not None:
@@ -1149,7 +1160,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
         chief = results[0]
         for name, value in chief["gauges"].items():
             rdt_metrics.set_gauge(name, value)
-        state = self._init_state()
+        state = self._init_state(in_gang=True)
         state.load_state_dict(chief["state"])
         state.specs = chief["specs"]
         self._result = TrainingResult(state=state, history=chief["history"],
@@ -1274,7 +1285,8 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
             and (cache is not None or chain > 1)
 
         def fresh_state() -> TrainState:
-            state = self._init_state(graphed, mesh if sharded else None)
+            state = self._init_state(graphed, mesh if sharded else None,
+                                     in_gang)
             if in_gang:
                 gang.sync_batchnorm(state.model, batch_group)
             return state
@@ -1502,7 +1514,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
 
                 dispatch.append(_dispatch_record(
                     epoch, before, _counts(run_train, run_eval), eager_steps,
-                    timing))
+                    {**timing, **table_counts(state.model)}))
                 history.append(report)
                 for cb in self.callbacks:
                     cb(report)
@@ -1541,6 +1553,7 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                     history = []
                     step, estep, run_train, run_eval = bind(state)
 
+        set_row_sparse(state.row_sparse, False)
         return state, history, dispatch
 
     # ------------------------------------------------------------ partial_fit
@@ -1567,15 +1580,20 @@ class TorchEstimator(EstimatorInterface, FrameEstimatorInterface):
                           device=self.device, shuffle=False,
                           drop_remainder=False,
                           prefetch_to_device=self.prefetch_to_device)
-        with profiler.timed("train:epoch", profiler.tracing(), ring=True,
-                            epoch=epoch) as ep:
-            acc = o["acc"]
-            acc.reset()
-            steps = 0
-            for batch in feed:
-                o["step"](batch)
-                steps += 1
-            train_loss = float(acc.loss) / steps if steps else math.nan
+        tables = o["state"].row_sparse
+        set_row_sparse(tables, True)
+        try:
+            with profiler.timed("train:epoch", profiler.tracing(), ring=True,
+                                epoch=epoch) as ep:
+                acc = o["acc"]
+                acc.reset()
+                steps = 0
+                for batch in feed:
+                    o["step"](batch)
+                    steps += 1
+                train_loss = float(acc.loss) / steps if steps else math.nan
+        finally:
+            set_row_sparse(tables, False)
         dt = ep.dt
         pipe = feed.timings.take()
         report = {

@@ -335,6 +335,53 @@ def test_dlrm_fit_and_predict_match_flax_with_adagrad(runtime, monkeypatch):
     np.testing.assert_allclose(got_p, ref_p, atol=1e-5)
 
 
+def test_dlrm_fit_matches_flax_with_sgd_on_the_row_sparse_path(
+        runtime, monkeypatch):
+    """DLRM through both estimators with the source's plain SGD
+    (``optax.sgd(0.1)`` against ``torch.optim.SGD(lr=0.1)``), from the same
+    weights over the same shuffled batches: every port table takes the
+    row-sparse path (a sparse gradient applied in the optimizer's step),
+    the reference updates its tables densely, and both end at the same
+    losses and parameters (summation order only: 1e-5)."""
+    monkeypatch.setenv("RDT_DEVICE_CACHE", "0")
+    sizes = [20, 20, 20]
+    widths = dict(embedding_dim=8, bottom_mlp=(16, 8), top_mlp=(32, 1))
+    train = _criteo_tables((200, 184), 5)
+    jm = JaxDLRM(categorical_sizes=sizes, **widths)
+    params = jax.tree.map(np.asarray, jm.init(
+        jax.random.PRNGKey(0), {"dense": jnp.zeros((1, 13)),
+                                "sparse": jnp.zeros((1, 3), jnp.int32)}
+    )["params"])
+    tm = DLRM(sizes, device="cpu", **widths)
+    tm.load_state_dict(dlrm_params_from_flax(params))
+    kw = dict(loss="bce_with_logits",
+              feature_columns=[f"_c{i}" for i in range(1, 17)],
+              label_column="_c0", feature_dtype=np.float64, batch_size=64,
+              num_epochs=2, metrics=["accuracy"], shuffle=True)
+    fest = FlaxEstimator(model=jm, optimizer=optax.sgd(0.1),
+                         batch_preprocessor=jax_prep(13), **kw)
+    ref = fest.fit(_ref_dataset(train))
+    test = TorchEstimator(
+        model=tm, optimizer=lambda p: torch.optim.SGD(p, lr=0.1),
+        batch_preprocessor=criteo_batch_preprocessor(13), device="cpu", **kw)
+    got = test.fit(TableDataset(train))
+    assert len(got.state.row_sparse) == len(sizes)
+    assert [(d["row_sparse_tables"], d["dense_tables"])
+            for d in got.dispatch] == [(len(sizes), 0)] * 2
+    _assert_histories_match(ref.history, got.history,
+                            ["train_loss", "train_accuracy"], rtol=1e-5)
+    assert ref.history[-1]["train_loss"] < ref.history[0]["train_loss"]
+    start = dlrm_params_from_flax(params)
+    want = dlrm_params_from_flax(jax.tree.map(
+        np.asarray, fest.get_model()["params"]))
+    have = test.get_model().state_dict()
+    assert set(want) == set(have) == set(start)
+    for name, value in want.items():
+        np.testing.assert_allclose(have[name].numpy(), value.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+        assert not torch.equal(value, start[name]), name
+
+
 def test_nyctaxi_etl_dataset_trains_both_estimators(session, tmp_path):
     """The reference's NYCTaxi ETL (examples/nyctaxi_features.py) on 3,000
     synthetic rows, converted once with ``from_frame`` and passed to both
